@@ -1,0 +1,16 @@
+"""or_cdchomp_tpu_torch: the CHOMP engine in PyTorch, with hand-written
+CUDA kernels for NVIDIA Hopper (sm_90a).
+
+A port of ``or_cdchomp_tpu`` (JAX on TPU), which stays the reference:
+module names mirror that package so each counterpart is easy to find.
+This package imports torch and numpy only.  The two kernels (fused SDF
+obstacle cost, all-pairs self-collision) are built from ``csrc/`` at
+first use on the card; on CPU tensors every kernel wrapper runs its
+plain PyTorch version instead.
+"""
+
+__version__ = "0.1.0"
+
+from or_cdchomp_tpu_torch.api import CHOMPModule, KinBody, Robot  # noqa: F401
+from or_cdchomp_tpu_torch.models.wam7 import wam7  # noqa: F401
+from or_cdchomp_tpu_torch.ops.voxelize import Scene  # noqa: F401

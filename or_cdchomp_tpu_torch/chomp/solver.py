@@ -1,0 +1,183 @@
+"""The CHOMP covariant-update solver over a problem batch (counterpart of
+or_cdchomp_tpu/chomp/solver.py, batch-native fixed-base path).
+
+One step (cd_chomp_iterate, chomp.c:430-683) on a (B,)-batched problem:
+
+ 1. workspace kinematics + obstacle/self cost gradient   (callbacks)
+ 2. G += A·T + B                                         (chomp.c:515-522)
+ 3. AG = A⁻¹·G                                           (chomp.c:524-531)
+ 4. T −= (1/λ)·AG                                        (chomp.c:604-605)
+ 5. joint-limit repair loop (≤1000 rounds)               (chomp.c:608-655)
+ 6. smoothness cost on the updated trajectory            (chomp.c:660-677)
+
+The m×m A/A⁻¹ products are dense matmuls shared across the batch;
+iterations are a Python loop.  Momentum/HMC, TSR constraints, the
+floating base and the semiseparable metric are not ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from or_cdchomp_tpu_torch.chomp import cost_soa
+from or_cdchomp_tpu_torch.chomp import metric as metric_mod
+from or_cdchomp_tpu_torch.models.robot import CompiledFK
+from or_cdchomp_tpu_torch.ops.selfcol import pair_table
+
+_MAX_LIMIT_FIXES = 1000  # chomp.c:608
+
+
+class ChompEngine:
+    """Static solver context on one device: spec + robot + fields + dense
+    metric operators.  One engine serves every problem that shares its
+    static structure; problems are batched along a leading axis."""
+
+    def __init__(self, spec, model, fields, dtype=torch.float32,
+                 device="cpu", metric_ops=None):
+        for flag in ("floating_base", "use_momentum", "use_hmc", "start_tsr"):
+            if getattr(spec, flag):
+                raise NotImplementedError(f"{flag}: not ported yet")
+        if (metric_mod.sep_eligible(spec.D, True)
+                and spec.m >= metric_mod.SEP_MIN_M):
+            raise NotImplementedError(
+                f"m={spec.m} >= {metric_mod.SEP_MIN_M} selects the "
+                "semiseparable metric, which is not ported yet")
+        self.spec = spec
+        self.dtype = dtype
+        self.device = torch.device(device)
+        self.fields = fields
+        if metric_ops is None:
+            metric_ops = metric_mod.build_metric(spec.m, spec.dt, D=spec.D)
+        self.metric_ops = metric_ops
+        self.A = torch.as_tensor(metric_ops.A, dtype=dtype, device=device)
+        self.Ainv = torch.as_tensor(metric_ops.Ainv, dtype=dtype,
+                                    device=device)
+
+        # active-block-first sphere order (orcdchomp_mod.cpp:2265-2299)
+        act = model.sphere_active_mask()
+        order = np.concatenate([np.where(act)[0], np.where(~act)[0]])
+        self._sphere_order = order
+        n_act = int(act.sum())
+        radii = model.sphere_radius[order]
+        self.radii_act = torch.as_tensor(radii[:n_act], dtype=dtype,
+                                         device=device)
+        same = model.sphere_same_link()[order][:, order][:n_act, :]
+        pi, pj, rsum = pair_table(same, radii[:n_act], radii)
+        self.pairs = (torch.as_tensor(pi, device=device),
+                      torch.as_tensor(pj, device=device),
+                      torch.as_tensor(rsum, dtype=dtype, device=device))
+        self.n_spheres_active = n_act
+        # FK restricted to the active spheres, in active-first order
+        self.fk = CompiledFK(model, dtype=dtype, device=device,
+                             sphere_subset=order[:n_act])
+
+    # -- metric ------------------------------------------------------------
+
+    def apply_A_b(self, X):
+        """A · X for X (B, m, n)."""
+        return torch.matmul(self.A, X)
+
+    def solve_A_b(self, G):
+        """A⁻¹ · G for G (B, m, n)."""
+        return torch.matmul(self.Ainv, G)
+
+    def build_affine(self, init0, final0, n):
+        """(B, trC, Evels) of one problem's endpoint values
+        (chomp.c:319-330, 348-386), float64 numpy."""
+        ops = self.metric_ops
+        B, trC = metric_mod.build_B_trC(ops, init0, final0, n)
+        Ev = metric_mod.build_Evels(ops, init0, final0, n)
+        return B, trC, Ev
+
+    def build_affine_batch(self, inits, finals, n):
+        """Vectorised :meth:`build_affine` over (P, n) endpoints: the
+        metric terms are linear in the endpoints
+        (metric.affine_generators).  Returns float64 numpy
+        (B (P, m, n), trC (P,), Evels (P, m, n))."""
+        m, dt = self.spec.m, self.spec.dt
+        inits = np.asarray(inits, dtype=np.float64)
+        finals = np.asarray(finals, dtype=np.float64)
+        P = finals.shape[0]
+        binit, bfinal, c_ii, c_if, c_ff = metric_mod.affine_generators(
+            self.metric_ops)
+        B = (bfinal[None, :, None] * finals[:, None, :]
+             + binit[None, :, None] * inits[:, None, :])
+        trC = (c_ff * np.sum(finals * finals, axis=1)
+               + c_ii * np.sum(inits * inits, axis=1)
+               + c_if * np.sum(inits * finals, axis=1))
+        Ev = np.zeros((P, m, n))
+        Ev[:, 0] = -0.5 / dt * inits
+        Ev[:, m - 1] = 0.5 / dt * finals
+        return B, trC, Ev
+
+    # -- joint limits --------------------------------------------------------
+
+    def _limit_repair_batched(self, T, lo, hi):
+        """Batched joint-limit repair (chomp.c:608-655): each problem
+        repairs its own worst violation per round (first index on ties,
+        as jnp.argmax); rounds continue while any problem still violates,
+        up to 1000.
+
+        A Python loop with one host sync per round (``pred.any()``), so
+        every step pays at least one sync; the masked fixed-budget form
+        that CUDA graphs need is later work.
+        """
+        B = T.shape[0]
+        lo = lo[:, None, :]
+        hi = hi[:, None, :]
+        for _ in range(_MAX_LIMIT_FIXES):
+            Gj = torch.where(T < lo, lo - T, 0.0) + \
+                torch.where(T > hi, hi - T, 0.0)
+            Gf = Gj.reshape(B, -1)
+            amax = torch.argmax(torch.abs(Gf), dim=1, keepdim=True)  # (B, 1)
+            gmax = torch.gather(Gf, 1, amax)[:, 0]
+            pred = torch.abs(gmax) > 0.0
+            if not bool(pred.any()):   # such a round would change nothing
+                break
+            GjA = self.solve_A_b(Gj)
+            denom = torch.gather(GjA.reshape(B, -1), 1, amax)[:, 0]
+            scale = 1.01 * gmax / torch.where(denom == 0.0, 1.0, denom)
+            T_new = T + scale[:, None, None] * GjA
+            T = torch.where(pred[:, None, None], T_new, T)
+        return T
+
+    # -- the step ------------------------------------------------------------
+
+    def step_batched(self, probs):
+        """One CHOMP iteration over a (B,)-batched problem.  Returns
+        (next_probs, costs (B, 3)) — [total, obstacle, smoothness], the
+        obstacle cost measured on the incoming trajectory, smoothness on
+        the updated one (chomp.c:475-491, 658-677)."""
+        m = self.spec.m
+        T_mov = probs.traj[:, 1:1 + m]                      # (B, m, n)
+
+        c_obs, G = cost_soa.total_cost_grad_batched(
+            self.spec, self.fk, self.fields, self.pairs, self.radii_act,
+            probs)
+        G = G + self.apply_A_b(T_mov) + probs.B
+        AG = self.solve_A_b(G)
+        T_mov = T_mov - AG / probs.lambda_[:, None, None]
+        T_mov = self._limit_repair_batched(T_mov, probs.jlimit_lower,
+                                           probs.jlimit_upper)
+        AT = self.apply_A_b(T_mov)
+        c_smooth = (0.5 * torch.sum(T_mov * AT, dim=(1, 2))
+                    + torch.sum(probs.B * T_mov, dim=(1, 2)) + probs.trC)
+
+        traj = torch.cat([probs.traj[:, :1], T_mov, probs.traj[:, 1 + m:]],
+                         dim=1)
+        new_probs = probs.replace(traj=traj, AG=AG,
+                                  iteration=probs.iteration + 1)
+        costs = torch.stack([c_obs + c_smooth, c_obs, c_smooth], dim=-1)
+        return new_probs, costs
+
+    def iterate_batched(self, probs, n_iter: int):
+        """n_iter steps; returns (probs, costs (B, n_iter, 3))."""
+        costs = []
+        for _ in range(n_iter):
+            probs, c = self.step_batched(probs)
+            costs.append(c)
+        if not costs:
+            B = probs.traj.shape[0]
+            return probs, probs.traj.new_zeros((B, 0, 3))
+        return probs, torch.stack(costs, dim=1)

@@ -1,0 +1,42 @@
+"""State carried across from numpy: build port tensors from arrays that
+another implementation produced (for example the JAX package's
+``ChompProblem`` as ``{k: np.asarray(v) for k, v in p._asdict().items()}``),
+so the same batch can be fed to both solvers."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from or_cdchomp_tpu_torch.chomp.problem import ChompProblem
+from or_cdchomp_tpu_torch.ops.grid import FieldStack
+
+
+def problem_from_numpy(d, device="cpu", dtype=torch.float64) -> ChompProblem:
+    """ChompProblem from a dict of numpy arrays keyed by field name.
+    Keys that are not fields of the port's problem (the HMC state) are
+    ignored; floating arrays are cast to ``dtype``."""
+    names = [f.name for f in dataclasses.fields(ChompProblem)]
+    missing = [k for k in names if k not in d]
+    if missing:
+        raise KeyError(f"problem arrays missing: {missing}")
+
+    def conv(a):
+        t = torch.as_tensor(np.array(a))
+        if t.is_floating_point():
+            t = t.to(dtype)
+        return t.to(device).contiguous()
+
+    return ChompProblem(**{k: conv(d[k]) for k in names})
+
+
+def fields_from_numpy(data, sizes, lengths, device="cpu",
+                      dtype=torch.float32) -> FieldStack:
+    """FieldStack from the padded field arrays (data (F, mx, my, mz),
+    sizes (F, 3), lengths (F, 3))."""
+    return FieldStack(
+        data=torch.as_tensor(np.array(data)).to(device, dtype).contiguous(),
+        sizes=torch.as_tensor(np.array(sizes, np.int32)).to(device),
+        lengths=torch.as_tensor(np.array(lengths)).to(device, dtype))

@@ -1,0 +1,121 @@
+"""Build and load the hand-written CUDA kernels (csrc/*.cu).
+
+The sources have a plain C interface: one ``nvcc`` call compiles them
+into a shared library, which ``ctypes`` loads.  The build runs at first
+use on a machine with the CUDA toolkit and an sm_90a (Hopper) card, and
+writes to ``or_cdchomp_tpu_torch/build/``.  The library file name holds
+a hash of the sources and flags, so a stale library is never loaded.
+
+Nothing here runs at import time: the CPU tests import every module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+_CSRC = _PKG / "csrc"
+_BUILD = _PKG / "build"
+_SOURCES = ("obstacle.cu", "selfcol.cu")
+# -fmad=false: the obstacle kernel must round every product and sum the
+# way the plain PyTorch version does, or a query sitting on a cell
+# centre picks the other one-sided neighbour (csrc/obstacle.cu).
+_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+          "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # data, F, mx, my, mz, sub, nbr, Q, out, stream
+    "cdx_sdf_cell_lookup": (_P, _I, _I, _I, _I, _P, _P, _I, _P, _P),
+    # x, vel, acc, m, S, B, data, F, mx, my, mz, sizes, lengths,
+    # pose_gsdf_world, pose_world_gsdf, field_enabled, radii, epsilon,
+    # obs_factor, cost, wgrad, dirs, stream
+    "cdx_obstacle": (_P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _P, _P,
+                     _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    # xi, vel, xo, m, Sa, SI, B, pair_i, pair_j, rsum, P, eps_self,
+    # obs_self, net, cost, stream
+    "cdx_selfcol": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P,
+                    _P, _P, _P),
+}
+
+_lib = None
+BUILD_LOG = ""   # nvcc/ptxas output of the build this process ran
+
+
+def _nvcc():
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit on the machine with the card")
+
+
+def build():
+    """Compile csrc/*.cu into build/ unless this exact build exists;
+    returns the library path.  Raises on a compiler error."""
+    global BUILD_LOG
+    srcs = [_CSRC / s for s in _SOURCES]
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    for s in srcs:
+        h.update(s.read_bytes())
+    lib = _BUILD / f"libcdx_kernels_{h.hexdigest()[:16]}.so"
+    if lib.exists():
+        return lib
+    _BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    BUILD_LOG = res.stdout + res.stderr
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{BUILD_LOG}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def library():
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, args in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def check(err, name):
+    """Raise if a launch returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def stream_ptr(t):
+    """The raw handle of PyTorch's current stream on ``t``'s device."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require(t, name, dtype, shape, device):
+    """Validate a tensor handed to a kernel: device, dtype, shape and
+    contiguity (the kernels index raw memory)."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

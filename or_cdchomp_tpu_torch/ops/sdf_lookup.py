@@ -1,0 +1,240 @@
+"""K1: the SDF cell lookup and the fused obstacle cost (csrc/obstacle.cu).
+
+Counterpart of or_cdchomp_tpu/ops/pallas_sdf.py (the raw 4-cell lookup)
+and of the obstacle phase of or_cdchomp_tpu/chomp/cost_soa.py
+(``_obstacle_soa``).  Each public function dispatches on the device of
+its tensors: CPU tensors go to the plain PyTorch version beside it, CUDA
+tensors to the hand-written kernel (or an error).  There is no fallback.
+
+``LAUNCHES`` / ``LOOKUP_LAUNCHES`` count kernel launches of
+:func:`obstacle` / :func:`sdf_cell_lookup`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from or_cdchomp_tpu_torch.ops import kernels, soa
+
+LAUNCHES = 0          # fused obstacle kernel launches
+LOOKUP_LAUNCHES = 0   # raw sdf_cell_lookup kernel launches
+
+_VEL_EPS = 1e-6       # ‖ẋ‖ guard, orcdchomp_mod.cpp:1226/1285
+
+
+# ---- raw 4-cell lookup (the Pallas kernel's contract) ----------------------
+
+def sdf_cell_lookup_ref(data, sub, nbr):
+    """Plain version of :func:`sdf_cell_lookup`."""
+    F, mx, my, mz = data.shape
+    flat = data.reshape(F, -1)
+
+    def at(x, y, z):
+        return torch.gather(flat, 1, ((x * my + y) * mz + z).long())
+
+    sx, sy, sz = sub.unbind(-1)
+    nx, ny, nz = nbr.unbind(-1)
+    return at(sx, sy, sz), at(nx, sy, sz), at(sx, ny, sz), at(sx, sy, nz)
+
+
+def sdf_cell_lookup(data, sub, nbr):
+    """Four cells per (field, query): the centre and one neighbour per
+    axis (libcd grid.c:331-454).
+
+    data: (F, mx, my, mz); sub, nbr: (F, Q, 3) int32 in-range centre and
+    neighbour subscripts.  Returns (v0, vnx, vny, vnz), each (F, Q), with
+    vnx = data[f, nbr_x, sub_y, sub_z] and so on.
+    """
+    global LOOKUP_LAUNCHES
+    if data.device.type == "cpu":
+        return sdf_cell_lookup_ref(data, sub, nbr)
+    if data.device.type != "cuda":
+        raise ValueError(f"sdf_cell_lookup: unsupported device {data.device}")
+    F, mx, my, mz = data.shape
+    Q = sub.shape[1]
+    dev = data.device
+    kernels.require(data, "data", torch.float32, (F, mx, my, mz), dev)
+    kernels.require(sub, "sub", torch.int32, (F, Q, 3), dev)
+    kernels.require(nbr, "nbr", torch.int32, (F, Q, 3), dev)
+    out = torch.empty((4, F, Q), dtype=torch.float32, device=dev)
+    lib = kernels.library()
+    err = lib.cdx_sdf_cell_lookup(
+        data.data_ptr(), F, mx, my, mz, sub.data_ptr(), nbr.data_ptr(),
+        Q, out.data_ptr(), kernels.stream_ptr(data))
+    kernels.check(err, "sdf_cell_lookup")
+    LOOKUP_LAUNCHES += 1
+    return out[0], out[1], out[2], out[3]
+
+
+# ---- fused obstacle cost ---------------------------------------------------
+
+def obstacle_ref(x, vel, acc, data, sizes, lengths, pose_gsdf_world,
+                 pose_world_gsdf, field_enabled, radii, epsilon, obs_factor,
+                 want_dirs=False):
+    """Plain version of :func:`obstacle` (same contract), written as
+    cost_soa.py:_obstacle_soa with true ±inf cells."""
+    dtype = x.dtype
+    _, m, S, B = x.shape
+    F, mx, my, mz = data.shape
+    flat = data.reshape(F, -1)
+    sizes_l = sizes.tolist()
+    xs, vs, as_ = tuple(x), tuple(vel), tuple(acc)
+    inf = torch.tensor(float("inf"), dtype=dtype, device=x.device)
+
+    def comps(pose):          # (B, 7) → 7 components of (B,)
+        return tuple(pose[:, i] for i in range(7))
+
+    best_v = best_g = None
+    dirs = []
+    for f in range(F):
+        pg = comps(pose_gsdf_world[:, f])
+        p = soa.add(soa.qrot(pg[3:], xs), pg[:3])            # (m, S, B)
+        ln = lengths[f]
+        in_b = None
+        sub, center, use_next, szf = [], [], [], []
+        for i in range(3):
+            sz = sizes_l[f][i]
+            szf_i = torch.tensor(float(sz), dtype=dtype, device=x.device)
+            xi = p[i] / ln[i]
+            ok = (xi >= 0.0) & (xi <= 1.0)
+            in_b = ok if in_b is None else (in_b & ok)
+            si = torch.clamp(torch.floor(xi * szf_i), 0, sz - 1)
+            si = si.to(torch.int32)
+            ci = (si.to(dtype) + 0.5) / szf_i * ln[i]
+            un = p[i] >= ci
+            un = torch.where(si == 0, True, un)
+            un = torch.where(si == sz - 1, False, un)
+            sub.append(si)
+            center.append(ci)
+            use_next.append(un)
+            szf.append(szf_i)
+        if want_dirs:
+            dirs.append(use_next[0].to(torch.int32)
+                        | (use_next[1].to(torch.int32) << 1)
+                        | (use_next[2].to(torch.int32) << 2))
+
+        def cell(cx, cy, cz):
+            idx = ((cx.long() * my + cy) * mz + cz).reshape(-1)
+            return flat[f].index_select(0, idx).reshape(m, S, B)
+
+        nb = [s + torch.where(u, 1, -1).to(torch.int32)
+              for s, u in zip(sub, use_next)]
+        v0 = cell(sub[0], sub[1], sub[2])
+        vn3 = (cell(nb[0], sub[1], sub[2]), cell(sub[0], nb[1], sub[2]),
+               cell(sub[0], sub[1], nb[2]))
+        any_inf = torch.isinf(v0)
+        value = v0
+        g = []
+        for i in range(3):
+            vn = vn3[i]
+            any_inf = any_inf | torch.isinf(vn)
+            sign = torch.where(use_next[i], 1.0, -1.0).to(dtype)
+            gi = sign * (vn - v0) * (szf[i] / ln[i])
+            g.append(gi)
+            value = value + gi * (p[i] - center[i])
+        bad = (~in_b) | any_inf | (~field_enabled[:, f])
+        value = torch.where(bad, inf, value)
+        g = tuple(torch.where(bad, 0.0, gi) for gi in g)
+
+        # rotate the gradient to world per field, before the min-select
+        pw = comps(pose_world_gsdf[:, f])
+        gw = soa.qrot(pw[3:], g)
+        if best_v is None:
+            best_v, best_g = value, gw
+        else:
+            take = value < best_v                 # strict: first wins ties
+            best_v = torch.where(take, value, best_v)
+            best_g = tuple(torch.where(take, a, b) for a, b in zip(gw, best_g))
+
+    has_field = torch.isfinite(best_v)
+    dist = torch.where(has_field, best_v, 0.0)
+    d = dist - radii[None, :, None]
+    eps = epsilon
+    v2 = soa.norm2(vs)
+    vnorm = torch.sqrt(v2)
+
+    # hinge cost scaled by workspace speed (orcdchomp_mod.cpp:1201-1205)
+    c_in = obs_factor * (0.5 * eps - d)
+    c_mid = obs_factor * (0.5 / eps) * (d - eps) ** 2
+    cost = vnorm * torch.where(d < 0.0, c_in,
+                               torch.where(d < eps, c_mid, 0.0))
+    cost = torch.where(has_field, cost, 0.0)
+
+    # cost-slope scaling (orcdchomp_mod.cpp:1218-1223)
+    slope = torch.where(d < 0.0, -1.0,
+                        torch.where(d < eps, d / eps - 1.0, 0.0))
+    sc = torch.where(has_field, slope * vnorm * obs_factor, 0.0)
+    x_grad = soa.scale(best_g, sc)
+
+    # projection off the velocity + curvature (orcdchomp_mod.cpp:1225-1241)
+    safe = vnorm > _VEL_EPS
+    v2s = torch.where(safe, v2, 1.0)
+    proj = torch.where(safe, soa.dot(x_grad, vs) / v2s, 0.0)
+    x_grad = soa.sub(x_grad, soa.scale(vs, proj))
+    aproj = torch.where(safe, soa.dot(as_, vs) / v2s, 0.0)
+    curv = soa.scale(soa.sub(as_, soa.scale(vs, aproj)),
+                     torch.where(safe, 1.0 / v2s, 0.0))
+    x_grad = soa.sub(x_grad, soa.scale(curv, cost))
+    wgrad = torch.stack(soa.scale(x_grad, vnorm))
+    if want_dirs:
+        return cost, wgrad, torch.stack(dirs)
+    return cost, wgrad
+
+
+def obstacle(x, vel, acc, data, sizes, lengths, pose_gsdf_world,
+             pose_world_gsdf, field_enabled, radii, epsilon, obs_factor,
+             want_dirs=False):
+    """SoA obstacle cost and workspace gradient over F padded fields.
+
+    x, vel, acc: (3, m, S, B) sphere positions, velocities and
+    accelerations.  data (F, mx, my, mz) padded field stack (+inf
+    padding), sizes (F, 3) int32 true sizes, lengths (F, 3); per problem
+    pose_gsdf_world / pose_world_gsdf (B, F, 7), field_enabled (B, F)
+    bool, epsilon / obs_factor (B,); radii (S,).
+
+    Returns (cost (m, S, B), wgrad (3, m, S, B)): the ‖ẋ‖-scaled hinge
+    cost per (point, sphere) and the ‖ẋ‖-scaled workspace gradient
+    (cost_soa.py:_obstacle_soa).  ``want_dirs`` adds the one-sided
+    neighbour choice per field, (F, m, S, B) int32 with bit i set when
+    axis i uses the next cell — a check of the subscript arithmetic.
+    """
+    global LAUNCHES
+    if x.device.type == "cpu":
+        return obstacle_ref(x, vel, acc, data, sizes, lengths,
+                            pose_gsdf_world, pose_world_gsdf, field_enabled,
+                            radii, epsilon, obs_factor, want_dirs)
+    if x.device.type != "cuda":
+        raise ValueError(f"obstacle: unsupported device {x.device}")
+    _, m, S, B = x.shape
+    F, mx, my, mz = data.shape
+    dev = x.device
+    f32 = torch.float32
+    for name, t in (("x", x), ("vel", vel), ("acc", acc)):
+        kernels.require(t, name, f32, (3, m, S, B), dev)
+    kernels.require(data, "data", f32, (F, mx, my, mz), dev)
+    kernels.require(sizes, "sizes", torch.int32, (F, 3), dev)
+    kernels.require(lengths, "lengths", f32, (F, 3), dev)
+    kernels.require(pose_gsdf_world, "pose_gsdf_world", f32, (B, F, 7), dev)
+    kernels.require(pose_world_gsdf, "pose_world_gsdf", f32, (B, F, 7), dev)
+    kernels.require(field_enabled, "field_enabled", torch.bool, (B, F), dev)
+    kernels.require(radii, "radii", f32, (S,), dev)
+    kernels.require(epsilon, "epsilon", f32, (B,), dev)
+    kernels.require(obs_factor, "obs_factor", f32, (B,), dev)
+    cost = torch.empty((m, S, B), dtype=f32, device=dev)
+    wgrad = torch.empty((3, m, S, B), dtype=f32, device=dev)
+    dirs = (torch.empty((F, m, S, B), dtype=torch.int32, device=dev)
+            if want_dirs else None)
+    lib = kernels.library()
+    err = lib.cdx_obstacle(
+        x.data_ptr(), vel.data_ptr(), acc.data_ptr(), m, S, B,
+        data.data_ptr(), F, mx, my, mz, sizes.data_ptr(),
+        lengths.data_ptr(), pose_gsdf_world.data_ptr(),
+        pose_world_gsdf.data_ptr(), field_enabled.data_ptr(),
+        radii.data_ptr(), epsilon.data_ptr(), obs_factor.data_ptr(),
+        cost.data_ptr(), wgrad.data_ptr(),
+        dirs.data_ptr() if want_dirs else None, kernels.stream_ptr(x))
+    kernels.check(err, "obstacle")
+    LAUNCHES += 1
+    if want_dirs:
+        return cost, wgrad, dirs
+    return cost, wgrad

@@ -1,0 +1,115 @@
+"""K2: all-pairs sphere self-collision (csrc/selfcol.cu).
+
+Counterpart of or_cdchomp_tpu/ops/pallas_selfcol.py (``selfcol_pairs``,
+dense variant): the same (net, cost) contract, with the allowed pairs
+given as a compacted ordered list instead of an (Sa, So) mask.
+:func:`selfcol_pairs` dispatches on the device of its tensors: CPU
+tensors go to :func:`selfcol_pairs_ref`, CUDA tensors to the kernel (or
+an error).  There is no fallback.
+
+``LAUNCHES`` counts kernel launches of :func:`selfcol_pairs`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from or_cdchomp_tpu_torch.ops import kernels
+
+LAUNCHES = 0
+
+
+def pair_table(same_link, radii_act, radii_all):
+    """Ordered pair list of the pairs that carry cost: (i active, j any
+    sphere of the active-then-inactive order) with ``same_link[i, j]``
+    false, i-major and j ascending — the order the Pallas kernel walks
+    them.  Returns (pair_i, pair_j) int32 and rsum = r_i + r_j float64,
+    all numpy (P,)."""
+    same = np.asarray(same_link, dtype=bool)
+    ii, jj = np.nonzero(~same)
+    rsum = (np.asarray(radii_act, np.float64)[ii]
+            + np.asarray(radii_all, np.float64)[jj])
+    return ii.astype(np.int32), jj.astype(np.int32), rsum
+
+
+def selfcol_pairs_ref(xi, vel, xo, pair_i, pair_j, rsum, eps_self, obs_self):
+    """Plain version of :func:`selfcol_pairs` (same contract)."""
+    _, m, Sa, B = xi.shape
+    SI = xo.shape[1]
+    x_all = torch.cat([xi, xo[:, None].expand(3, m, SI, B)], dim=2)
+    pi = pair_i.long()
+    pj = pair_j.long()
+    inv_eps = 1.0 / eps_self
+    v2 = vel[0] * vel[0] + vel[1] * vel[1] + vel[2] * vel[2]
+    vn = torch.sqrt(v2)
+    safe = vn > 1e-6
+    inv_v2 = torch.where(safe, 1.0 / torch.where(safe, v2, 1.0), 0.0)
+    ofv = obs_self * vn                                   # (m, Sa, B)
+
+    diff = xi[:, :, pi] - x_all[:, :, pj]                 # (3, m, P, B)
+    d2 = diff[0] * diff[0] + diff[1] * diff[1] + diff[2] * diff[2]
+    inv_cd = torch.rsqrt(torch.clamp(d2, min=1e-24))
+    d = d2 * inv_cd - rsum[:, None]
+    ok = d <= eps_self
+    de = d - eps_self
+    c_h = torch.where(d < 0.0, 0.5 * eps_self - d, 0.5 * de * de * inv_eps)
+    ofv_p = ofv[:, pi]
+    cost_pair = torch.where(ok, c_h, 0.0) * ofv_p
+    slope = torch.where(d < 0.0, -1.0, d * inv_eps - 1.0)
+    w1 = torch.where(ok, slope * ofv_p * inv_cd, 0.0)
+    vp = vel[:, :, pi]
+    bv = vp[0] * diff[0] + vp[1] * diff[1] + vp[2] * diff[2]
+    w2 = torch.where(safe[:, pi], w1 * bv * inv_v2[:, pi], 0.0)
+    g = w1 * diff - w2 * vp                               # (3, m, P, B)
+
+    net = torch.zeros_like(xi).index_add_(2, pi, g)
+    act = pj < Sa
+    net.index_add_(2, pj[act], -g[:, :, act])
+    cost = torch.zeros_like(xi[0]).index_add_(1, pi, cost_pair)
+    return net, cost
+
+
+def selfcol_pairs(xi, vel, xo, pair_i, pair_j, rsum, eps_self, obs_self):
+    """Self-collision net workspace gradient and per-sphere cost.
+
+    xi, vel: (3, m, Sa, B) active sphere positions / velocities; xo
+    (3, SI, B) inactive sphere positions (SI may be 0); pair_i, pair_j
+    (P,) int32 and rsum (P,) from :func:`pair_table`, pair_j indexing the
+    active-then-inactive order and sorted by pair_i; eps_self, obs_self
+    (B,).
+
+    Returns (net (3, m, Sa, B), cost (m, Sa, B)): per (point, active
+    sphere) the summed workspace gradient and the pair cost scaled by
+    obs_factor_self·‖ẋ_i‖ (pallas_selfcol.py:selfcol_pairs).
+    """
+    global LAUNCHES
+    if xi.device.type == "cpu":
+        return selfcol_pairs_ref(xi, vel, xo, pair_i, pair_j, rsum,
+                                 eps_self, obs_self)
+    if xi.device.type != "cuda":
+        raise ValueError(f"selfcol_pairs: unsupported device {xi.device}")
+    _, m, Sa, B = xi.shape
+    SI = xo.shape[1]
+    P = pair_i.shape[0]
+    dev = xi.device
+    f32 = torch.float32
+    kernels.require(xi, "xi", f32, (3, m, Sa, B), dev)
+    kernels.require(vel, "vel", f32, (3, m, Sa, B), dev)
+    kernels.require(xo, "xo", f32, (3, SI, B), dev)
+    kernels.require(pair_i, "pair_i", torch.int32, (P,), dev)
+    kernels.require(pair_j, "pair_j", torch.int32, (P,), dev)
+    kernels.require(rsum, "rsum", f32, (P,), dev)
+    kernels.require(eps_self, "eps_self", f32, (B,), dev)
+    kernels.require(obs_self, "obs_self", f32, (B,), dev)
+    net = torch.empty((3, m, Sa, B), dtype=f32, device=dev)
+    cost = torch.empty((m, Sa, B), dtype=f32, device=dev)
+    lib = kernels.library()
+    err = lib.cdx_selfcol(
+        xi.data_ptr(), vel.data_ptr(), xo.data_ptr(), m, Sa, SI, B,
+        pair_i.data_ptr(), pair_j.data_ptr(), rsum.data_ptr(), P,
+        eps_self.data_ptr(), obs_self.data_ptr(), net.data_ptr(),
+        cost.data_ptr(), kernels.stream_ptr(xi))
+    kernels.check(err, "selfcol_pairs")
+    LAUNCHES += 1
+    return net, cost

@@ -1,0 +1,131 @@
+"""The port's CHOMPModule against the JAX package's: create's problem on
+the bench scene, and the error probe set (same message strings)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import or_cdchomp_tpu as oc
+from or_cdchomp_tpu.api import KinBody as JaxKinBody, Robot as JaxRobot
+
+import or_cdchomp_tpu_torch as pt
+from or_cdchomp_tpu_torch.api import KinBody, Robot
+from or_cdchomp_tpu_torch.parallel.batch import problem_batch_from_grid
+
+START = np.array([2.5, -1.8, 0.0, 2.0, 0.0, 0.2, 0.0])
+GOAL = np.array([0.4, 0.6, 0.1, 1.3, 0.0, -0.5, 0.0])
+
+
+def _scene(pkg, kinbody, robot_cls, with_field=True, **mod_kw):
+    mod = pkg.CHOMPModule(**mod_kw)
+    mod.add_kinbody(kinbody("table", pkg.Scene.build(
+        boxes=[((0.75, 0.0, 0.5, 0, 0, 0, 1), (0.25, 0.4, 0.02)),
+               ((0.75, 0.0, 0.25, 0, 0, 0, 1), (0.08, 0.08, 0.25))])))
+    mod.add_kinbody(kinbody("mug", pkg.Scene.build(
+        cylinders=[((0.65, 0.15, 0.58, 0, 0, 0, 1), 0.04, 0.06)])))
+    robot = robot_cls("wam", pkg.wam7(), q_active=START.copy())
+    mod.add_robot(robot)
+    if with_field:
+        robot.enabled = False
+        mod.computedistancefield(kinbody="table", cube_extent=0.04)
+        robot.enabled = True
+    return mod
+
+
+@pytest.fixture(scope="module")
+def mods():
+    return (_scene(pt, KinBody, Robot, dtype=torch.float64),
+            _scene(oc, JaxKinBody, JaxRobot, dtype=jnp.float64))
+
+
+@pytest.mark.parametrize("n_points", [11, 101])
+def test_create_matches_jax(mods, n_points):
+    tm, jm = mods
+    kw = dict(robot="wam", adofgoal=GOAL, lambda_=100.0, obs_factor=500.0,
+              n_points=n_points)
+    trun = tm.runs[tm.create(**kw)]
+    jrun = jm.runs[jm.create(**kw)]
+    assert tuple(trun.spec) == tuple(jrun.spec)
+    tl = trun.problem.leaves()
+    jl = {k: np.asarray(v) for k, v in jrun.problem._asdict().items()
+          if k != "hmc"}
+    assert set(tl) == set(jl)
+    for k, v in jl.items():
+        got = tl[k].numpy()
+        assert got.shape == v.shape and got.dtype == v.dtype, k
+        np.testing.assert_allclose(got, v, rtol=1e-12, atol=1e-12,
+                                   err_msg=k)
+    te, je = trun.engine, jrun.engine
+    np.testing.assert_array_equal(te._sphere_order, je._sphere_order)
+    np.testing.assert_allclose(te.A.numpy(), np.asarray(je.A), rtol=1e-12)
+    np.testing.assert_allclose(te.Ainv.numpy(), np.asarray(je.Ainv),
+                               rtol=1e-12)
+
+
+def test_batch_from_grid_matches_jax(mods):
+    from or_cdchomp_tpu.parallel.batch import \
+        problem_batch_from_grid as jax_batch
+    tm, jm = mods
+    kw = dict(robot="wam", adofgoal=GOAL, lambda_=100.0, obs_factor=500.0,
+              n_points=11)
+    trun = tm.runs[tm.create(**kw)]
+    jrun = jm.runs[jm.create(**kw)]
+    rng = np.random.default_rng(0)
+    starts = START + 0.02 * rng.normal(size=(3, 7))
+    goals = GOAL + 0.02 * rng.normal(size=(3, 7))
+    tb = problem_batch_from_grid(trun.problem, starts, goals, trun.engine)
+    jb = jax_batch(jrun.problem, starts, goals, jrun.engine)
+    for k, v in tb.leaves().items():
+        want = np.asarray(getattr(jb, k))
+        assert v.is_contiguous() and tuple(v.shape) == want.shape, k
+        np.testing.assert_allclose(v.numpy(), want, rtol=1e-12, atol=1e-12,
+                                   err_msg=k)
+
+
+def _probe(mod, case):
+    base = dict(robot="wam", adofgoal=GOAL, n_points=11)
+    if case == "create_before_sdf":
+        return mod.create(**base)
+    if case == "duplicate_field":
+        return mod.computedistancefield(kinbody="table", cube_extent=0.04)
+    if case == "bad_lambda":
+        return mod.create(**base, lambda_=0.001)
+    if case == "wrong_goal_size":
+        return mod.create(**dict(base, adofgoal=GOAL[:5]))
+    if case == "goal_and_starttraj":
+        return mod.create(**base, starttraj=np.zeros((3, 7)))
+    raise AssertionError(case)
+
+
+@pytest.mark.parametrize("case", ["create_before_sdf", "duplicate_field",
+                                  "bad_lambda", "wrong_goal_size",
+                                  "goal_and_starttraj"])
+def test_error_probes_match_jax(mods, case):
+    if case == "create_before_sdf":
+        tm = _scene(pt, KinBody, Robot, with_field=False)
+        jm = _scene(oc, JaxKinBody, JaxRobot, with_field=False)
+    else:
+        tm, jm = mods
+    with pytest.raises(Exception) as want:
+        _probe(jm, case)
+    with pytest.raises(type(want.value)) as got:
+        _probe(tm, case)
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(use_hmc=True), dict(use_momentum=True), dict(everyn_tsr=object()),
+    dict(start_cost=lambda t: t), dict(con_tsrs=[("all", object())]),
+])
+def test_unported_kwargs_raise(mods, kw):
+    tm, _ = mods
+    name = next(iter(kw))
+    with pytest.raises(NotImplementedError, match=name):
+        tm.create(robot="wam", adofgoal=GOAL, n_points=11, **kw)
+
+
+def test_starttraj_alone_not_ported(mods):
+    tm, _ = mods
+    with pytest.raises(NotImplementedError, match="starttraj"):
+        tm.create(robot="wam", starttraj=np.zeros((3, 7)), n_points=11)

@@ -1,0 +1,158 @@
+"""The two CUDA kernels against their plain PyTorch versions on the card,
+at small shapes.  Skipped without a CUDA device; run on the card with
+``python -m pytest tests/test_torch_kernels_gpu.py -q --noconftest``
+(tests/conftest.py configures JAX, which that machine does not have)."""
+
+import numpy as np
+import pytest
+import torch
+
+from or_cdchomp_tpu_torch.ops import sdf_lookup, selfcol
+from or_cdchomp_tpu_torch.utils import np_pose
+
+pytestmark = pytest.mark.gpu
+
+RTOL = 1e-5   # float32 kernel vs float32 plain version: op order only
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(a, b):
+    b = b.double().cpu().numpy()
+    np.testing.assert_allclose(a.double().cpu().numpy(), b, rtol=RTOL,
+                               atol=RTOL * max(np.abs(b).max(), 1e-30))
+
+
+def test_sdf_cell_lookup_exact(cuda):
+    rng = np.random.default_rng(1)
+    F, mx, my, mz, Q = 2, 5, 6, 7, 1000
+    data = torch.as_tensor(rng.normal(size=(F, mx, my, mz)),
+                           dtype=torch.float32)
+    sub = rng.integers(0, [mx, my, mz], size=(F, Q, 3)).astype(np.int32)
+    nbr = np.clip(sub + rng.choice([-1, 1], size=(F, Q, 3)), 0,
+                  np.array([mx, my, mz]) - 1).astype(np.int32)
+    args = (data, torch.as_tensor(sub), torch.as_tensor(nbr))
+    want = sdf_lookup.sdf_cell_lookup(*args)
+    n0 = sdf_lookup.LOOKUP_LAUNCHES
+    got = sdf_lookup.sdf_cell_lookup(*(a.to(cuda) for a in args))
+    assert sdf_lookup.LOOKUP_LAUNCHES == n0 + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def _obstacle_args(rng, dev, F=2, m=7, S=5, B=33):
+    data = rng.normal(size=(F, 8, 9, 7)) * 0.2 + 0.05
+    data[0, 3, 3, 3] = np.inf
+    data[1, 6:, :, :] = np.inf                    # padding of a smaller field
+    sizes = np.array([[8, 9, 7], [6, 9, 7]][:F], np.int32)
+    lengths = np.array([[0.8, 0.9, 0.7], [0.6, 0.9, 0.7]][:F])
+    pw = np.zeros((B, F, 7))
+    pw[..., :3] = rng.normal(size=(B, F, 3)) * 0.05
+    q = rng.normal(size=(B, F, 4))
+    pw[..., 3:] = q / np.linalg.norm(q, axis=-1, keepdims=True)
+    pg = np.stack([[np_pose.invert(p) for p in row] for row in pw])
+    f32 = dict(dtype=torch.float32, device=dev)
+    t = lambda a: torch.as_tensor(a, **f32).contiguous()   # noqa: E731
+    enabled = torch.ones((B, F), dtype=torch.bool, device=dev)
+    enabled[3, 0] = False
+    vel = rng.normal(size=(3, m, S, B))
+    vel[:, :, 0, :5] = 0.0
+    return (t(rng.uniform(-0.1, 0.9, size=(3, m, S, B))), t(vel),
+            t(rng.normal(size=(3, m, S, B))), t(data),
+            torch.as_tensor(sizes, device=dev), t(lengths), t(pg),
+            t(pw), enabled, t(rng.uniform(0.03, 0.1, size=S)),
+            t(rng.uniform(0.05, 0.2, size=B)),
+            t(rng.uniform(100, 500, size=B)))
+
+
+def test_obstacle_kernel_matches_plain(cuda):
+    args = _obstacle_args(np.random.default_rng(0), cuda)
+    want = sdf_lookup.obstacle_ref(*args, want_dirs=True)
+    n0 = sdf_lookup.LAUNCHES
+    got = sdf_lookup.obstacle(*args, want_dirs=True)
+    torch.cuda.synchronize()
+    assert sdf_lookup.LAUNCHES == n0 + 1
+    assert torch.equal(got[2], want[2])           # one-sided choices
+    _close(got[0], want[0])
+    _close(got[1], want[1])
+
+
+def test_obstacle_kernel_field_tie(cuda):
+    """An exact value tie between two fields goes to the first field in
+    the kernel as in the plain version: field 0 is constant c, field 1
+    reads exactly c (with a non-zero gradient) at its x = 0 centres."""
+    f32 = dict(dtype=torch.float32, device=cuda)
+    c = 0.05
+    data = torch.full((2, 8, 9, 7), float("inf"), **f32)
+    data[0, :8, :4, :7] = c
+    data[1, :6, :9, :5] = c + 0.01 * torch.arange(6, **f32)[:, None, None]
+    sizes = torch.tensor([[8, 4, 7], [6, 9, 5]], dtype=torch.int32,
+                         device=cuda)
+    lengths = torch.tensor([[0.8, 0.4, 0.7], [0.6, 0.9, 0.5]], **f32)
+    S, B = 4, 2
+    ln = lengths[1]
+    sz = sizes[1].to(torch.float32)   # tensor divisors: IEEE division, as
+    x = torch.empty((3, 1, S, B), **f32)          # the kernel computes it
+    x[0] = (torch.zeros((), **f32) + 0.5) / sz[0] * ln[0]
+    x[1] = ((torch.arange(S, **f32) + 0.5) / sz[1] * ln[1])[None, :, None]
+    x[2] = (torch.full((), 2.0, **f32) + 0.5) / sz[2] * ln[2]
+    rng = np.random.default_rng(9)
+    vel = torch.as_tensor(rng.normal(size=(3, 1, S, 1)), **f32).expand(
+        3, 1, S, B).contiguous()
+    ident = torch.tensor([0, 0, 0, 0, 0, 0, 1.0], **f32)
+    pose = ident.expand(B, 2, 7).contiguous()
+    enabled = torch.tensor([[True, True], [False, True]], device=cuda)
+    args = (x, vel, vel.clone(), data, sizes, lengths, pose, pose.clone(),
+            enabled, torch.full((S,), 0.02, **f32),
+            torch.full((B,), 0.1, **f32), torch.full((B,), 200.0, **f32))
+    want = sdf_lookup.obstacle_ref(*args)
+    got = sdf_lookup.obstacle(*args)
+    _close(got[0], want[0])
+    _close(got[1], want[1])
+    w = want[1].cpu()
+    assert float((w[..., 0] - w[..., 1]).abs().max()) > 1e-3
+
+
+def test_selfcol_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(4)
+    m, Sa, SI, B = 11, 9, 2, 37
+    same = np.eye(Sa, Sa + SI, dtype=bool)
+    same[0, 1] = same[1, 0] = True
+    same[2, Sa] = True
+    ra = rng.uniform(0.03, 0.1, size=Sa)
+    rall = np.concatenate([ra, rng.uniform(0.03, 0.1, size=SI)])
+    pi, pj, rsum = selfcol.pair_table(same, ra, rall)
+    f32 = dict(dtype=torch.float32, device=cuda)
+    t = lambda a: torch.as_tensor(a, **f32).contiguous()   # noqa: E731
+    vel = rng.normal(size=(3, m, Sa, B))
+    vel[:, :, 0, :4] = 0.0
+    args = (t(rng.normal(size=(3, m, Sa, B)) * 0.25), t(vel),
+            t(rng.normal(size=(3, SI, B)) * 0.25),
+            torch.as_tensor(pi, device=cuda), torch.as_tensor(pj, device=cuda),
+            t(rsum), t(rng.uniform(0.02, 0.08, size=B)),
+            t(rng.uniform(5.0, 20.0, size=B)))
+    want = selfcol.selfcol_pairs_ref(*args)
+    n0 = selfcol.LAUNCHES
+    got = selfcol.selfcol_pairs(*args)
+    torch.cuda.synchronize()
+    assert selfcol.LAUNCHES == n0 + 1
+    assert float(want[1].abs().max()) > 0.0
+    _close(got[0], want[0])
+    _close(got[1], want[1])
+
+
+def test_wrappers_reject_bad_inputs(cuda):
+    args = list(_obstacle_args(np.random.default_rng(0), cuda))
+    args[0] = args[0].double()
+    with pytest.raises(ValueError, match="dtype"):
+        sdf_lookup.obstacle(*args)
+    args = list(_obstacle_args(np.random.default_rng(0), cuda))
+    args[1] = args[1].transpose(2, 3).contiguous().transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        sdf_lookup.obstacle(*args)
