@@ -10,8 +10,12 @@ float64.  Any failed phase exits non-zero.
 
     python3 chip_smoke.py
 
-Prints the card (nvidia-smi name, power limit), a JSON line of per-kernel
-results, and as its last line
+Prints the card (nvidia-smi name, power limit), the self-collision
+kernel's launch (registers, spills, shared memory, resident blocks) and
+its skip shares on the flagship batch, a JSON line of
+per-kernel results (device time beside the bound: bytes over 3.35 TB/s
+or operations over 67 TFLOP/s fp32, whichever is larger), and as its
+last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX.
 """
@@ -32,6 +36,8 @@ BATCH = 256
 N_CHECK = 8          # problems re-solved on the CPU in float64
 TRAJ_BAR = 1e-3      # BASELINE bar: max |Δtraj| float32 card vs float64
 KERNEL_RTOL = 1e-5   # kernel vs plain version, both float32 on the card
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet, 700 W)
+FP32_FLOPS_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
 START = [2.5, -1.8, 0.0, 2.0, 0.0, 0.2, 0.0]
 GOAL = [0.4, 0.6, 0.1, 1.3, 0.0, -0.5, 0.0]
 
@@ -128,6 +134,25 @@ def timings(torch, kernel, plain):
             device_ms(torch, kernel), device_ms(torch, plain))
 
 
+def kernel_entry(name, source, replaces, err, t, nbytes, nflops):
+    """One kernel's entry of the JSON line.  ms / plain_ms: device time
+    per call (profiler; the CUDA-event time per call where the profiler
+    saw no device activity); call_ms / plain_call_ms: CUDA-event time per
+    call, host work of the wrapper included.  bound_ms: the larger of
+    nbytes over the memory rate and nflops over the fp32 rate."""
+    ms = t[2] if t[2] is not None else t[0]
+    plain_ms = t[3] if t[3] is not None else t[1]
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = nflops / FP32_FLOPS_PER_S * 1e3
+    bound = max(by_bytes, by_ops)
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound,
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                bound_share=bound / ms, library_ms=None, call_ms=t[0],
+                plain_call_ms=t[1], bytes=nbytes, flops=nflops)
+
+
 def compare(torch, name, got, want, exact=False):
     """max |got − want|; raises unless equal (exact) or within
     rtol KERNEL_RTOL, atol KERNEL_RTOL·max|want|."""
@@ -217,9 +242,13 @@ def main():
     err = compare(torch, "sdf_cell_lookup", got, want, exact=True)
     t = timings(torch, lambda: sdf_lookup.sdf_cell_lookup(*largs),
                 lambda: sdf_lookup.sdf_cell_lookup_ref(*largs))
-    print(f"sdf_cell_lookup (raw contract, Q={Q}): exact, max_abs_err {err}, "
-          f"per call {t[0]:.4f} ms vs plain {t[1]:.4f} ms, "
-          f"device {t[2]} ms vs plain {t[3]} ms")
+    # bytes: the field, sub and nbr read once, the 4 values written once
+    bound = 4 * (F * mx * my * mz + 2 * F * Q * 3 + 4 * F * Q) \
+        / HBM_BYTES_PER_S * 1e3
+    print(f"sdf_cell_lookup (raw contract, Q={Q}, not on the main path): "
+          f"exact, max_abs_err {err}, per call {t[0]:.4f} ms vs plain "
+          f"{t[1]:.4f} ms, device {t[2]} ms vs plain {t[3]} ms, "
+          f"bound {bound} ms (bytes)")
 
     oargs = (x_mov, vel, acc, fields.data, fields.sizes, fields.lengths,
              probs.pose_gsdf_world, probs.pose_world_gsdf,
@@ -237,31 +266,52 @@ def main():
     print(f"obstacle: use_next agreement {agree:.6f}, max_abs_err {err}, "
           f"per call {t[0]:.4f} ms vs plain {t[1]:.4f} ms, "
           f"device {t[2]} ms vs plain {t[3]} ms")
-    results.append(dict(
-        name="obstacle", route="cuda",
-        source="or_cdchomp_tpu_torch/csrc/obstacle.cu",
-        replaces="or_cdchomp_tpu/ops/pallas_sdf.py:86",
-        max_abs_err=err, ms=t[0], plain_ms=t[1], device_ms=t[2],
-        plain_device_ms=t[3]))
+    # no single PyTorch call computes it: grid_sample interpolates
+    # trilinearly, not with libcd's one-sided 4-cell rule
+    results.append(kernel_entry(
+        "obstacle", "or_cdchomp_tpu_torch/csrc/obstacle.cu",
+        "or_cdchomp_tpu/ops/pallas_sdf.py:86", err, t,
+        sdf_lookup.obstacle_traffic_bytes(m, S, B, F, mx, my, mz),
+        sdf_lookup.obstacle_flops(m, S, B, F)))
 
     xo = probs.inactive_pos.permute(2, 1, 0).contiguous()
     sargs = (x_mov, vel, xo, *engine.pairs, probs.epsilon_self,
              probs.obs_factor_self)
-    check(engine.pairs[0].shape[0] == 207, "pair table size")
+    P = engine.pairs[0].shape[0]
+    SI = xo.shape[1]
+    check((P, SI) == (207, 1), f"pair table size {P}, inactive spheres {SI}")
+    info = selfcol.launch_info(S, SI)
+    print(f"selfcol launch: {info['threads']} threads, "
+          f"{info['smem_bytes']} B dynamic shared memory per block, "
+          f"{info['blocks_per_sm']} blocks per SM, {info['registers']} "
+          f"registers, {info['local_bytes']} B local (spill) per thread")
+    votes, near, taken, reach = selfcol.vote_stats(
+        x_mov, xo, *engine.pairs, probs.epsilon_self)
+    print(f"selfcol skips on the flagship batch: of {votes} (point, pair, "
+          f"32-problem warp) votes {near} pass the box test "
+          f"({near / votes:.4f}) and {taken} are taken ({taken / votes:.4f}), "
+          f"so the warp vote skips {(votes - taken) / votes:.4f}; "
+          f"{reach} of {m * P * B} (point, pair, problem) in reach")
     net_k, c_k = selfcol.selfcol_pairs(*sargs)
     net_r, c_r = selfcol.selfcol_pairs_ref(*sargs)
     err = max(compare(torch, "selfcol net", net_k, net_r),
               compare(torch, "selfcol cost", c_k, c_r))
+    again = selfcol.selfcol_pairs(*sargs)
+    check(torch.equal(again[0], net_k) and torch.equal(again[1], c_k),
+          "selfcol: two launches on the same inputs differ")
     t = timings(torch, lambda: selfcol.selfcol_pairs(*sargs),
                 lambda: selfcol.selfcol_pairs_ref(*sargs))
     print(f"selfcol: max_abs_err {err}, per call {t[0]:.4f} ms vs plain "
           f"{t[1]:.4f} ms, device {t[2]} ms vs plain {t[3]} ms")
-    results.append(dict(
-        name="selfcol", route="cuda",
-        source="or_cdchomp_tpu_torch/csrc/selfcol.cu",
-        replaces="or_cdchomp_tpu/ops/pallas_selfcol.py:197",
-        max_abs_err=err, ms=t[0], plain_ms=t[1], device_ms=t[2],
-        plain_device_ms=t[3]))
+    # no single PyTorch call computes it (a pair gather, the hinge and two
+    # index_add_ scatters at the least)
+    results.append(kernel_entry(
+        "selfcol", "or_cdchomp_tpu_torch/csrc/selfcol.cu",
+        "or_cdchomp_tpu/ops/pallas_selfcol.py:197", err, t,
+        selfcol.traffic_bytes(m, S, SI, B, P), selfcol.flops(m, B, P, reach)))
+    for r in results:
+        print(f"{r['name']}: device {r['ms']} ms, bound {r['bound_ms']} ms "
+              f"({r['bound_by']}), share {r['bound_share']:.4f} on {card}")
 
     # -- the main path --------------------------------------------------------
     sdf_lookup.LAUNCHES = 0
@@ -287,6 +337,19 @@ def main():
     print(f"mean total cost: first iteration {c0:.6f}, last {c1:.6f}")
     check(c1 < c0, "the mean total cost did not fall")
 
+    # -- warm wall of the flagship solve, before the CPU phase: the CPU's
+    # worker threads slow a host-bound loop for seconds after a CPU solve
+    walls = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver.iterate(probs, N_ITER)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    print(f"flagship iterate({N_ITER}) at B={BATCH}: median warm wall "
+          f"{wall} s of {walls}, {BATCH / wall} solves/s on {card}")
+
     # -- the same solves on the CPU in float64 (plain versions) ---------------
     t0 = time.perf_counter()
     _, run64 = bench_module(pt, torch.float64, "cpu")
@@ -297,18 +360,6 @@ def main():
     print(f"CPU float64 re-solve of {N_CHECK} problems: max |Δtraj| {dtraj} "
           f"(bar {TRAJ_BAR}), {time.perf_counter() - t0:.2f} s")
     check(dtraj <= TRAJ_BAR, f"max |Δtraj| {dtraj} > {TRAJ_BAR}")
-
-    # -- warm wall of the flagship solve --------------------------------------
-    walls = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        solver.iterate(probs, N_ITER)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    wall = statistics.median(walls)
-    print(f"flagship iterate({N_ITER}) at B={BATCH}: median warm wall "
-          f"{wall} s of {walls}, {BATCH / wall} solves/s on {card}")
 
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {

@@ -109,8 +109,9 @@ class Robot:
     def sphere_world(self, fk: Optional[CompiledFK] = None):
         """World (positions (S, 3), radii (S,)) of the spheres at the
         current configuration: the batched FK at one point of one
-        problem."""
-        fk = fk or CompiledFK(self.model, dtype=torch.float64)
+        problem.  Host setup: a float64 FK on the CPU unless ``fk`` is
+        given."""
+        fk = fk or CompiledFK(self.model, dtype=torch.float64, device="cpu")
         opts = dict(dtype=fk.dtype, device=fk.device)
         q = torch.as_tensor(self.q_active, **opts).reshape(1, -1, 1)
         pose = torch.as_tensor(self.pose, **opts)
@@ -142,9 +143,10 @@ class Run:
 
 class CHOMPModule:
     """The module: world registry + SDF registry + run registry.  Fields,
-    engines and problems live on ``device`` in ``dtype``."""
+    engines and problems live on ``device`` (the card unless the caller
+    names another) in ``dtype``."""
 
-    def __init__(self, dtype=torch.float32, device="cpu"):
+    def __init__(self, dtype=torch.float32, device="cuda"):
         self.dtype = dtype
         self.device = torch.device(device)
         self.bodies: Dict[str, KinBody] = {}
@@ -349,7 +351,8 @@ class CHOMPModule:
         order = engine._sphere_order
         n_act = engine.n_spheres_active
         if len(order) > n_act:
-            x_all, _ = r.sphere_world(CompiledFK(r.model, dtype=self.dtype))
+            x_all, _ = r.sphere_world(
+                CompiledFK(r.model, dtype=self.dtype, device="cpu"))
             inactive_pos = np.asarray(x_all)[order[n_act:]]
         else:
             inactive_pos = np.zeros((0, 3))

@@ -34,7 +34,7 @@ class ChompEngine:
     static structure; problems are batched along a leading axis."""
 
     def __init__(self, spec, model, fields, dtype=torch.float32,
-                 device="cpu", metric_ops=None):
+                 device="cuda", metric_ops=None):
         for flag in ("floating_base", "use_momentum", "use_hmc", "start_tsr"):
             if getattr(spec, flag):
                 raise NotImplementedError(f"{flag}: not ported yet")

@@ -14,7 +14,7 @@ from or_cdchomp_tpu_torch.chomp.problem import ChompProblem
 from or_cdchomp_tpu_torch.ops.grid import FieldStack
 
 
-def problem_from_numpy(d, device="cpu", dtype=torch.float64) -> ChompProblem:
+def problem_from_numpy(d, device="cuda", dtype=torch.float64) -> ChompProblem:
     """ChompProblem from a dict of numpy arrays keyed by field name.
     Keys that are not fields of the port's problem (the HMC state) are
     ignored; floating arrays are cast to ``dtype``."""
@@ -32,7 +32,7 @@ def problem_from_numpy(d, device="cpu", dtype=torch.float64) -> ChompProblem:
     return ChompProblem(**{k: conv(d[k]) for k in names})
 
 
-def fields_from_numpy(data, sizes, lengths, device="cpu",
+def fields_from_numpy(data, sizes, lengths, device="cuda",
                       dtype=torch.float32) -> FieldStack:
     """FieldStack from the padded field arrays (data (F, mx, my, mz),
     sizes (F, 3), lengths (F, 3))."""

@@ -253,7 +253,7 @@ class CompiledFK:
     chain structure is analysed once at construction; the per-call
     functions are plain tensor code on ``device``."""
 
-    def __init__(self, model: RobotModel, dtype=torch.float32, device="cpu",
+    def __init__(self, model: RobotModel, dtype=torch.float32, device="cuda",
                  sphere_subset=None):
         """sphere_subset: optional index array selecting (and ordering)
         the spheres this FK computes — the engine uses the active-first

@@ -20,7 +20,7 @@ class Grid3D:
     lengths: torch.Tensor   # (3,) side lengths in the grid frame
 
     @classmethod
-    def create(cls, sizes, lengths, dtype=torch.float32, device="cpu"):
+    def create(cls, sizes, lengths, dtype=torch.float32, device="cuda"):
         data = torch.zeros(tuple(int(s) for s in sizes), dtype=dtype,
                            device=device)
         return cls(data=data, lengths=torch.as_tensor(
@@ -50,7 +50,7 @@ class FieldStack:
     lengths: torch.Tensor   # (F, 3)
 
 
-def pad_stack_grids(grids, device="cpu", dtype=torch.float32):
+def pad_stack_grids(grids, device="cuda", dtype=torch.float32):
     """Stack variable-size grids into one padded FieldStack.
 
     Padding cells are +inf, so they can never win a min-select, and the

@@ -24,7 +24,8 @@ _BUILD = _PKG / "build"
 _SOURCES = ("obstacle.cu", "selfcol.cu")
 # -fmad=false: the obstacle kernel must round every product and sum the
 # way the plain PyTorch version does, or a query sitting on a cell
-# centre picks the other one-sided neighbour (csrc/obstacle.cu).
+# centre picks the other one-sided neighbour (csrc/obstacle.cu).  The
+# self-collision kernel writes its fused multiply-adds out (__fmaf_rn).
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
 
@@ -42,6 +43,8 @@ _SIGNATURES = {
     # obs_self, net, cost, stream
     "cdx_selfcol": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P,
                     _P, _P, _P),
+    # Sa, SI, info (5 ints out)
+    "cdx_selfcol_launch_info": (_I, _I, _P),
 }
 
 _lib = None

@@ -7,7 +7,9 @@ its tensors: CPU tensors go to the plain PyTorch version beside it, CUDA
 tensors to the hand-written kernel (or an error).  There is no fallback.
 
 ``LAUNCHES`` / ``LOOKUP_LAUNCHES`` count kernel launches of
-:func:`obstacle` / :func:`sdf_cell_lookup`.
+:func:`obstacle` / :func:`sdf_cell_lookup`.  :func:`obstacle_traffic_bytes`
+and :func:`obstacle_flops` count the work of one :func:`obstacle` call
+for its bound on the card.
 """
 
 from __future__ import annotations
@@ -20,6 +22,12 @@ LAUNCHES = 0          # fused obstacle kernel launches
 LOOKUP_LAUNCHES = 0   # raw sdf_cell_lookup kernel launches
 
 _VEL_EPS = 1e-6       # ‖ẋ‖ guard, orcdchomp_mod.cpp:1226/1285
+# float operations of one obstacle query, counted from obstacle_ref's
+# expressions and rounded: per field (frame transform, subscripts, cells,
+# gradient, rotation to world, min-select) and once (hinge, projection,
+# curvature, scaling)
+FLOPS_FIELD = 120
+FLOPS_QUERY = 80
 
 
 # ---- raw 4-cell lookup (the Pallas kernel's contract) ----------------------
@@ -238,3 +246,23 @@ def obstacle(x, vel, acc, data, sizes, lengths, pose_gsdf_world,
     if want_dirs:
         return cost, wgrad, dirs
     return cost, wgrad
+
+
+def obstacle_traffic_bytes(m, S, B, F, mx, my, mz):
+    """Bytes one :func:`obstacle` call must move at the given shapes: each
+    input read once (x, vel, acc, the field stack with its sizes and
+    lengths, both per-problem poses, field_enabled, radii, epsilon,
+    obs_factor), each output written once (cost, wgrad); 4-byte floats
+    and ints, 1-byte bools."""
+    q = m * S * B
+    reads = (4 * (3 * 3 * q + F * mx * my * mz + 2 * 3 * F + 2 * 7 * B * F
+                  + S + 2 * B)
+             + B * F)
+    writes = 4 * (q + 3 * q)
+    return reads + writes
+
+
+def obstacle_flops(m, S, B, F):
+    """Float operations of one :func:`obstacle` call (FLOPS_FIELD,
+    FLOPS_QUERY)."""
+    return m * S * B * (F * FLOPS_FIELD + FLOPS_QUERY)

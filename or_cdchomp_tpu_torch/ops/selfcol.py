@@ -8,9 +8,13 @@ tensors go to :func:`selfcol_pairs_ref`, CUDA tensors to the kernel (or
 an error).  There is no fallback.
 
 ``LAUNCHES`` counts kernel launches of :func:`selfcol_pairs`.
+:func:`traffic_bytes`, :func:`flops` and :func:`vote_stats` count the
+work of one call for its bound on the card.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -18,6 +22,9 @@ import torch
 from or_cdchomp_tpu_torch.ops import kernels
 
 LAUNCHES = 0
+LANES = 32          # problems per warp of the kernel: one vote each
+FLOPS_TEST = 12     # per (point, pair, problem): diff, d², rsqrt, d, test
+FLOPS_REACH = 33    # more per pair in reach: hinge, w1, w2, g, the sums
 
 
 def pair_table(same_link, radii_act, radii_all):
@@ -33,11 +40,21 @@ def pair_table(same_link, radii_act, radii_all):
     return ii.astype(np.int32), jj.astype(np.int32), rsum
 
 
-def selfcol_pairs_ref(xi, vel, xo, pair_i, pair_j, rsum, eps_self, obs_self):
-    """Plain version of :func:`selfcol_pairs` (same contract)."""
-    _, m, Sa, B = xi.shape
+def _distance(xi, xo, pi, pj, rsum):
+    """Per (point, pair, problem): diff = x_i − x_j (3, m, P, B), 1/|diff|
+    and d = |diff| − rsum (m, P, B)."""
+    _, m, _, B = xi.shape
     SI = xo.shape[1]
     x_all = torch.cat([xi, xo[:, None].expand(3, m, SI, B)], dim=2)
+    diff = xi[:, :, pi] - x_all[:, :, pj]
+    d2 = diff[0] * diff[0] + diff[1] * diff[1] + diff[2] * diff[2]
+    inv_cd = torch.rsqrt(torch.clamp(d2, min=1e-24))
+    return diff, inv_cd, d2 * inv_cd - rsum[:, None]
+
+
+def selfcol_pairs_ref(xi, vel, xo, pair_i, pair_j, rsum, eps_self, obs_self):
+    """Plain version of :func:`selfcol_pairs` (same contract)."""
+    Sa = xi.shape[2]
     pi = pair_i.long()
     pj = pair_j.long()
     inv_eps = 1.0 / eps_self
@@ -47,10 +64,7 @@ def selfcol_pairs_ref(xi, vel, xo, pair_i, pair_j, rsum, eps_self, obs_self):
     inv_v2 = torch.where(safe, 1.0 / torch.where(safe, v2, 1.0), 0.0)
     ofv = obs_self * vn                                   # (m, Sa, B)
 
-    diff = xi[:, :, pi] - x_all[:, :, pj]                 # (3, m, P, B)
-    d2 = diff[0] * diff[0] + diff[1] * diff[1] + diff[2] * diff[2]
-    inv_cd = torch.rsqrt(torch.clamp(d2, min=1e-24))
-    d = d2 * inv_cd - rsum[:, None]
+    diff, inv_cd, d = _distance(xi, xo, pi, pj, rsum)     # (3, m, P, B)
     ok = d <= eps_self
     de = d - eps_self
     c_h = torch.where(d < 0.0, 0.5 * eps_self - d, 0.5 * de * de * inv_eps)
@@ -113,3 +127,65 @@ def selfcol_pairs(xi, vel, xo, pair_i, pair_j, rsum, eps_self, obs_self):
     kernels.check(err, "selfcol_pairs")
     LAUNCHES += 1
     return net, cost
+
+
+def traffic_bytes(m, Sa, SI, B, P):
+    """Bytes one call must move at the given shapes: each input read once
+    (xi, vel, xo, eps_self, obs_self, the pair table), each output
+    written once (net, cost); 4-byte floats and ints."""
+    reads = 2 * 3 * m * Sa * B + 3 * SI * B + 2 * B + 3 * P
+    writes = 3 * m * Sa * B + m * Sa * B
+    return 4 * (reads + writes)
+
+
+def flops(m, B, P, n_reach):
+    """Float operations one call needs: the distance test of every
+    (point, pair, problem) and the rest of the pair math for the
+    ``n_reach`` of them within reach (:func:`vote_stats`)."""
+    return FLOPS_TEST * m * B * P + FLOPS_REACH * n_reach
+
+
+def vote_stats(xi, xo, pair_i, pair_j, rsum, eps_self):
+    """What the kernel's two skip tests meet on these inputs.  A vote is
+    one (point, pair, warp of LANES problems).  It passes the box test
+    when the gap between the two spheres' bounding boxes over the warp's
+    problems is within rsum + the warp's largest eps (with the kernel's
+    margin), and it is taken when some problem of the warp has the pair
+    within reach (d <= eps_self).  Returns (votes, votes past the box
+    test, votes taken, (point, pair, problem) triples in reach)."""
+    pi, pj = pair_i.long(), pair_j.long()
+    _, _, d = _distance(xi, xo, pi, pj, rsum)
+    ok = d <= eps_self                                    # (m, P, B)
+    m, P, B = ok.shape
+    pad = -B % LANES
+    W = (B + pad) // LANES
+    taken = torch.cat([ok, ok.new_zeros((m, P, pad))], dim=2)
+    taken = taken.reshape(m, P, W, LANES).any(dim=3)
+
+    SI = xo.shape[1]
+    x_all = torch.cat([xi, xo[:, None].expand(3, m, SI, B)], dim=2)
+
+    def per_warp(x, fill, reduce):
+        x = torch.cat([x, x.new_full(x.shape[:-1] + (pad,), fill)], dim=-1)
+        return reduce(x.reshape(x.shape[:-1] + (W, LANES)), dim=-1)
+
+    lo = per_warp(x_all, float("inf"), torch.amin)        # (3, m, So, W)
+    hi = per_warp(x_all, float("-inf"), torch.amax)
+    emax = per_warp(eps_self, float("-inf"), torch.amax)  # (W,)
+    gap = torch.clamp(torch.maximum(lo[:, :, pj] - hi[:, :, pi],
+                                    lo[:, :, pi] - hi[:, :, pj]), min=0.0)
+    g2 = (gap * gap).sum(dim=0)                           # (m, P, W)
+    reach = (emax + rsum[:, None]) * (1.0 + 1e-4) + 1e-6
+    near = g2 <= reach * reach
+    return taken.numel(), int(near.sum()), int(taken.sum()), int(ok.sum())
+
+
+def launch_info(Sa, SI):
+    """The kernel's launch on the card for Sa active and SI inactive
+    spheres: threads and dynamic shared memory per block, resident
+    blocks per SM, registers and local (spill) bytes per thread."""
+    info = (ctypes.c_int * 5)()
+    kernels.check(kernels.library().cdx_selfcol_launch_info(Sa, SI, info),
+                  "selfcol launch_info")
+    return dict(zip(("threads", "smem_bytes", "blocks_per_sm", "registers",
+                     "local_bytes"), info))

@@ -1,5 +1,8 @@
 """The port's CHOMPModule against the JAX package's: create's problem on
-the bench scene, and the error probe set (same message strings)."""
+the bench scene, and the error probe set (same message strings); the
+port's entry points default to the card."""
+
+import inspect
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,6 +14,10 @@ from or_cdchomp_tpu.api import KinBody as JaxKinBody, Robot as JaxRobot
 
 import or_cdchomp_tpu_torch as pt
 from or_cdchomp_tpu_torch.api import KinBody, Robot
+from or_cdchomp_tpu_torch.chomp.solver import ChompEngine
+from or_cdchomp_tpu_torch.convert import fields_from_numpy, problem_from_numpy
+from or_cdchomp_tpu_torch.models.robot import CompiledFK
+from or_cdchomp_tpu_torch.ops.grid import Grid3D, pad_stack_grids
 from or_cdchomp_tpu_torch.parallel.batch import problem_batch_from_grid
 
 START = np.array([2.5, -1.8, 0.0, 2.0, 0.0, 0.2, 0.0])
@@ -35,7 +42,7 @@ def _scene(pkg, kinbody, robot_cls, with_field=True, **mod_kw):
 
 @pytest.fixture(scope="module")
 def mods():
-    return (_scene(pt, KinBody, Robot, dtype=torch.float64),
+    return (_scene(pt, KinBody, Robot, dtype=torch.float64, device="cpu"),
             _scene(oc, JaxKinBody, JaxRobot, dtype=jnp.float64))
 
 
@@ -103,7 +110,7 @@ def _probe(mod, case):
                                   "goal_and_starttraj"])
 def test_error_probes_match_jax(mods, case):
     if case == "create_before_sdf":
-        tm = _scene(pt, KinBody, Robot, with_field=False)
+        tm = _scene(pt, KinBody, Robot, with_field=False, device="cpu")
         jm = _scene(oc, JaxKinBody, JaxRobot, with_field=False)
     else:
         tm, jm = mods
@@ -129,3 +136,37 @@ def test_starttraj_alone_not_ported(mods):
     tm, _ = mods
     with pytest.raises(NotImplementedError, match="starttraj"):
         tm.create(robot="wam", starttraj=np.zeros((3, 7)), n_points=11)
+
+
+CUDA = torch.device("cuda")
+
+
+@pytest.mark.parametrize("entry", [
+    ChompEngine, CompiledFK, Grid3D.create, pad_stack_grids,
+    problem_from_numpy, fields_from_numpy,
+], ids=lambda f: f.__qualname__)
+def test_entry_point_defaults_to_cuda(entry):
+    default = inspect.signature(entry).parameters["device"].default
+    assert torch.device(default) == CUDA
+
+
+def test_module_defaults_to_cuda():
+    """CHOMPModule() allocates nothing, so it builds without a card."""
+    assert pt.CHOMPModule().device == CUDA
+
+
+@pytest.mark.parametrize("build", [
+    lambda: Grid3D.create((2, 3, 4), (0.2, 0.3, 0.4)).data,
+    lambda: pad_stack_grids([Grid3D.create((2, 3, 4), (0.2, 0.3, 0.4),
+                                           device="cpu")]).data,
+    lambda: fields_from_numpy(np.zeros((1, 2, 2, 2)), [[2, 2, 2]],
+                              [[0.2, 0.2, 0.2]]).data,
+], ids=["Grid3D.create", "pad_stack_grids", "fields_from_numpy"])
+def test_default_never_falls_back_to_cpu(build):
+    """By default a tensor lands on the card, or the call raises where
+    there is none: never quietly on the CPU."""
+    if torch.cuda.is_available():
+        assert build().device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            build()

@@ -38,7 +38,8 @@ def test_wam7_arrays_equal(active):
 def _fk_pair(active="arm", subset=None):
     model = wam7(active)
     jfk = JaxFK(jax_wam7(active), dtype=jnp.float64, sphere_subset=subset)
-    tfk = CompiledFK(model, dtype=torch.float64, sphere_subset=subset)
+    tfk = CompiledFK(model, dtype=torch.float64, device="cpu",
+                     sphere_subset=subset)
     return model, jfk, tfk
 
 

@@ -119,32 +119,111 @@ def test_obstacle_kernel_field_tie(cuda):
     assert float((w[..., 0] - w[..., 1]).abs().max()) > 1e-3
 
 
-def test_selfcol_kernel_matches_plain(cuda):
-    rng = np.random.default_rng(4)
-    m, Sa, SI, B = 11, 9, 2, 37
+def _selfcol_args(rng, dev, m=11, Sa=9, SI=2, B=37, scale=0.25):
     same = np.eye(Sa, Sa + SI, dtype=bool)
     same[0, 1] = same[1, 0] = True
-    same[2, Sa] = True
+    if SI:
+        same[2, Sa] = True
     ra = rng.uniform(0.03, 0.1, size=Sa)
     rall = np.concatenate([ra, rng.uniform(0.03, 0.1, size=SI)])
     pi, pj, rsum = selfcol.pair_table(same, ra, rall)
-    f32 = dict(dtype=torch.float32, device=cuda)
+    f32 = dict(dtype=torch.float32, device=dev)
     t = lambda a: torch.as_tensor(a, **f32).contiguous()   # noqa: E731
     vel = rng.normal(size=(3, m, Sa, B))
     vel[:, :, 0, :4] = 0.0
-    args = (t(rng.normal(size=(3, m, Sa, B)) * 0.25), t(vel),
-            t(rng.normal(size=(3, SI, B)) * 0.25),
-            torch.as_tensor(pi, device=cuda), torch.as_tensor(pj, device=cuda),
+    return [t(rng.normal(size=(3, m, Sa, B)) * scale), t(vel),
+            t(rng.normal(size=(3, SI, B)) * scale),
+            torch.as_tensor(pi, device=dev), torch.as_tensor(pj, device=dev),
             t(rsum), t(rng.uniform(0.02, 0.08, size=B)),
-            t(rng.uniform(5.0, 20.0, size=B)))
+            t(rng.uniform(5.0, 20.0, size=B))]
+
+
+def _selfcol_check(args):
     want = selfcol.selfcol_pairs_ref(*args)
     n0 = selfcol.LAUNCHES
     got = selfcol.selfcol_pairs(*args)
     torch.cuda.synchronize()
     assert selfcol.LAUNCHES == n0 + 1
-    assert float(want[1].abs().max()) > 0.0
     _close(got[0], want[0])
     _close(got[1], want[1])
+    return got, want
+
+
+def test_selfcol_kernel_matches_plain(cuda):
+    args = _selfcol_args(np.random.default_rng(4), cuda)
+    _, want = _selfcol_check(args)
+    assert float(want[1].abs().max()) > 0.0
+
+
+@pytest.mark.parametrize("B", [1, 33, 100])
+@pytest.mark.parametrize("SI", [0, 2])
+def test_selfcol_kernel_ragged(cuda, B, SI):
+    """One moving point, problem counts that leave a warp part empty."""
+    args = _selfcol_args(np.random.default_rng(B + SI), cuda, m=1, SI=SI,
+                         B=B, scale=0.1)
+    _selfcol_check(args)
+
+
+def test_selfcol_kernel_many_spheres(cuda):
+    """More active spheres than warps in a block (30 > 16) and more
+    spheres than lanes in a warp (35 > 32): warps take several spheres
+    and the pair masks several 32-sphere chunks."""
+    args = _selfcol_args(np.random.default_rng(8), cuda, m=3, Sa=30, SI=5,
+                         B=40, scale=0.15)
+    _, want = _selfcol_check(args)
+    assert float(want[1][:, 16:].abs().max()) > 0.0
+
+
+@pytest.mark.parametrize("case", ["out_of_reach", "stationary"])
+def test_selfcol_kernel_exact_zeros(cuda, case):
+    """Spheres all beyond reach, or all at rest: exactly 0 everywhere."""
+    args = _selfcol_args(np.random.default_rng(5), cuda, m=3, B=40)
+    if case == "out_of_reach":
+        Sa, SI = args[0].shape[2], args[2].shape[1]
+        far = 100.0 * torch.arange(Sa + SI, dtype=torch.float32,
+                                   device=cuda)
+        args[0][0] += far[:Sa, None]
+        args[2][0] += far[Sa:, None]
+    else:
+        args[1].zero_()
+    net, cost = selfcol.selfcol_pairs(*args)
+    assert float(net.abs().max()) == 0.0 and float(cost.abs().max()) == 0.0
+
+
+def test_selfcol_kernel_partial_warp_vote(cuda):
+    """Only a few problems of each warp have a pair in reach: the warp
+    takes the pair math, the problems out of reach add nothing."""
+    args = _selfcol_args(np.random.default_rng(6), cuda, m=2, SI=1, B=64)
+    Sa = args[0].shape[2]
+    far = 100.0 * torch.arange(Sa + 1, dtype=torch.float32, device=cuda)
+    args[0][0] += far[:Sa, None]
+    args[2][0] += far[Sa:, None]
+    for b in (3, 40):                       # one problem in each warp
+        args[0][:, :, 4, b] = args[0][:, :, 3, b] + 0.01
+    votes, near, taken, reach = selfcol.vote_stats(args[0], *args[2:7])
+    assert 0 < taken <= near < votes and reach < taken * selfcol.LANES
+    (net, cost), (_, cost_r) = _selfcol_check(args)
+    hit = cost_r.abs().sum(dim=(0, 1)) > 0
+    assert hit.nonzero().flatten().tolist() == [3, 40]
+    assert float(cost[:, :, ~hit].abs().max()) == 0.0
+    assert float(net[:, :, :, ~hit].abs().max()) == 0.0
+
+
+def test_selfcol_kernel_deterministic(cuda):
+    """No atomics: two launches on the same inputs are bit-equal."""
+    args = _selfcol_args(np.random.default_rng(7), cuda, m=19, Sa=15, SI=1,
+                         B=256, scale=0.15)
+    a = selfcol.selfcol_pairs(*args)
+    b = selfcol.selfcol_pairs(*args)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_selfcol_kernel_residency(cuda):
+    """The flagship shape (15 active spheres, 1 inactive) keeps the three
+    blocks of 15 warps per SM the design counts on."""
+    info = selfcol.launch_info(15, 1)
+    assert info["threads"] == 15 * 32 and info["blocks_per_sm"] >= 3
+    assert info["registers"] <= 40
 
 
 def test_wrappers_reject_bad_inputs(cuda):

@@ -21,7 +21,8 @@ import or_cdchomp_tpu_torch as pt
 from or_cdchomp_tpu_torch.api import KinBody, Robot
 from or_cdchomp_tpu_torch.chomp import cost_soa
 from or_cdchomp_tpu_torch.convert import fields_from_numpy
-from or_cdchomp_tpu_torch.ops.sdf_lookup import sdf_cell_lookup_ref
+from or_cdchomp_tpu_torch.ops.sdf_lookup import (obstacle_traffic_bytes,
+                                                 sdf_cell_lookup_ref)
 
 RTOL = 1e-10   # float64; the sums differ only in association order
 START = np.array([2.5, -1.8, 0.0, 2.0, 0.0, 0.2, 0.0])
@@ -42,7 +43,7 @@ def _bench_scene(pkg, kinbody, robot_cls, **mod_kw):
 
 
 def test_bench_field_matches_jax():
-    tm = _bench_scene(pt, KinBody, Robot)
+    tm = _bench_scene(pt, KinBody, Robot, device="cpu")
     jm = _bench_scene(oc, JaxKinBody, JaxRobot)
     tg, jg = tm.sdfs[0].grid, jm.sdfs[0].grid
     td, jd = tg.data.numpy(), np.asarray(jg.data)
@@ -54,7 +55,7 @@ def test_bench_field_matches_jax():
 
 
 def test_duplicate_field_and_cache_file_raise():
-    tm = _bench_scene(pt, KinBody, Robot)
+    tm = _bench_scene(pt, KinBody, Robot, device="cpu")
     with pytest.raises(RuntimeError, match="already have an sdf"):
         tm.computedistancefield(kinbody="table", cube_extent=0.04)
     with pytest.raises(NotImplementedError, match="cache_filename"):
@@ -86,6 +87,17 @@ def test_cell_lookup_ref_equals_pallas():
 
 
 # ---- fused obstacle phase ---------------------------------------------------
+
+def test_obstacle_traffic_bytes_flagship():
+    """The flagship shape (m=99, S=15, B=256, one 12×16×12 field) by
+    hand, Q = 380,160 queries: x, vel, acc 9·Q·4 = 13,685,760 B; field
+    9,216; sizes + lengths 24; both poses 2·7·256·4 = 14,336;
+    field_enabled 256; radii 60; epsilon + obs_factor 2,048; cost +
+    wgrad 4·Q·4 = 6,082,560."""
+    assert obstacle_traffic_bytes(99, 15, 256, 1, 12, 16, 12) == (
+        13_685_760 + 9_216 + 24 + 14_336 + 256 + 60 + 2_048
+        + 6_082_560) == 19_794_260
+
 
 def _fields(rng, F, inf_cell=False, all_occupied=False):
     g1 = rng.normal(size=(6, 9, 5)) * 0.2 + 0.05
@@ -143,7 +155,8 @@ def _obstacle_case(seed, F, B=4, m=5, S=3, stationary=False, disable=None,
     for k, v in arrs.items():
         setattr(tp, k, torch.as_tensor(v))
     fields = fields_from_numpy(np.asarray(data), np.asarray(sizes),
-                               np.asarray(lengths), dtype=torch.float64)
+                               np.asarray(lengths), device="cpu",
+                               dtype=torch.float64)
     c_t, w_t = cost_soa._obstacle_soa(
         fields, torch.as_tensor(radii), tp, torch.as_tensor(x),
         torch.as_tensor(vel), torch.as_tensor(acc))
@@ -175,7 +188,7 @@ def test_obstacle_all_occupied_field_reads_not_contained():
     data = np.full((1, 4, 5, 3), -np.inf)
     fields = fields_from_numpy(data, np.array([[4, 5, 3]]),
                                np.array([[0.4, 0.5, 0.3]]),
-                               dtype=torch.float64)
+                               device="cpu", dtype=torch.float64)
     B, m, S = 2, 3, 2
     tp = _Probs()
     tp.epsilon = torch.full((B,), 0.1, dtype=torch.float64)
@@ -233,7 +246,8 @@ def test_obstacle_field_ties_and_enabled_mask():
     for k, v in arrs.items():
         setattr(tp, k, torch.as_tensor(v))
     fields = fields_from_numpy(np.asarray(data), np.asarray(sizes),
-                               np.asarray(lengths), dtype=torch.float64)
+                               np.asarray(lengths), device="cpu",
+                               dtype=torch.float64)
     c_t, w_t = cost_soa._obstacle_soa(
         fields, torch.as_tensor(radii), tp, torch.as_tensor(x),
         torch.as_tensor(vel), torch.as_tensor(acc))

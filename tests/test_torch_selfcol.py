@@ -11,6 +11,7 @@ import jax.numpy as jnp
 from or_cdchomp_tpu.chomp import cost_soa as jax_cost_soa
 from or_cdchomp_tpu.ops.pallas_selfcol import selfcol_pairs as pallas_pairs
 from or_cdchomp_tpu_torch.chomp import cost_soa
+from or_cdchomp_tpu_torch.ops import selfcol
 from or_cdchomp_tpu_torch.ops.selfcol import pair_table, selfcol_pairs_ref
 
 RTOL = 1e-10   # float64; per-sphere sums differ in association order
@@ -132,3 +133,31 @@ def test_pair_table_order():
     np.testing.assert_array_equal(pj, [2, 3, 2, 0, 1, 3])
     np.testing.assert_array_equal(rsum, [4.0, 5.0, 5.0, 4.0, 5.0, 7.0])
     assert pi.dtype == np.int32 and pj.dtype == np.int32
+
+
+def test_traffic_bytes_flagship():
+    """The flagship shape (m=99, Sa=15, SI=1, B=256, P=207) by hand: xi,
+    vel and net 3·99·15·256·4 = 4,561,920 B each, cost 1,520,640, xo
+    3,072, eps_self + obs_self 2,048, the pair table 3·207·4 = 2,484."""
+    assert selfcol.traffic_bytes(99, 15, 1, 256, 207) == (
+        3 * 4_561_920 + 1_520_640 + 3_072 + 2_048 + 2_484) == 15_214_004
+
+
+def test_vote_stats_counts_warps():
+    """Two warps of problems (40 = 32 + a ragged 8); spheres 0 and 1 are
+    10 m apart except in problem 5 (first warp), where they overlap: the
+    two pairs (0, 1), (1, 0) each pass the box test and take the vote in
+    one of their two warps."""
+    B = 40
+    x = np.zeros((3, 1, 2, B))
+    x[0, 0, 1] = 10.0
+    x[0, 0, 1, 5] = 0.05
+    pi, pj, rsum = pair_table(np.eye(2, dtype=bool), [0.05, 0.05],
+                              [0.05, 0.05])
+    t = torch.as_tensor
+    stats = selfcol.vote_stats(
+        t(x), torch.zeros((3, 0, B), dtype=torch.float64), t(pi), t(pj),
+        t(rsum), torch.full((B,), 0.04, dtype=torch.float64))
+    votes, near, taken, reach = stats
+    assert stats == (4, 2, 2, 2)
+    assert selfcol.flops(1, B, 2, reach) == 12 * 80 + 33 * 2

@@ -55,14 +55,15 @@ def _port_engine(jeng, dtype):
     s = jeng.spec
     f = jeng.fields
     fields = fields_from_numpy(np.asarray(f.data), np.asarray(f.sizes),
-                               np.asarray(f.lengths), dtype=dtype)
+                               np.asarray(f.lengths), device="cpu",
+                               dtype=dtype)
     return ChompEngine(ChompSpec(n_points=s.n_points, n=s.n, m=s.m),
-                       wam7(), fields, dtype=dtype)
+                       wam7(), fields, dtype=dtype, device="cpu")
 
 
 def _port_probs(jprobs, dtype):
     d = {k: np.asarray(v) for k, v in jprobs._asdict().items() if k != "hmc"}
-    return problem_from_numpy(d, dtype=dtype)
+    return problem_from_numpy(d, device="cpu", dtype=dtype)
 
 
 @pytest.fixture(scope="module")
