@@ -1,21 +1,34 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
 Builds the two CUDA kernels from or_cdchomp_tpu_torch/csrc, holds each
-against its plain PyTorch version at the flagship shapes, then drives
-the main path once — the bench scene (WAM7 + hand, table + mug, one SDF)
-through CHOMPModule, a batch of 256 perturbed problems, 100 iterations
-of BatchSolver.iterate in float32 — checks it went through both kernels,
-and holds the first 8 solves against the same API on the CPU in
-float64.  Any failed phase exits non-zero.
+against its plain PyTorch version at the shapes of the paths below, and
+drives four of BASELINE's configurations through CHOMPModule and
+BatchSolver, each with the kernel launch counts set to 0 just before it
+and read just after:
+
+- config 1 (the main path): the bench scene (WAM7 + hand, table + mug,
+  one SDF), 256 perturbed problems, 100 iterations of
+  BatchSolver.iterate in float32;
+- config 2: three SDFs (table, shelf, mugs; cache files), self-collision
+  weights and a moved robot base, 256 problems, BatchSolver.solve of 100
+  iterations and the final cost report;
+- config 3: config 1's scene with HMC (seed 7), 256 problems,
+  BatchSolver.solve and best_of_batch;
+- config 5: config 1 at 10,240 problems, 100 iterations; both kernels
+  are held against their plain versions again on its inputs.
+
+Each is timed on the card first; then the first 8 problems of configs
+1, 2 and 3 are re-solved on the CPU in float64 through the same API
+(config 3 fed the card's own HMC draws) and held to max |Δtraj| ≤ 1e-3.
+Any failed phase exits non-zero.
 
     python3 chip_smoke.py
 
 Prints the card (nvidia-smi name, power limit), the self-collision
 kernel's launch (registers, spills, shared memory, resident blocks) and
-its skip shares on the flagship batch, a JSON line of
-per-kernel results (device time beside the bound: bytes over 3.35 TB/s
-or operations over 67 TFLOP/s fp32, whichever is larger), and as its
-last line
+its skip shares on the flagship batch, a JSON line of per-kernel results
+(device time beside the bound: bytes over 3.35 TB/s or operations over
+67 TFLOP/s fp32, whichever is larger), and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX.
 """
@@ -33,13 +46,18 @@ ROOT = Path(__file__).resolve().parent
 N_ITER = 100
 N_POINTS = 101
 BATCH = 256
+BATCH_POD = 10_240   # config 5
 N_CHECK = 8          # problems re-solved on the CPU in float64
+WARM_REPS = 5        # warm walls of configs 2 and 3
 TRAJ_BAR = 1e-3      # BASELINE bar: max |Δtraj| float32 card vs float64
 KERNEL_RTOL = 1e-5   # kernel vs plain version, both float32 on the card
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet, 700 W)
 FP32_FLOPS_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
 START = [2.5, -1.8, 0.0, 2.0, 0.0, 0.2, 0.0]
 GOAL = [0.4, 0.6, 0.1, 1.3, 0.0, -0.5, 0.0]
+# config 2's robot base (benchmarks/configs.py:38-40)
+CONFIG2_BASE = [0.0, -1.2, 1.0, 0.0, 0.70711, 0.0, 0.70711]
+CACHE_DIR = ROOT / "or_cdchomp_tpu_torch" / "build" / "sdf_cache"
 
 
 class PhaseFailed(Exception):
@@ -59,8 +77,11 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
+# ---- the configurations (benchmarks/configs.py, copied) --------------------
+
 def bench_module(pt, dtype, device):
-    """The bench.py scene through the port's API; returns (module, run)."""
+    """Config 1: the bench.py scene through the port's API; returns
+    (module, run)."""
     import numpy as np
 
     from or_cdchomp_tpu_torch.api import KinBody, Robot
@@ -81,17 +102,73 @@ def bench_module(pt, dtype, device):
     return mod, mod.runs[h]
 
 
-def bench_endpoints():
-    """bench.py's seed-0 perturbed starts and goals, (BATCH, 7) each."""
+def config2_module(pt, dtype, device, require_cache=False):
+    """Config 2 (benchmarks/configs.py:67-89): table, shelf and mug
+    cluster as three SDFs at 0.05 m, read from / written to CACHE_DIR,
+    the robot base at y = −1.2; returns (module, run)."""
+    import numpy as np
+
+    from or_cdchomp_tpu_torch.api import KinBody, Robot
+
+    mod = pt.CHOMPModule(dtype=dtype, device=device)
+    mod.add_kinbody(KinBody("table", pt.Scene.build(
+        boxes=[((0.0, 0.0, 0.7, 0, 0, 0, 1), (0.35, 0.75, 0.02))])))
+    mod.add_kinbody(KinBody("shelf", pt.Scene.build(
+        boxes=[((0.45, 0.5, 1.0, 0, 0, 0, 1), (0.05, 0.3, 0.3)),
+               ((0.45, 0.5, 1.3, 0, 0, 0, 1), (0.3, 0.3, 0.02))])))
+    mod.add_kinbody(KinBody("mugs", pt.Scene.build(
+        cylinders=[((0.1, 0.2, 0.76, 0, 0, 0, 1), 0.04, 0.06),
+                   ((-0.1, -0.3, 0.76, 0, 0, 0, 1), 0.05, 0.08)])))
+    robot = Robot("wam", pt.wam7(), pose=np.array(CONFIG2_BASE),
+                  q_active=np.array(START))
+    mod.add_robot(robot)
+    robot.enabled = False
+    for name in ("table", "shelf", "mugs"):
+        mod.computedistancefield(
+            kinbody=name, cube_extent=0.05,
+            cache_filename=str(CACHE_DIR / f"sdf_{name}.dat"),
+            require_cache=require_cache)
+    robot.enabled = True
+    h = mod.create(robot="wam", adofgoal=np.array(GOAL), lambda_=100.0,
+                   obs_factor=500.0, obs_factor_self=10.0, epsilon_self=0.04,
+                   n_points=N_POINTS)
+    return mod, mod.runs[h]
+
+
+def config3_run(pt, dtype, device):
+    """Config 3 (benchmarks/configs.py:92-99): config 1's module, then a
+    second create with HMC; returns the HMC run."""
+    import numpy as np
+
+    mod, _ = bench_module(pt, dtype, device)
+    h = mod.create(robot="wam", adofgoal=np.array(GOAL), lambda_=100.0,
+                   obs_factor=500.0, n_points=N_POINTS, use_hmc=True,
+                   hmc_resample_lambda=0.02, seed=7)
+    return mod.runs[h]
+
+
+def bench_endpoints(batch):
+    """bench.py's seed-0 perturbed starts and goals, (batch, 7) each."""
     import numpy as np
 
     rng = np.random.default_rng(0)
-    starts = np.tile(np.array(START), (BATCH, 1)) \
-        + 0.02 * rng.normal(size=(BATCH, 7))
-    goals = np.tile(np.array(GOAL), (BATCH, 1)) \
-        + 0.02 * rng.normal(size=(BATCH, 7))
+    starts = np.tile(np.array(START), (batch, 1)) \
+        + 0.02 * rng.normal(size=(batch, 7))
+    goals = np.tile(np.array(GOAL), (batch, 1)) \
+        + 0.02 * rng.normal(size=(batch, 7))
     return starts, goals
 
+
+def due_tally(draw, dues):
+    """Wraps an HMC draw source: appends to ``dues`` each call's (B,)
+    mask of the problems that resample at this step, on the device."""
+    def tallied(probs):
+        dues.append(probs.iteration == probs.resample_iter)
+        return draw(probs)
+    return tallied
+
+
+# ---- timing and comparison --------------------------------------------------
 
 def time_ms(torch, fn, reps=20):
     """Median device time of fn over reps, from CUDA events."""
@@ -172,6 +249,73 @@ def compare(torch, name, got, want, exact=False):
     return err
 
 
+def obstacle_args(engine, probs, x_mov, vel, acc):
+    """K1's arguments on a path's own inputs."""
+    fields = engine.fields
+    return [x_mov, vel, acc, fields.data, fields.sizes, fields.lengths,
+            probs.pose_gsdf_world, probs.pose_world_gsdf,
+            probs.field_enabled, engine.radii_act, probs.epsilon,
+            probs.obs_factor]
+
+
+def check_obstacle(torch, sdf_lookup, oargs, label, hinge=True):
+    """K1 against its plain version: bit-equal cost and gradient, 100%
+    one-sided-neighbour agreement, and (``hinge``) some cost.  Returns
+    max_abs_err."""
+    cost_k, grad_k, dirs_k = sdf_lookup.obstacle(*oargs, want_dirs=True)
+    cost_r, grad_r, dirs_r = sdf_lookup.obstacle_ref(*oargs, want_dirs=True)
+    # counted, not averaged: a float mean of 4.6e7 ones need not read 1
+    n_diff = int((dirs_k != dirs_r).sum())
+    agree = 1.0 - n_diff / dirs_r.numel()
+    check(n_diff == 0, f"{label}: use_next differs on {n_diff} of "
+          f"{dirs_r.numel()} queries")
+    err = max(compare(torch, f"{label} cost", cost_k, cost_r, exact=True),
+              compare(torch, f"{label} gradient", grad_k, grad_r,
+                      exact=True))
+    active = float((cost_r != 0.0).double().mean())
+    check(active > 0.0 or not hinge, f"{label}: no active hinge")
+    print(f"{label}: use_next agreement {agree:.6f}, bit-equal, max_abs_err "
+          f"{err}, hinge active on {active:.4f} of the queries")
+    return err
+
+
+def time_obstacle(torch, sdf_lookup, oargs, label):
+    t = timings(torch, lambda: sdf_lookup.obstacle(*oargs),
+                lambda: sdf_lookup.obstacle_ref(*oargs))
+    print(f"{label}: per call {t[0]:.4f} ms vs plain {t[1]:.4f} ms, "
+          f"device {t[2]} ms vs plain {t[3]} ms")
+    return t
+
+
+def warm_walls(torch, fn, reps):
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return statistics.median(walls), walls
+
+
+def counts_zero(sdf_lookup, selfcol):
+    sdf_lookup.LAUNCHES = 0
+    selfcol.LAUNCHES = 0
+
+
+def counts(sdf_lookup, selfcol):
+    return {"obstacle": sdf_lookup.LAUNCHES, "selfcol": selfcol.LAUNCHES}
+
+
+def check_launches(got, want, label):
+    for k, v in got.items():
+        check(v == want, f"{label}: {k} launched {v} times, expected {want}")
+
+
+def max_dtraj(out, ref):
+    return float((out.traj[:N_CHECK].double().cpu() - ref.traj).abs().max())
+
+
 def main():
     if not (ROOT / "or_cdchomp_tpu_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -195,8 +339,10 @@ def main():
 
     import or_cdchomp_tpu_torch as pt
     from or_cdchomp_tpu_torch.chomp import cost_soa
+    from or_cdchomp_tpu_torch.chomp.solver import RecordingDraw, ReplayDraw
     from or_cdchomp_tpu_torch.ops import kernels, sdf_lookup, selfcol
     from or_cdchomp_tpu_torch.parallel.batch import (BatchSolver,
+                                                     best_of_batch,
                                                      problem_batch_from_grid)
 
     # -- build ----------------------------------------------------------------
@@ -213,7 +359,7 @@ def main():
     t0 = time.perf_counter()
     _, run = bench_module(pt, f32, dev)
     engine = run.engine
-    starts, goals = bench_endpoints()
+    starts, goals = bench_endpoints(BATCH)
     probs = problem_batch_from_grid(run.problem, starts, goals, engine)
     torch.cuda.synchronize()
     print(f"setup (SDF build, create, batch): "
@@ -226,7 +372,8 @@ def main():
     _, x_mov, vel, acc = cost_soa.sphere_kinematics(engine.spec, engine.fk,
                                                     probs)
     m, S, B = x_mov.shape[1:]
-    check((m, S, B) == (99, 15, BATCH), f"sphere tensors {(m, S, B)}")
+    check((m, S, B) == (N_POINTS - 2, 15, BATCH),
+          f"sphere tensors {(m, S, B)}")
     results = []
 
     rng = np.random.default_rng(1)
@@ -250,22 +397,9 @@ def main():
           f"{t[1]:.4f} ms, device {t[2]} ms vs plain {t[3]} ms, "
           f"bound {bound} ms (bytes)")
 
-    oargs = (x_mov, vel, acc, fields.data, fields.sizes, fields.lengths,
-             probs.pose_gsdf_world, probs.pose_world_gsdf,
-             probs.field_enabled, engine.radii_act, probs.epsilon,
-             probs.obs_factor)
-    cost_k, grad_k, dirs_k = sdf_lookup.obstacle(*oargs, want_dirs=True)
-    cost_r, grad_r, dirs_r = sdf_lookup.obstacle_ref(*oargs, want_dirs=True)
-    agree = float((dirs_k == dirs_r).double().mean())
-    check(agree == 1.0, f"obstacle: use_next agreement {agree}")
-    err = max(compare(torch, "obstacle cost", cost_k, cost_r),
-              compare(torch, "obstacle gradient", grad_k, grad_r))
-    check(float(cost_r.abs().max()) > 0.0, "obstacle: no active hinge")
-    t = timings(torch, lambda: sdf_lookup.obstacle(*oargs),
-                lambda: sdf_lookup.obstacle_ref(*oargs))
-    print(f"obstacle: use_next agreement {agree:.6f}, max_abs_err {err}, "
-          f"per call {t[0]:.4f} ms vs plain {t[1]:.4f} ms, "
-          f"device {t[2]} ms vs plain {t[3]} ms")
+    oargs = obstacle_args(engine, probs, x_mov, vel, acc)
+    err = check_obstacle(torch, sdf_lookup, oargs, "obstacle")
+    t = time_obstacle(torch, sdf_lookup, oargs, "obstacle")
     # no single PyTorch call computes it: grid_sample interpolates
     # trilinearly, not with libcd's one-sided 4-cell rule
     results.append(kernel_entry(
@@ -314,20 +448,18 @@ def main():
               f"({r['bound_by']}), share {r['bound_share']:.4f} on {card}")
 
     # -- the main path --------------------------------------------------------
-    sdf_lookup.LAUNCHES = 0
-    selfcol.LAUNCHES = 0
+    counts_zero(sdf_lookup, selfcol)
     solver = BatchSolver(engine)
     t0 = time.perf_counter()
     out, costs = solver.iterate(probs, N_ITER)
     torch.cuda.synchronize()
     first_wall = time.perf_counter() - t0
-    launches = {"obstacle": sdf_lookup.LAUNCHES, "selfcol": selfcol.LAUNCHES}
+    launches = counts(sdf_lookup, selfcol)
     print(f"main path: {N_ITER} iterations at B={BATCH} in {first_wall:.3f} s "
           f"(first call), launches {launches}")
+    check_launches(launches, N_ITER, "config 1")
     for r in results:
         r["launches"] = launches[r["name"]]
-        check(r["launches"] == N_ITER,
-              f"{r['name']}: {r['launches']} launches, expected {N_ITER}")
     check(tuple(costs.shape) == (N_ITER, BATCH, 3), f"costs {costs.shape}")
     check(tuple(out.traj.shape) == (BATCH, N_POINTS, 7), "trajectory shape")
     check(bool(torch.isfinite(costs).all()), "non-finite costs")
@@ -337,30 +469,236 @@ def main():
     print(f"mean total cost: first iteration {c0:.6f}, last {c1:.6f}")
     check(c1 < c0, "the mean total cost did not fall")
 
-    # -- warm wall of the flagship solve, before the CPU phase: the CPU's
+    # -- warm wall of the flagship solve, before the CPU phases: the CPU's
     # worker threads slow a host-bound loop for seconds after a CPU solve
-    walls = []
-    for _ in range(7):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        solver.iterate(probs, N_ITER)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    wall = statistics.median(walls)
+    wall, walls = warm_walls(torch, lambda: solver.iterate(probs, N_ITER), 7)
     print(f"flagship iterate({N_ITER}) at B={BATCH}: median warm wall "
           f"{wall} s of {walls}, {BATCH / wall} solves/s on {card}")
 
-    # -- the same solves on the CPU in float64 (plain versions) ---------------
+    # -- config 2: three SDFs, self-collision weights, moved base -------------
+    CACHE_DIR.mkdir(parents=True, exist_ok=True)
+    for old in CACHE_DIR.glob("sdf_*.dat"):
+        old.unlink()
     t0 = time.perf_counter()
-    _, run64 = bench_module(pt, torch.float64, "cpu")
+    _, run2 = config2_module(pt, f32, dev)
+    eng2 = run2.engine
+    probs2 = problem_batch_from_grid(run2.problem, starts, goals, eng2)
+    torch.cuda.synchronize()
+    f2 = eng2.fields
+    sizes2 = f2.sizes.cpu().numpy()
+    print(f"config 2 setup (3 SDF builds + cache writes, create, batch): "
+          f"{time.perf_counter() - t0:.2f} s; field stack "
+          f"{tuple(f2.data.shape)}, true sizes {sizes2.tolist()}")
+    check(f2.data.shape[0] == 3
+          and tuple(f2.data.shape[1:]) == tuple(sizes2.max(axis=0)),
+          f"config 2 field stack {tuple(f2.data.shape)}")
+    _, x2, v2, a2 = cost_soa.sphere_kinematics(eng2.spec, eng2.fk, probs2)
+    m2, S2, B2 = x2.shape[1:]
+    # on the path's own inputs the hinge is idle: the arm stays outside
+    # the three field boxes.  So K1 is also held with the sphere cloud
+    # moved into the fields, a 1 m hinge width and field 0, 1 or 2
+    # disabled in every fourth problem: every lookup, the min-select
+    # over the three padded fields and field_enabled then reach the
+    # cost and the gradient
+    oargs2 = obstacle_args(eng2, probs2, x2, v2, a2)
+    err = check_obstacle(torch, sdf_lookup, oargs2, "obstacle F=3",
+                         hinge=False)
+    wide = list(oargs2)
+    inside = torch.tensor([0.2, 0.2, 0.8], device=dev).view(3, 1, 1, 1)
+    wide[0] = (x2 - x2.mean(dim=(1, 2, 3), keepdim=True) + inside
+               ).contiguous()
+    wide[10] = torch.ones_like(probs2.epsilon)
+    enabled = probs2.field_enabled.clone()
+    for f in range(3):
+        enabled[f + 1::4, f] = False
+    wide[8] = enabled
+    err = max(err, check_obstacle(
+        torch, sdf_lookup, wide,
+        "obstacle F=3, moved in, 1 m hinge, fields off"))
+    t = time_obstacle(torch, sdf_lookup, oargs2, "obstacle F=3")
+    time_obstacle(torch, sdf_lookup, wide, "obstacle F=3, moved in")
+    F2, mx2, my2, mz2 = f2.data.shape
+    entry_f3 = kernel_entry(
+        "obstacle_f3", "or_cdchomp_tpu_torch/csrc/obstacle.cu",
+        "or_cdchomp_tpu/ops/pallas_sdf.py:86", err, t,
+        sdf_lookup.obstacle_traffic_bytes(m2, S2, B2, F2, mx2, my2, mz2),
+        sdf_lookup.obstacle_flops(m2, S2, B2, F2))
+    print(f"obstacle F=3: device {entry_f3['ms']} ms, bound "
+          f"{entry_f3['bound_ms']} ms ({entry_f3['bound_by']}), share "
+          f"{entry_f3['bound_share']:.4f} on {card}")
+    xo2 = probs2.inactive_pos.permute(2, 1, 0).contiguous()
+    sargs2 = (x2, v2, xo2, *eng2.pairs, probs2.epsilon_self,
+              probs2.obs_factor_self)
+    net_k, c_k = selfcol.selfcol_pairs(*sargs2)
+    net_r, c_r = selfcol.selfcol_pairs_ref(*sargs2)
+    err2 = max(compare(torch, "config 2 selfcol net", net_k, net_r),
+               compare(torch, "config 2 selfcol cost", c_k, c_r))
+    print(f"config 2 selfcol: max_abs_err {err2} (rtol {KERNEL_RTOL})")
+    init2 = torch.stack(eng2.final_costs_batch(probs2), dim=-1).mean(0)
+    initial2 = float(init2[0])
+
+    counts_zero(sdf_lookup, selfcol)
+    solver2 = BatchSolver(eng2)
+    t0 = time.perf_counter()
+    out2, fin2, done2 = solver2.solve(probs2, N_ITER)
+    torch.cuda.synchronize()
+    first_wall = time.perf_counter() - t0
+    launches2 = counts(sdf_lookup, selfcol)
+    print(f"config 2: solve({N_ITER}) + final costs at B={BATCH} in "
+          f"{first_wall:.3f} s (first call), launches {launches2} "
+          f"(expected {N_ITER} + 1 each)")
+    check_launches(launches2, N_ITER + 1, "config 2")
+    entry_f3["launches"] = launches2["obstacle"]
+    check(done2 == N_ITER and tuple(fin2.shape) == (BATCH, 3),
+          f"config 2: done {done2}, finals {tuple(fin2.shape)}")
+    check(bool(torch.isfinite(fin2).all())
+          and bool(torch.isfinite(out2.traj).all()),
+          "config 2: non-finite costs or trajectories")
+    final2 = float(fin2[:, 0].mean())
+    print(f"config 2 mean (total, obstacle + self, smoothness) cost: before "
+          f"{init2.tolist()}, after {fin2.mean(0).tolist()}")
+    check(final2 < initial2, "config 2: the mean total cost did not fall")
+    wall, walls = warm_walls(torch, lambda: solver2.solve(probs2, N_ITER),
+                             WARM_REPS)
+    print(f"config 2 solve({N_ITER}) at B={BATCH}: median warm wall {wall} s "
+          f"of {walls}, {BATCH / wall} solves/s on {card}")
+
+    # -- config 3: HMC, best of the batch -------------------------------------
+    t0 = time.perf_counter()
+    run3 = config3_run(pt, f32, dev)
+    eng3 = run3.engine
+    check(eng3.spec.use_hmc and eng3.spec.use_momentum, "config 3 flags")
+    probs3 = problem_batch_from_grid(run3.problem, starts, goals, eng3)
+    torch.cuda.synchronize()
+    print(f"config 3 setup: {time.perf_counter() - t0:.2f} s")
+    rec, dues = RecordingDraw(eng3.draw, N_CHECK), []
+    eng3.draw = due_tally(rec, dues)
+    counts_zero(sdf_lookup, selfcol)
+    solver3 = BatchSolver(eng3)
+    t0 = time.perf_counter()
+    out3, fin3, done3 = solver3.solve(probs3, N_ITER)
+    torch.cuda.synchronize()
+    first_wall = time.perf_counter() - t0
+    launches3 = counts(sdf_lookup, selfcol)
+    eng3.draw = rec.inner
+    print(f"config 3: solve({N_ITER}) + final costs at B={BATCH} in "
+          f"{first_wall:.3f} s (first call), launches {launches3} "
+          f"(expected {N_ITER} + 1 each), {len(rec.z)} draws")
+    check_launches(launches3, N_ITER + 1, "config 3")
+    check(len(rec.z) == N_ITER, f"config 3: {len(rec.z)} draws")
+    check(bool(torch.isfinite(fin3).all())
+          and bool(torch.isfinite(out3.traj).all()),
+          "config 3: non-finite costs or trajectories")
+    check(bool(dues[0].all()),
+          "config 3: not every problem resampled at iteration 0")
+    check(bool((out3.resample_iter >= N_ITER).all()),
+          "config 3: a resample iteration was passed over")
+    n_res = torch.stack(dues).sum(0).cpu().numpy()
+    check(int(n_res.max()) >= 2, "config 3: no problem resampled twice")
+    hist = {int(k): int((n_res == k).sum()) for k in np.unique(n_res)}
+    print(f"config 3 resamples per problem (count: problems): {hist}")
+    best, idx = best_of_batch(out3, fin3)
+    best_cost = float(fin3[idx, 0])
+    check(best_cost == float(fin3[:, 0].min()),
+          "config 3: best_of_batch did not pick the least total")
+    check(torch.equal(best.traj, out3.traj[idx]), "config 3: best problem")
+    print(f"config 3 best of batch: index {int(idx)}, total cost "
+          f"{best_cost:.6f} (mean {float(fin3[:, 0].mean()):.6f})")
+    wall, walls = warm_walls(torch, lambda: solver3.solve(probs3, N_ITER),
+                             WARM_REPS)
+    print(f"config 3 solve({N_ITER}) at B={BATCH}: median warm wall {wall} s "
+          f"of {walls}, {BATCH / wall} solves/s on {card}")
+
+    # -- config 5: config 1 at 10,240 problems --------------------------------
+    starts5, goals5 = bench_endpoints(BATCH_POD)
+    probs5 = problem_batch_from_grid(run.problem, starts5, goals5, engine)
+    solver.iterate(probs5, 1)                          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts_zero(sdf_lookup, selfcol)
+    t0 = time.perf_counter()
+    out5, costs5 = solver.iterate(probs5, N_ITER)
+    torch.cuda.synchronize()
+    wall5 = time.perf_counter() - t0
+    launches5 = counts(sdf_lookup, selfcol)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"config 5: iterate({N_ITER}) at B={BATCH_POD}: wall {wall5} s, "
+          f"{BATCH_POD / wall5} solves/s, peak device memory {peak} B "
+          f"({peak / 2**30:.3f} GiB), launches {launches5} on {card}")
+    check_launches(launches5, N_ITER, "config 5")
+    check(bool(torch.isfinite(costs5).all())
+          and bool(torch.isfinite(out5.traj).all()),
+          "config 5: non-finite costs or trajectories")
+    print(f"config 5 mean total cost: first iteration "
+          f"{float(costs5[0, :, 0].mean()):.6f}, last "
+          f"{float(costs5[-1, :, 0].mean()):.6f}")
+    # both kernels against their plain versions at config 5's shapes
+    # (B = 10,240: 40 times the flagship grid), on its own inputs
+    _, x5, v5, a5 = cost_soa.sphere_kinematics(engine.spec, engine.fk, probs5)
+    check(tuple(x5.shape[1:]) == (N_POINTS - 2, 15, BATCH_POD),
+          f"config 5 sphere tensors {tuple(x5.shape)}")
+    oargs5 = obstacle_args(engine, probs5, x5, v5, a5)
+    check_obstacle(torch, sdf_lookup, oargs5, "config 5 obstacle")
+    xo5 = probs5.inactive_pos.permute(2, 1, 0).contiguous()
+    sargs5 = (x5, v5, xo5, *engine.pairs, probs5.epsilon_self,
+              probs5.obs_factor_self)
+    net_k, c_k = selfcol.selfcol_pairs(*sargs5)
+    net_r, c_r = selfcol.selfcol_pairs_ref(*sargs5)
+    err5 = max(compare(torch, "config 5 selfcol net", net_k, net_r),
+               compare(torch, "config 5 selfcol cost", c_k, c_r))
+    print(f"config 5 selfcol: max_abs_err {err5} (rtol {KERNEL_RTOL})")
+    del probs5, out5, costs5, x5, v5, a5, oargs5, xo5, sargs5
+    del net_k, c_k, net_r, c_r
+
+    # -- the same solves on the CPU in float64 (plain versions) ---------------
+    cpu, f64 = "cpu", torch.float64
+    t0 = time.perf_counter()
+    _, run64 = bench_module(pt, f64, cpu)
     p64 = problem_batch_from_grid(run64.problem, starts[:N_CHECK],
                                   goals[:N_CHECK], run64.engine)
     out64, _ = BatchSolver(run64.engine).iterate(p64, N_ITER)
-    dtraj = float((out.traj[:N_CHECK].double().cpu() - out64.traj).abs().max())
+    dtraj = max_dtraj(out, out64)
     print(f"CPU float64 re-solve of {N_CHECK} problems: max |Δtraj| {dtraj} "
           f"(bar {TRAJ_BAR}), {time.perf_counter() - t0:.2f} s")
     check(dtraj <= TRAJ_BAR, f"max |Δtraj| {dtraj} > {TRAJ_BAR}")
 
+    # config 2 reads the card's fields from the cache files, so the two
+    # solves share their fields to the bit
+    t0 = time.perf_counter()
+    _, run2_64 = config2_module(pt, f64, cpu, require_cache=True)
+    p64 = problem_batch_from_grid(run2_64.problem, starts[:N_CHECK],
+                                  goals[:N_CHECK], run2_64.engine)
+    out64, fin64, _ = BatchSolver(run2_64.engine).solve(p64, N_ITER)
+    dtraj = max_dtraj(out2, out64)
+    dfin = float((fin2[:N_CHECK].double().cpu() - fin64).abs().max())
+    print(f"config 2 CPU float64 re-solve of {N_CHECK} problems: max "
+          f"|Δtraj| {dtraj} (bar {TRAJ_BAR}), max |Δfinal cost| {dfin}, "
+          f"{time.perf_counter() - t0:.2f} s")
+    check(dtraj <= TRAJ_BAR, f"config 2: max |Δtraj| {dtraj} > {TRAJ_BAR}")
+
+    # config 3 on the CPU fed the card's draws, float64 and float32: the
+    # two CPU solves apart are momentum's own float32 drift
+    cpu_outs = []
+    for dtype in (f64, f32):
+        t0 = time.perf_counter()
+        run3c = config3_run(pt, dtype, cpu)
+        run3c.engine.draw = ReplayDraw(rec.z, rec.u)
+        p3c = problem_batch_from_grid(run3c.problem, starts[:N_CHECK],
+                                      goals[:N_CHECK], run3c.engine)
+        out3c, _, _ = BatchSolver(run3c.engine).solve(p3c, N_ITER)
+        dtraj = max_dtraj(out3, out3c)
+        same_sched = torch.equal(out3.resample_iter[:N_CHECK].cpu(),
+                                 out3c.resample_iter)
+        print(f"config 3 CPU {dtype} re-solve of {N_CHECK} problems, same "
+              f"draws: max |Δtraj| {dtraj} (bar {TRAJ_BAR}), same resample "
+              f"schedule {same_sched}, {time.perf_counter() - t0:.2f} s")
+        check(dtraj <= TRAJ_BAR,
+              f"config 3 ({dtype}): max |Δtraj| {dtraj} > {TRAJ_BAR}")
+        cpu_outs.append(out3c.traj.double())
+    print(f"config 3 CPU float32 against CPU float64, same draws: max "
+          f"|Δtraj| {float((cpu_outs[1] - cpu_outs[0]).abs().max())}")
+
+    results.append(entry_f3)
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

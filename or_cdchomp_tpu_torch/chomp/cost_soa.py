@@ -66,16 +66,20 @@ def sphere_kinematics(spec, fk, probs):
     return fk_out, x_mov, vel, acc
 
 
-def total_cost_grad_batched(spec, fk, fields, pairs, radii_act, probs):
+def total_cost_grad_batched(spec, fk, fields, pairs, radii_act, probs,
+                            want_grad=True):
     """Obstacle + self-collision cost and configuration-space gradient
     of a fixed-base batch (cost_soa.py:637-698, 744-746).
 
     Returns (cost (B,), G (B, m, n)), averaged over the moving points
-    (chomp.c:489-492).
+    (chomp.c:489-492).  ``want_grad=False`` (the cost report) skips the
+    Jᵀ map and returns G None; the kernels run either way.
     """
     fk_out, x_mov, vel, acc = sphere_kinematics(spec, fk, probs)
     c_obs, w_obs = _obstacle_soa(fields, radii_act, probs, x_mov, vel, acc)
     c_self, w_self = _selfcol_soa(pairs, probs, x_mov, vel)
+    if not want_grad:
+        return (c_obs + c_self) / spec.m, None
 
     w = w_obs + w_self
     anch_mov = tuple(c[1:-1] for c in fk_out.anch_pos)
@@ -83,3 +87,4 @@ def total_cost_grad_batched(spec, fk, fields, pairs, radii_act, probs):
     G = fk.apply_sphere_jacT_soa(anch_mov, axw_mov, tuple(x_mov), tuple(w))
     G = G.permute(2, 0, 1) / spec.m                     # (B, m, n)
     return (c_obs + c_self) / spec.m, G
+

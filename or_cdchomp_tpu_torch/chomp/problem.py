@@ -5,7 +5,10 @@ A problem is a dataclass of tensors.  A single problem (``create``) has
 the leaf shapes listed below; a batch (``problem_batch_from_grid``) adds
 a leading problem axis B to every leaf.  Quantities shared across the
 batch (A, A⁻¹, the SDF stack, the robot) live on the engine.  The HMC
-state waits for the HMC slice.
+state of the JAX package's ``HmcState`` is carried as two flat leaves,
+``resample_iter`` and ``leapfrog_first``; its PRNG key has no
+counterpart here, since the random draws come from the engine's draw
+source (chomp/solver.py ``HmcDraw``).
 """
 
 from __future__ import annotations
@@ -61,6 +64,8 @@ class ChompProblem:
     inactive_pos: torch.Tensor     # (S_inact, 3) fixed inactive spheres
     tsr_T0w_inv: torch.Tensor      # (C, 7)
     tsr_Twe_inv: torch.Tensor      # (C, 7)
+    resample_iter: torch.Tensor    # () int32 next HMC resample iteration
+    leapfrog_first: torch.Tensor   # () bool: next momentum step is a half step
     iteration: torch.Tensor        # () int32
 
     def to(self, device=None, dtype=None):

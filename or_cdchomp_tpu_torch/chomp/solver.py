@@ -1,18 +1,23 @@
 """The CHOMP covariant-update solver over a problem batch (counterpart of
 or_cdchomp_tpu/chomp/solver.py, batch-native fixed-base path).
 
-One step (cd_chomp_iterate, chomp.c:430-683) on a (B,)-batched problem:
+One step (cd_chomp_iterate, chomp.c:430-683, with the HMC resampling of
+mod::iterate, orcdchomp_mod.cpp:2752-2768) on a (B,)-batched problem:
 
+ 0. HMC: draw, then resample the momentum where due      (solver.py:253-274)
  1. workspace kinematics + obstacle/self cost gradient   (callbacks)
  2. G += A·T + B                                         (chomp.c:515-522)
- 3. AG = A⁻¹·G                                           (chomp.c:524-531)
+ 3. AG = A⁻¹·G, or leapfrog momentum accumulation        (chomp.c:524-548)
  4. T −= (1/λ)·AG                                        (chomp.c:604-605)
  5. joint-limit repair loop (≤1000 rounds)               (chomp.c:608-655)
  6. smoothness cost on the updated trajectory            (chomp.c:660-677)
 
 The m×m A/A⁻¹ products are dense matmuls shared across the batch;
-iterations are a Python loop.  Momentum/HMC, TSR constraints, the
-floating base and the semiseparable metric are not ported yet.
+iterations are a Python loop.  The HMC resample is split into a random
+draw (``HmcDraw``, or any callable of the same contract) and a
+deterministic update (``hmc_resample``), so that a test can replay
+another implementation's random numbers.  TSR constraints, the floating
+base and the semiseparable metric are not ported yet.
 """
 
 from __future__ import annotations
@@ -26,6 +31,78 @@ from or_cdchomp_tpu_torch.models.robot import CompiledFK
 from or_cdchomp_tpu_torch.ops.selfcol import pair_table
 
 _MAX_LIMIT_FIXES = 1000  # chomp.c:608
+_HMC_U_MIN = 1e-12       # lower end of the uniform draw (solver.py:270)
+
+
+class HmcDraw:
+    """The default HMC draw source: a ``torch.Generator`` on one device,
+    seeded once.  Called once per applied step with the (B,)-batched
+    problem, for every problem whether or not any resamples; returns
+    ``z`` (B, m, n) standard normal and ``u`` (B,) uniform in
+    [1e-12, 1), in the problem's dtype on its device.  Draws on the
+    device's own generator, so no host sync."""
+
+    def __init__(self, seed=0, device="cuda"):
+        self.generator = torch.Generator(device=device)
+        self.generator.manual_seed(int(seed))
+
+    def __call__(self, probs):
+        opts = dict(dtype=probs.AG.dtype, device=probs.AG.device,
+                    generator=self.generator)
+        z = torch.randn(probs.AG.shape, **opts)
+        u = torch.rand(probs.AG.shape[:1], **opts)
+        return z, u * (1.0 - _HMC_U_MIN) + _HMC_U_MIN
+
+
+class RecordingDraw:
+    """A draw source that passes ``inner``'s draws on and keeps a copy of
+    the first ``n`` problems' ``z`` and ``u`` (all with ``n`` None) in
+    the lists ``z`` and ``u``, one entry per call, on their device (no
+    sync).  :class:`ReplayDraw` replays them, on another device or dtype
+    too."""
+
+    def __init__(self, inner, n=None):
+        self.inner, self.n = inner, n
+        self.z, self.u = [], []
+
+    def __call__(self, probs):
+        z, u = self.inner(probs)
+        self.z.append(z[:self.n].clone())
+        self.u.append(u[:self.n].clone())
+        return z, u
+
+
+class ReplayDraw:
+    """A draw source that returns the recorded draws ``z[i]``, ``u[i]`` of
+    its i-th call, cast to the problem's dtype and device."""
+
+    def __init__(self, z, u):
+        self.z, self.u, self.calls = z, u, 0
+
+    def __call__(self, probs):
+        opts = dict(dtype=probs.AG.dtype, device=probs.AG.device)
+        z, u = self.z[self.calls], self.u[self.calls]
+        self.calls += 1
+        return z.to(**opts), u.to(**opts)
+
+
+def hmc_resample(probs, z, u):
+    """The deterministic part of the HMC resample
+    (orcdchomp_mod.cpp:2754-2768, JAX solver.py:253-274), per problem:
+    where ``iteration == resample_iter``, AG = z/√α with
+    α = 100·e^{0.02·iteration}, ``leapfrog_first`` is set, and the next
+    resample lies 1 + ⌊−ln u / hmc_resample_lambda⌋ iterations on.
+    Returns (AG, resample_iter, leapfrog_first)."""
+    it = probs.iteration
+    alpha = 100.0 * torch.exp(0.02 * it.to(z.dtype))
+    do = it == probs.resample_iter
+    AG = torch.where(do[:, None, None], z / torch.sqrt(alpha)[:, None, None],
+                     probs.AG)
+    leap = probs.leapfrog_first | do
+    gap = 1 + torch.floor(-torch.log(u) / probs.hmc_resample_lambda
+                          ).to(torch.int32)
+    nxt = torch.where(do, it + gap, probs.resample_iter)
+    return AG, nxt, leap
 
 
 class ChompEngine:
@@ -34,8 +111,8 @@ class ChompEngine:
     static structure; problems are batched along a leading axis."""
 
     def __init__(self, spec, model, fields, dtype=torch.float32,
-                 device="cuda", metric_ops=None):
-        for flag in ("floating_base", "use_momentum", "use_hmc", "start_tsr"):
+                 device="cuda", metric_ops=None, seed=0):
+        for flag in ("floating_base", "start_tsr"):
             if getattr(spec, flag):
                 raise NotImplementedError(f"{flag}: not ported yet")
         if (metric_mod.sep_eligible(spec.D, True)
@@ -47,6 +124,9 @@ class ChompEngine:
         self.dtype = dtype
         self.device = torch.device(device)
         self.fields = fields
+        # HMC draw source; a caller may replace it with any callable of
+        # the same contract (a recorder, or a replay of given draws)
+        self.draw = HmcDraw(seed, device)
         if metric_ops is None:
             metric_ops = metric_mod.build_metric(spec.m, spec.dt, D=spec.D)
         self.metric_ops = metric_ops
@@ -149,24 +229,36 @@ class ChompEngine:
         (next_probs, costs (B, 3)) — [total, obstacle, smoothness], the
         obstacle cost measured on the incoming trajectory, smoothness on
         the updated one (chomp.c:475-491, 658-677)."""
-        m = self.spec.m
+        spec = self.spec
+        m = spec.m
+        lam = probs.lambda_                                 # (B,)
         T_mov = probs.traj[:, 1:1 + m]                      # (B, m, n)
 
+        AG, resample_iter, leap = (probs.AG, probs.resample_iter,
+                                   probs.leapfrog_first)
+        if spec.use_hmc:
+            AG, resample_iter, leap = hmc_resample(probs, *self.draw(probs))
+
         c_obs, G = cost_soa.total_cost_grad_batched(
-            self.spec, self.fk, self.fields, self.pairs, self.radii_act,
-            probs)
+            spec, self.fk, self.fields, self.pairs, self.radii_act, probs)
         G = G + self.apply_A_b(T_mov) + probs.B
-        AG = self.solve_A_b(G)
-        T_mov = T_mov - AG / probs.lambda_[:, None, None]
+        if spec.use_momentum:
+            # leapfrog: a half step on first use (chomp.c:533-548)
+            scale = torch.where(leap, 0.5, 1.0).to(lam.dtype) / lam
+            AG = AG + scale[:, None, None] * self.solve_A_b(G)
+            leap = torch.zeros_like(leap)
+        else:
+            AG = self.solve_A_b(G)
+        T_mov = T_mov - AG / lam[:, None, None]
         T_mov = self._limit_repair_batched(T_mov, probs.jlimit_lower,
                                            probs.jlimit_upper)
-        AT = self.apply_A_b(T_mov)
-        c_smooth = (0.5 * torch.sum(T_mov * AT, dim=(1, 2))
-                    + torch.sum(probs.B * T_mov, dim=(1, 2)) + probs.trC)
+        c_smooth = self._smooth_cost(probs, T_mov)
 
         traj = torch.cat([probs.traj[:, :1], T_mov, probs.traj[:, 1 + m:]],
                          dim=1)
         new_probs = probs.replace(traj=traj, AG=AG,
+                                  resample_iter=resample_iter,
+                                  leapfrog_first=leap,
                                   iteration=probs.iteration + 1)
         costs = torch.stack([c_obs + c_smooth, c_obs, c_smooth], dim=-1)
         return new_probs, costs
@@ -181,3 +273,24 @@ class ChompEngine:
             B = probs.traj.shape[0]
             return probs, probs.traj.new_zeros((B, 0, 3))
         return probs, torch.stack(costs, dim=1)
+
+    # -- final costs ---------------------------------------------------------
+
+    def _smooth_cost(self, probs, T_mov):
+        """tr(½TᵀAT + BᵀT) + trC per problem (chomp.c:660-677)."""
+        AT = self.apply_A_b(T_mov)
+        return (0.5 * torch.sum(T_mov * AT, dim=(1, 2))
+                + torch.sum(probs.B * T_mov, dim=(1, 2)) + probs.trC)
+
+    def final_costs_batch(self, probs):
+        """The cost report of the current trajectories without an update
+        (cd_chomp_iterate with do_iteration=0, orcdchomp_mod.cpp:
+        2830-2831; JAX ``vmap(costs_only)``): (total, obstacle,
+        smoothness), each (B,).  Runs the SoA cost path, so K1 and K2
+        launch once each."""
+        c_obs, _ = cost_soa.total_cost_grad_batched(
+            self.spec, self.fk, self.fields, self.pairs, self.radii_act,
+            probs, want_grad=False)
+        c_smooth = self._smooth_cost(probs,
+                                     probs.traj[:, 1:1 + self.spec.m])
+        return c_obs + c_smooth, c_obs, c_smooth

@@ -14,12 +14,22 @@ from or_cdchomp_tpu_torch.chomp.problem import ChompProblem
 from or_cdchomp_tpu_torch.ops.grid import FieldStack
 
 
+# the port's HMC leaves and the JAX problem's flattened ``hmc`` names
+_HMC_KEYS = {"resample_iter": "hmc.resample_iter",
+            "leapfrog_first": "hmc.leapfrog_first"}
+
+
 def problem_from_numpy(d, device="cuda", dtype=torch.float64) -> ChompProblem:
     """ChompProblem from a dict of numpy arrays keyed by field name.
-    Keys that are not fields of the port's problem (the HMC state) are
-    ignored; floating arrays are cast to ``dtype``."""
-    names = [f.name for f in dataclasses.fields(ChompProblem)]
-    missing = [k for k in names if k not in d]
+
+    The HMC state is read from the keys ``hmc.resample_iter`` and
+    ``hmc.leapfrog_first`` (the JAX problem's ``hmc`` field flattened);
+    its PRNG key ``hmc.key``, and any other key that is not a field of
+    the port's problem, is ignored.  Floating arrays are cast to
+    ``dtype``; integer and bool arrays keep theirs."""
+    src = {f.name: _HMC_KEYS.get(f.name, f.name)
+           for f in dataclasses.fields(ChompProblem)}
+    missing = [k for k in src.values() if k not in d]
     if missing:
         raise KeyError(f"problem arrays missing: {missing}")
 
@@ -29,7 +39,7 @@ def problem_from_numpy(d, device="cuda", dtype=torch.float64) -> ChompProblem:
             t = t.to(dtype)
         return t.to(device).contiguous()
 
-    return ChompProblem(**{k: conv(d[k]) for k in names})
+    return ChompProblem(**{k: conv(d[v]) for k, v in src.items()})
 
 
 def fields_from_numpy(data, sizes, lengths, device="cuda",

@@ -5,7 +5,8 @@
 package (shared copy pending de-duplication).  ``CompiledFK`` ports the
 structure-of-arrays FK (``fk_soa``) and Jᵀ map (``apply_sphere_jacT_soa``)
 of the batched cost path to tensors; the static chain analysis
-(``__init__`` / ``_build_reduced_chain``) is the same.
+(``__init__`` / ``_reduced_chain``) is the same; ``sphere_positions_np``
+walks the same chain in float64 numpy for host-side callers.
 """
 
 from __future__ import annotations
@@ -248,6 +249,64 @@ class FkSoA(NamedTuple):
     red_q: tuple      # quat (n_points, n_red, B)
 
 
+def _reduced_chain(model, origin64, subset):
+    """Fold every fixed/frozen joint into per-link constant offsets so FK
+    walks only *active* joints (robot.py:386-442): each link pose is
+    pose(red(l)) ∘ off(l) with red(l) its nearest ancestor-or-self with
+    an active joint, and sphere offsets are pre-folded.  Returns (chain,
+    n_red, per-sphere reduced slot (S,), folded sphere offsets (S, 3))."""
+    L = len(model.link_names)
+    ID = np.array([0, 0, 0, 0, 0, 0, 1.0])
+    red_slot = np.zeros(L, dtype=np.int64)
+    off = np.tile(ID, (L, 1))
+    chain = []
+    next_slot = 1
+    for i in range(1, L):
+        p = int(model.parent[i])
+        d = int(model.dof_index[i])
+        if d >= 0:
+            K = _pose_compose64(off[p], origin64[i])
+            chain.append(dict(
+                dof=d, parent_slot=int(red_slot[p]),
+                jtype=int(model.jtype[i]),
+                axis=np.asarray(model.axis[i], dtype=np.float64),
+                K=K,
+                rot_id=bool(np.allclose(K[3:], ID[3:], atol=1e-14)),
+                pos_zero=bool(np.allclose(K[:3], 0.0, atol=1e-14))))
+            red_slot[i] = next_slot
+            next_slot += 1
+        else:
+            off[i] = _pose_compose64(off[p], origin64[i])
+            red_slot[i] = red_slot[p]
+    sl = model.sphere_link[subset]
+    folded = np.stack(
+        [_rotate64(off[li, 3:], model.sphere_pos[subset][k])
+         + off[li, :3] for k, li in enumerate(sl)]) \
+        if len(sl) else np.zeros((0, 3))
+    slot = (np.asarray(red_slot[sl]) if len(sl)
+            else np.zeros((0,), np.int64))
+    return chain, next_slot, slot, np.asarray(folded, dtype=np.float64)
+
+
+def sphere_positions_np(model, q, base_pose):
+    """World centres (S, 3) of every sphere of ``model`` at one
+    configuration q (n_dof,) under ``base_pose`` (7,), float64 numpy:
+    the JAX package's host FK (robot.py:731-738), whose rotations take
+    the quadratic sandwich form.  For a base quaternion that is not of
+    unit norm this differs from :meth:`CompiledFK.fk_soa`'s form, as in
+    the JAX package."""
+    chain, _, slot, folded = _reduced_chain(
+        model, model.folded()[0], np.arange(len(model.sphere_link)))
+    q = np.asarray(q, dtype=np.float64)
+    red = [np.asarray(base_pose, dtype=np.float64)]
+    for e in chain:
+        anchor = _pose_compose64(red[e["parent_slot"]], e["K"])
+        red.append(_pose_compose64(
+            anchor, _motion_pose64(e["jtype"], e["axis"], q[e["dof"]])))
+    return np.array([_rotate64(red[s][3:], f) + red[s][:3]
+                     for s, f in zip(slot, folded)]).reshape(-1, 3)
+
+
 class CompiledFK:
     """FK over a RobotModel with frozen joints folded in.  The static
     chain structure is analysed once at construction; the per-call
@@ -293,49 +352,9 @@ class CompiledFK:
                 self._jt_suffix = (order, start)
         self._jtype_per_dof_np = np.asarray(
             [self._jtype[self._dof_link[d]] for d in range(model.n_dof)])
-        self._build_reduced_chain(model, origin64, subset)
+        (self._chain, self.n_red, self._sphere_red_slot_np,
+         self._sphere_folded_np) = _reduced_chain(model, origin64, subset)
         self._to_device()
-
-    # ----- reduced chain ---------------------------------------------------
-
-    def _build_reduced_chain(self, model, origin64, subset):
-        """Fold every fixed/frozen joint into per-link constant offsets so
-        FK walks only *active* joints (robot.py:386-442): each link pose
-        is pose(red(l)) ∘ off(l) with red(l) its nearest ancestor-or-self
-        with an active joint, and sphere offsets are pre-folded."""
-        L = self.n_links
-        ID = np.array([0, 0, 0, 0, 0, 0, 1.0])
-        red_slot = np.zeros(L, dtype=np.int64)
-        off = np.tile(ID, (L, 1))
-        chain = []
-        next_slot = 1
-        for i in range(1, L):
-            p = int(model.parent[i])
-            d = int(model.dof_index[i])
-            if d >= 0:
-                K = _pose_compose64(off[p], origin64[i])
-                chain.append(dict(
-                    dof=d, parent_slot=int(red_slot[p]),
-                    jtype=int(model.jtype[i]),
-                    axis=np.asarray(model.axis[i], dtype=np.float64),
-                    K=K,
-                    rot_id=bool(np.allclose(K[3:], ID[3:], atol=1e-14)),
-                    pos_zero=bool(np.allclose(K[:3], 0.0, atol=1e-14))))
-                red_slot[i] = next_slot
-                next_slot += 1
-            else:
-                off[i] = _pose_compose64(off[p], origin64[i])
-                red_slot[i] = red_slot[p]
-        self._chain = chain
-        self.n_red = next_slot
-        sl = model.sphere_link[subset]
-        folded = np.stack(
-            [_rotate64(off[li, 3:], model.sphere_pos[subset][k])
-             + off[li, :3] for k, li in enumerate(sl)]) \
-            if len(sl) else np.zeros((0, 3))
-        self._sphere_red_slot_np = (np.asarray(red_slot[sl]) if len(sl)
-                                    else np.zeros((0,), np.int64))
-        self._sphere_folded_np = np.asarray(folded, dtype=np.float64)
 
     def _to_device(self):
         dev, dt = self.device, self.dtype

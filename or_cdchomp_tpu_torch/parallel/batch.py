@@ -3,10 +3,15 @@ or_cdchomp_tpu/parallel/batch.py).
 
 ``problem_batch_from_grid`` broadcasts a template problem to a (P,)
 batch with per-problem straight-line trajectories and metric affine
-terms; ``BatchSolver.iterate`` runs the batch-native step on it.
+terms; ``BatchSolver`` runs the batch-native step on it: a fixed number
+of steps (``iterate``, ``iterate_masked``), a convergence-checked chunk
+(``iterate_until``) or a chunked solve (``solve``).  ``best_of_batch``
+picks the lowest-cost problem of a batch.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -17,8 +22,9 @@ from or_cdchomp_tpu_torch.chomp.problem import ChompProblem
 def problem_batch_from_grid(problem: ChompProblem, starts, goals, engine):
     """(P,)-batched problem on the engine's device and dtype: the
     template supplies fields, limits and weights; each row gets the
-    straight line from starts[p] to goals[p] ((P, n) arrays) and its own
-    metric affine terms.  Every leaf is a contiguous tensor."""
+    straight line from starts[p] to goals[p] ((P, n) arrays), its own
+    metric affine terms and a fresh HMC state (resample at iteration 0,
+    leapfrog half step first).  Every leaf is a contiguous tensor."""
     starts = np.asarray(starts, dtype=np.float64)
     goals = np.asarray(goals, dtype=np.float64)
     P_, n = starts.shape
@@ -38,6 +44,8 @@ def problem_batch_from_grid(problem: ChompProblem, starts, goals, engine):
     batched.update(
         traj=t(trajs), B=t(B), trC=t(trC), Evels=t(Ev),
         AG=torch.zeros((P_, engine.spec.m, n), dtype=dtype, device=dev),
+        resample_iter=torch.zeros(P_, dtype=torch.int32, device=dev),
+        leapfrog_first=torch.ones(P_, dtype=torch.bool, device=dev),
         iteration=torch.zeros(P_, dtype=torch.int32, device=dev))
     return ChompProblem(**batched)
 
@@ -45,7 +53,8 @@ def problem_batch_from_grid(problem: ChompProblem, starts, goals, engine):
 class BatchSolver:
     """Runs batched solves for one ChompEngine on one device.  The whole
     batch runs as one SoA step: the TPU build's problem-axis chunking
-    (sized for its 128-lane vector tiles) has no counterpart here."""
+    (sized for its 128-lane vector tiles), its mesh sharding and its
+    padding to the mesh have no counterpart here."""
 
     def __init__(self, engine):
         self.engine = engine
@@ -54,3 +63,60 @@ class BatchSolver:
         """n_iter batched steps.  Returns (problems, costs (n_iter, P, 3))."""
         probs, costs = self.engine.iterate_batched(probs, n_iter)
         return probs, costs.transpose(0, 1)
+
+    def iterate_masked(self, probs: ChompProblem, valid, chunk_size: int):
+        """``chunk_size`` batched steps with the first ``valid`` applied.
+        Returns (problems, costs (chunk_size, P, 3)); rows ≥ valid are
+        unspecified.  Eager PyTorch needs no fixed-length executable, so
+        only the ``valid`` steps run (rows ≥ valid are zeros)."""
+        valid = min(max(int(valid), 0), chunk_size)
+        probs, costs = self.iterate(probs, valid)
+        if valid < chunk_size:
+            pad = costs.new_zeros((chunk_size - valid,) + costs.shape[1:])
+            costs = torch.cat([costs, pad])
+        return probs, costs
+
+    def iterate_until(self, probs: ChompProblem, valid, chunk_size: int,
+                      tol=0.0):
+        """One convergence-checked chunk: ``valid`` (≥ 1) of
+        ``chunk_size`` steps.  Returns (problems, last costs (P, 3),
+        converged) where converged, a 0-d bool tensor left on the
+        device, says every problem's total cost fell by less than
+        ``tol`` from the chunk's first step to its last."""
+        if int(valid) < 1:
+            raise ValueError("iterate_until needs valid >= 1")
+        probs, costs = self.iterate_masked(probs, valid, chunk_size)
+        last = costs[min(int(valid), chunk_size) - 1]
+        converged = torch.all(costs[0, :, 0] - last[:, 0] < tol)
+        return probs, last, converged
+
+    def solve(self, probs: ChompProblem, n_iter: int, chunk: int = 10,
+              tol: Optional[float] = None):
+        """Up to n_iter steps in chunks of ``chunk``; with ``tol``, stops
+        after the first chunk in which every problem converged (one host
+        sync per chunk for that test, none without ``tol``).  Returns
+        (problems, final costs (P, 3) from :meth:`ChompEngine.
+        final_costs_batch`, steps done)."""
+        done = 0
+        while done < n_iter:
+            todo = min(chunk, n_iter - done)
+            if tol is None:
+                probs, _ = self.iterate(probs, todo)
+                done += todo
+                continue
+            probs, _, conv = self.iterate_until(probs, todo, chunk, tol)
+            done += todo
+            if bool(conv):
+                break
+        finals = torch.stack(self.engine.final_costs_batch(probs), dim=-1)
+        return probs, finals, done
+
+
+def best_of_batch(probs: ChompProblem, final_costs):
+    """The lowest-total-cost problem of the batch — the best-of-HMC-
+    restarts reduction (BASELINE config 3).  Returns (problem, index):
+    the first index on ties, and the first NaN row if any total is NaN
+    (as ``jnp.argmin``)."""
+    idx = torch.argmin(final_costs[..., 0])
+    best = ChompProblem(**{k: v[idx] for k, v in probs.leaves().items()})
+    return best, idx

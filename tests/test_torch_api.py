@@ -57,6 +57,8 @@ def test_create_matches_jax(mods, n_points):
     tl = trun.problem.leaves()
     jl = {k: np.asarray(v) for k, v in jrun.problem._asdict().items()
           if k != "hmc"}
+    jl.update(resample_iter=np.asarray(jrun.problem.hmc.resample_iter),
+              leapfrog_first=np.asarray(jrun.problem.hmc.leapfrog_first))
     assert set(tl) == set(jl)
     for k, v in jl.items():
         got = tl[k].numpy()
@@ -83,8 +85,9 @@ def test_batch_from_grid_matches_jax(mods):
     goals = GOAL + 0.02 * rng.normal(size=(3, 7))
     tb = problem_batch_from_grid(trun.problem, starts, goals, trun.engine)
     jb = jax_batch(jrun.problem, starts, goals, jrun.engine)
+    jhmc = jb.hmc._asdict()
     for k, v in tb.leaves().items():
-        want = np.asarray(getattr(jb, k))
+        want = np.asarray(jhmc[k] if k in jhmc else getattr(jb, k))
         assert v.is_contiguous() and tuple(v.shape) == want.shape, k
         np.testing.assert_allclose(v.numpy(), want, rtol=1e-12, atol=1e-12,
                                    err_msg=k)
@@ -122,7 +125,7 @@ def test_error_probes_match_jax(mods, case):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(use_hmc=True), dict(use_momentum=True), dict(everyn_tsr=object()),
+    dict(everyn_tsr=object()),
     dict(start_cost=lambda t: t), dict(con_tsrs=[("all", object())]),
 ])
 def test_unported_kwargs_raise(mods, kw):

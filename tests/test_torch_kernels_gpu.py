@@ -235,3 +235,96 @@ def test_wrappers_reject_bad_inputs(cuda):
     args[1] = args[1].transpose(2, 3).contiguous().transpose(2, 3)
     with pytest.raises(ValueError, match="contiguous"):
         sdf_lookup.obstacle(*args)
+
+
+def test_obstacle_kernel_three_fields_exact(cuda):
+    """Three padded fields of different true sizes (+inf padding, one
+    interior +inf cell), every field disabled in some problems: the
+    kernel is bit-equal to its plain version, one-sided choices too."""
+    rng = np.random.default_rng(11)
+    F, m, S, B = 3, 5, 4, 70
+    sizes = np.array([[8, 9, 7], [6, 9, 5], [8, 4, 6]], np.int32)
+    lengths = np.array([[0.8, 0.9, 0.7], [0.6, 0.9, 0.5], [0.8, 0.4, 0.6]])
+    data = np.full((F, 8, 9, 7), np.inf)
+    for f, (sx, sy, sz) in enumerate(sizes):
+        data[f, :sx, :sy, :sz] = rng.normal(size=(sx, sy, sz)) * 0.2 + 0.05
+    data[1, 2, 3, 1] = np.inf
+    pw = np.zeros((B, F, 7))
+    pw[..., :3] = rng.normal(size=(B, F, 3)) * 0.05
+    q = rng.normal(size=(B, F, 4))
+    pw[..., 3:] = q / np.linalg.norm(q, axis=-1, keepdims=True)
+    pg = np.stack([[np_pose.invert(p) for p in row] for row in pw])
+    f32 = dict(dtype=torch.float32, device=cuda)
+    t = lambda a: torch.as_tensor(a, **f32).contiguous()   # noqa: E731
+    enabled = torch.ones((B, F), dtype=torch.bool, device=cuda)
+    for f in range(F):
+        enabled[f::5, f] = False
+    args = (t(rng.uniform(-0.1, 0.9, size=(3, m, S, B))),
+            t(rng.normal(size=(3, m, S, B))), t(rng.normal(size=(3, m, S, B))),
+            t(data), torch.as_tensor(sizes, device=cuda), t(lengths), t(pg),
+            t(pw), enabled, t(rng.uniform(0.03, 0.1, size=S)),
+            t(rng.uniform(0.2, 0.5, size=B)), t(rng.uniform(100, 500, size=B)))
+    want = sdf_lookup.obstacle_ref(*args, want_dirs=True)
+    got = sdf_lookup.obstacle(*args, want_dirs=True)
+    assert float((want[0] != 0).double().mean()) > 0.05  # hinge active
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def _hmc_run(device, dtype):
+    from or_cdchomp_tpu_torch.parallel.batch import problem_batch_from_grid
+    import or_cdchomp_tpu_torch as pt
+
+    mod = pt.CHOMPModule(dtype=dtype, device=device)
+    mod.add_kinbody(pt.KinBody("table", pt.Scene.build(
+        boxes=[((0.75, 0.0, 0.5, 0, 0, 0, 1), (0.25, 0.4, 0.02))])))
+    start = np.array([2.5, -1.8, 0.0, 2.0, 0.0, 0.2, 0.0])
+    goal = np.array([0.4, 0.6, 0.1, 1.3, 0.0, -0.5, 0.0])
+    robot = pt.Robot("wam", pt.wam7(), q_active=start)
+    mod.add_robot(robot)
+    robot.enabled = False
+    mod.computedistancefield(kinbody="table", cube_extent=0.04)
+    robot.enabled = True
+    run = mod.runs[mod.create(robot="wam", adofgoal=goal, lambda_=100.0,
+                              obs_factor=500.0, n_points=11, use_hmc=True,
+                              hmc_resample_lambda=2.0, seed=3)]
+    rng = np.random.default_rng(0)
+    starts = start + 0.02 * rng.normal(size=(4, 7))
+    goals = goal + 0.02 * rng.normal(size=(4, 7))
+    return run, problem_batch_from_grid(run.problem, starts, goals,
+                                        run.engine)
+
+
+def test_hmc_steps_card_match_cpu(cuda):
+    """Three HMC steps on the card (its own generator) against the same
+    steps on the CPU in float64 fed the card's draws."""
+    from or_cdchomp_tpu_torch.chomp.solver import RecordingDraw, ReplayDraw
+
+    run, probs = _hmc_run(cuda, torch.float32)
+    rec = RecordingDraw(run.engine.draw)
+    run.engine.draw = rec
+    run64, p64 = _hmc_run("cpu", torch.float64)
+    run64.engine.draw = ReplayDraw(rec.z, rec.u)
+    for _ in range(3):
+        probs, _ = run.engine.step_batched(probs)
+        p64, _ = run64.engine.step_batched(p64)
+    assert probs.traj.device.type == "cuda" and len(rec.z) == 3
+    for k in ("resample_iter", "leapfrog_first", "iteration"):
+        assert torch.equal(getattr(probs, k).cpu(), getattr(p64, k)), k
+    err = float((probs.traj.double().cpu() - p64.traj).abs().max())
+    assert err <= 1e-5, err
+
+
+def test_best_of_batch_on_card(cuda):
+    """torch.argmin on the card: first index on ties, the first NaN row
+    wins (as jnp.argmin)."""
+    from or_cdchomp_tpu_torch.parallel.batch import best_of_batch
+
+    run, probs = _hmc_run(cuda, torch.float32)
+    for totals, want in (([3.0, 1.0, 2.0, 1.0], 1),
+                         ([3.0, 1.0, float("nan"), 1.0], 2)):
+        finals = torch.zeros((4, 3), device=cuda)
+        finals[:, 0] = torch.tensor(totals, device=cuda)
+        best, idx = best_of_batch(probs, finals)
+        assert int(idx) == want
+        assert torch.equal(best.traj, probs.traj[want])

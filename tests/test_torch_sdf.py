@@ -54,12 +54,50 @@ def test_bench_field_matches_jax():
     np.testing.assert_array_equal(tm.sdfs[0].pose, jm.sdfs[0].pose)
 
 
-def test_duplicate_field_and_cache_file_raise():
+def test_duplicate_field_and_cache_file_raise(tmp_path):
+    """A duplicate field raises; the cache file (raw float32, C order)
+    round-trips bit-equal, a file of the wrong size is a miss, and
+    ``require_cache`` raises on a miss."""
     tm = _bench_scene(pt, KinBody, Robot, device="cpu")
     with pytest.raises(RuntimeError, match="already have an sdf"):
         tm.computedistancefield(kinbody="table", cube_extent=0.04)
-    with pytest.raises(NotImplementedError, match="cache_filename"):
-        tm.computedistancefield(kinbody="mug", cache_filename="f.dat")
+
+    path = tmp_path / "mug.dat"
+    tm.computedistancefield(kinbody="mug", cube_extent=0.04,
+                            cache_filename=str(path))
+    built = tm.sdfs[-1].grid
+    raw = np.fromfile(path, dtype=np.float32)
+    assert raw.size == built.data.numel() and raw.nbytes == path.stat().st_size
+    np.testing.assert_array_equal(raw.reshape(tuple(built.data.shape)),
+                                  built.data.numpy())
+
+    def reread(**kw):
+        m = _bench_scene(pt, KinBody, Robot, device="cpu")
+        m.computedistancefield(kinbody="mug", cube_extent=0.04,
+                               cache_filename=str(path), **kw)
+        return m.sdfs[-1].grid
+
+    got = reread(require_cache=True)              # a hit
+    assert got.data.dtype == torch.float32
+    assert torch.equal(got.data, built.data)
+    assert torch.equal(got.lengths, built.lengths)
+
+    marked = raw.copy()
+    marked[0] = 123.0                             # right size: read as is
+    marked.tofile(path)
+    assert float(reread().data.flatten()[0]) == 123.0
+
+    raw[:5].tofile(path)                          # wrong size: a miss
+    msg = "Field not found from cache, but require_cache flag set!"
+    with pytest.raises(RuntimeError, match=msg):
+        reread(require_cache=True)
+    assert torch.equal(reread().data, built.data)  # rebuilt and rewritten
+    assert path.stat().st_size == raw.nbytes
+    with pytest.raises(RuntimeError, match=msg):
+        tm2 = _bench_scene(pt, KinBody, Robot, device="cpu")
+        tm2.computedistancefield(kinbody="mug", cube_extent=0.04,
+                                 cache_filename=str(tmp_path / "none.dat"),
+                                 require_cache=True)
 
 
 def test_mesh_scene_not_ported():

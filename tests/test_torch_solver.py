@@ -9,34 +9,19 @@ import pytest
 import torch
 
 import or_cdchomp_tpu as oc
-from or_cdchomp_tpu.api import KinBody, Robot
 from or_cdchomp_tpu.parallel.batch import \
     problem_batch_from_grid as jax_batch_from_grid
 
-from or_cdchomp_tpu_torch.chomp.problem import ChompSpec
-from or_cdchomp_tpu_torch.chomp.solver import ChompEngine
-from or_cdchomp_tpu_torch.convert import fields_from_numpy, problem_from_numpy
-from or_cdchomp_tpu_torch.models.wam7 import wam7
 from or_cdchomp_tpu_torch.parallel.batch import BatchSolver
+
+from torch_parity import GOAL, START, config1_module, port_engine, port_probs
 
 RTOL = 1e-9     # float64 through the whole step: summation order only
 F32_BAR = 1e-3  # BASELINE correctness bar, max |Δtraj| f32 vs f64
-START = np.array([2.5, -1.8, 0.0, 2.0, 0.0, 0.2, 0.0])
-GOAL = np.array([0.4, 0.6, 0.1, 1.3, 0.0, -0.5, 0.0])
 
 
 def _jax_run(n_points):
-    mod = oc.CHOMPModule(dtype=jnp.float64)
-    mod.add_kinbody(KinBody("table", oc.Scene.build(
-        boxes=[((0.75, 0.0, 0.5, 0, 0, 0, 1), (0.25, 0.4, 0.02)),
-               ((0.75, 0.0, 0.25, 0, 0, 0, 1), (0.08, 0.08, 0.25))])))
-    mod.add_kinbody(KinBody("mug", oc.Scene.build(
-        cylinders=[((0.65, 0.15, 0.58, 0, 0, 0, 1), 0.04, 0.06)])))
-    robot = Robot("wam", oc.wam7(), q_active=START.copy())
-    mod.add_robot(robot)
-    robot.enabled = False
-    mod.computedistancefield(kinbody="table", cube_extent=0.04)
-    robot.enabled = True
+    mod = config1_module(oc, dtype=jnp.float64)
     h = mod.create(robot="wam", adofgoal=GOAL, lambda_=100.0,
                    obs_factor=500.0, n_points=n_points)
     return mod.runs[h]
@@ -49,21 +34,6 @@ def _batch(run, B, seed=0, start_shift=None):
     if start_shift is not None:
         starts = starts + start_shift
     return jax_batch_from_grid(run.problem, starts, goals, run.engine)
-
-
-def _port_engine(jeng, dtype):
-    s = jeng.spec
-    f = jeng.fields
-    fields = fields_from_numpy(np.asarray(f.data), np.asarray(f.sizes),
-                               np.asarray(f.lengths), device="cpu",
-                               dtype=dtype)
-    return ChompEngine(ChompSpec(n_points=s.n_points, n=s.n, m=s.m),
-                       wam7(), fields, dtype=dtype, device="cpu")
-
-
-def _port_probs(jprobs, dtype):
-    d = {k: np.asarray(v) for k, v in jprobs._asdict().items() if k != "hmc"}
-    return problem_from_numpy(d, device="cpu", dtype=dtype)
 
 
 @pytest.fixture(scope="module")
@@ -87,8 +57,8 @@ def test_one_step_matches_jax(run11, shift):
         sh[0, 0] = 0.35
     jprobs = _batch(run11, 4, start_shift=sh)
     jnew, jcosts = jax.jit(run11.engine.step_batched)(jprobs)
-    eng = _port_engine(run11.engine, torch.float64)
-    tnew, tcosts = eng.step_batched(_port_probs(jprobs, torch.float64))
+    eng = port_engine(run11.engine, torch.float64)
+    tnew, tcosts = eng.step_batched(port_probs(jprobs, torch.float64))
     _close(tnew.traj, jnew.traj)
     _close(tnew.AG, jnew.AG)
     _close(tcosts, jcosts)
@@ -102,9 +72,9 @@ def test_one_step_matches_jax(run11, shift):
 def test_five_iterations_match_jax(run11):
     jprobs = _batch(run11, 4, seed=1)
     jout, jcosts = run11.engine.iterate_batch(jprobs, 5)   # (B, 5, 3)
-    eng = _port_engine(run11.engine, torch.float64)
+    eng = port_engine(run11.engine, torch.float64)
     tout, tcosts = BatchSolver(eng).iterate(
-        _port_probs(jprobs, torch.float64), 5)            # (5, B, 3)
+        port_probs(jprobs, torch.float64), 5)            # (5, B, 3)
     assert tuple(tcosts.shape) == (5, 4, 3)
     _close(tout.traj, jout.traj)
     _close(tcosts.transpose(0, 1), jcosts)
@@ -123,7 +93,7 @@ def test_limit_repair_tie_takes_first_index(run11):
     T[1, 4, 6] = 1.5
     want = jax.jit(jeng._limit_repair_batched)(
         jnp.asarray(T), jnp.asarray(lo), jnp.asarray(hi))
-    eng = _port_engine(jeng, torch.float64)
+    eng = port_engine(jeng, torch.float64)
     got = eng._limit_repair_batched(torch.as_tensor(T), torch.as_tensor(lo),
                                     torch.as_tensor(hi))
     _close(got, want)
@@ -134,9 +104,9 @@ def test_f32_port_within_baseline_bar_of_f64_jax():
     run = _jax_run(21)
     jprobs = _batch(run, 4, seed=2)
     jout, _ = run.engine.iterate_batch(jprobs, 20)
-    eng = _port_engine(run.engine, torch.float32)
+    eng = port_engine(run.engine, torch.float32)
     tout, tcosts = BatchSolver(eng).iterate(
-        _port_probs(jprobs, torch.float32), 20)
+        port_probs(jprobs, torch.float32), 20)
     assert torch.isfinite(tcosts).all()
     err = np.abs(tout.traj.double().numpy() - np.asarray(jout.traj)).max()
     assert err <= F32_BAR, err
