@@ -15,7 +15,8 @@ and read just after:
 - config 3: config 1's scene with HMC (seed 7), 256 problems,
   BatchSolver.solve and best_of_batch;
 - config 5: config 1 at 10,240 problems, 100 iterations; both kernels
-  are held against their plain versions again on its inputs.
+  are held against their plain versions again on its inputs, and K1 is
+  timed there.
 
 Each is timed on the card first; then the first 8 problems of configs
 1, 2 and 3 are re-solved on the CPU in float64 through the same API
@@ -24,9 +25,10 @@ Any failed phase exits non-zero.
 
     python3 chip_smoke.py
 
-Prints the card (nvidia-smi name, power limit), the self-collision
-kernel's launch (registers, spills, shared memory, resident blocks) and
-its skip shares on the flagship batch, a JSON line of per-kernel results
+Prints the card (nvidia-smi name, power limit), the obstacle kernel's
+launch per configuration and the self-collision kernel's (grid, threads,
+shared memory, resident blocks, registers, spills), K2's skip shares on
+the flagship batch, a JSON line of per-kernel results
 (device time beside the bound: bytes over 3.35 TB/s or operations over
 67 TFLOP/s fp32, whichever is larger), and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -259,24 +261,66 @@ def obstacle_args(engine, probs, x_mov, vel, acc):
 
 
 def check_obstacle(torch, sdf_lookup, oargs, label, hinge=True):
-    """K1 against its plain version: bit-equal cost and gradient, 100%
-    one-sided-neighbour agreement, and (``hinge``) some cost.  Returns
-    max_abs_err."""
+    """K1 against its plain version on both of its paths: the solve's
+    (no one-sided choices out; queries certainly outside a field's box
+    skip it) and want_dirs' (every field in full), each with bit-equal
+    cost and gradient, the latter also with 100% one-sided-neighbour
+    agreement; and (``hinge``) some cost.  Returns max_abs_err."""
     cost_k, grad_k, dirs_k = sdf_lookup.obstacle(*oargs, want_dirs=True)
+    cost_m, grad_m = sdf_lookup.obstacle(*oargs)
     cost_r, grad_r, dirs_r = sdf_lookup.obstacle_ref(*oargs, want_dirs=True)
     # counted, not averaged: a float mean of 4.6e7 ones need not read 1
     n_diff = int((dirs_k != dirs_r).sum())
     agree = 1.0 - n_diff / dirs_r.numel()
     check(n_diff == 0, f"{label}: use_next differs on {n_diff} of "
           f"{dirs_r.numel()} queries")
-    err = max(compare(torch, f"{label} cost", cost_k, cost_r, exact=True),
-              compare(torch, f"{label} gradient", grad_k, grad_r,
-                      exact=True))
+    err = 0.0
+    for path, cost, grad in (("solve path", cost_m, grad_m),
+                             ("want_dirs path", cost_k, grad_k)):
+        err = max(err, compare(torch, f"{label} {path} cost", cost, cost_r,
+                               exact=True),
+                  compare(torch, f"{label} {path} gradient", grad, grad_r,
+                          exact=True))
     active = float((cost_r != 0.0).double().mean())
     check(active > 0.0 or not hinge, f"{label}: no active hinge")
-    print(f"{label}: use_next agreement {agree:.6f}, bit-equal, max_abs_err "
-          f"{err}, hinge active on {active:.4f} of the queries")
+    print(f"{label}: use_next agreement {agree:.6f}, solve and want_dirs "
+          f"paths bit-equal, max_abs_err {err}, hinge active on "
+          f"{active:.4f} of the queries")
     return err
+
+
+def moved_in_args(torch, oargs, probs):
+    """Config 2's K1 arguments with the sphere cloud moved into the three
+    fields, a 1 m hinge width and field 0, 1 or 2 disabled in every
+    fourth problem: on the path's own inputs the arm stays outside the
+    field boxes and the hinge is idle, here every lookup, the min-select
+    over the padded fields and field_enabled reach the cost."""
+    x = oargs[0]
+    wide = list(oargs)
+    inside = torch.tensor([0.2, 0.2, 0.8], device=x.device).view(3, 1, 1, 1)
+    wide[0] = (x - x.mean(dim=(1, 2, 3), keepdim=True) + inside).contiguous()
+    wide[10] = torch.ones_like(probs.epsilon)
+    enabled = probs.field_enabled.clone()
+    for f in range(enabled.shape[1]):
+        enabled[f + 1::4, f] = False
+    wide[8] = enabled
+    return wide
+
+
+def k1_launch(torch, sdf_lookup, oargs, label):
+    """Print K1's launch for these arguments: the wrapper's geometry and
+    the path's registers, spills and resident blocks."""
+    x, data = oargs[0], oargs[3]
+    geom = sdf_lookup.device_geometry(*x.shape[1:], *data.shape,
+                                      x.device.index)
+    info = sdf_lookup.launch_info(geom.smem_bytes)
+    print(f"{label} K1 launch: stack {4 * data.numel()} B read through "
+          f"__ldg, {geom.grid} blocks of {geom.threads} "
+          f"threads, {geom.per} (tile, row) units each of {geom.units}, "
+          f"{geom.smem_bytes} B dynamic shared memory per block, "
+          f"{info['blocks_per_sm']} blocks per SM, {info['registers']} "
+          f"registers, {info['local_bytes']} B local (spill) per thread")
+    return geom, info
 
 
 def time_obstacle(torch, sdf_lookup, oargs, label):
@@ -398,6 +442,7 @@ def main():
           f"bound {bound} ms (bytes)")
 
     oargs = obstacle_args(engine, probs, x_mov, vel, acc)
+    k1_launch(torch, sdf_lookup, oargs, "config 1")
     err = check_obstacle(torch, sdf_lookup, oargs, "obstacle")
     t = time_obstacle(torch, sdf_lookup, oargs, "obstacle")
     # no single PyTorch call computes it: grid_sample interpolates
@@ -501,17 +546,10 @@ def main():
     # over the three padded fields and field_enabled then reach the
     # cost and the gradient
     oargs2 = obstacle_args(eng2, probs2, x2, v2, a2)
+    k1_launch(torch, sdf_lookup, oargs2, "config 2")
     err = check_obstacle(torch, sdf_lookup, oargs2, "obstacle F=3",
                          hinge=False)
-    wide = list(oargs2)
-    inside = torch.tensor([0.2, 0.2, 0.8], device=dev).view(3, 1, 1, 1)
-    wide[0] = (x2 - x2.mean(dim=(1, 2, 3), keepdim=True) + inside
-               ).contiguous()
-    wide[10] = torch.ones_like(probs2.epsilon)
-    enabled = probs2.field_enabled.clone()
-    for f in range(3):
-        enabled[f + 1::4, f] = False
-    wide[8] = enabled
+    wide = moved_in_args(torch, oargs2, probs2)
     err = max(err, check_obstacle(
         torch, sdf_lookup, wide,
         "obstacle F=3, moved in, 1 m hinge, fields off"))
@@ -638,7 +676,18 @@ def main():
     check(tuple(x5.shape[1:]) == (N_POINTS - 2, 15, BATCH_POD),
           f"config 5 sphere tensors {tuple(x5.shape)}")
     oargs5 = obstacle_args(engine, probs5, x5, v5, a5)
-    check_obstacle(torch, sdf_lookup, oargs5, "config 5 obstacle")
+    k1_launch(torch, sdf_lookup, oargs5, "config 5")
+    err_k1 = check_obstacle(torch, sdf_lookup, oargs5, "config 5 obstacle")
+    t = time_obstacle(torch, sdf_lookup, oargs5, "config 5 obstacle")
+    entry_b5 = kernel_entry(
+        "obstacle_b10240", "or_cdchomp_tpu_torch/csrc/obstacle.cu",
+        "or_cdchomp_tpu/ops/pallas_sdf.py:86", err_k1, t,
+        sdf_lookup.obstacle_traffic_bytes(m, S, BATCH_POD, F, mx, my, mz),
+        sdf_lookup.obstacle_flops(m, S, BATCH_POD, F))
+    entry_b5["launches"] = launches5["obstacle"]
+    print(f"config 5 obstacle: device {entry_b5['ms']} ms, bound "
+          f"{entry_b5['bound_ms']} ms ({entry_b5['bound_by']}), share "
+          f"{entry_b5['bound_share']:.4f} on {card}")
     xo5 = probs5.inactive_pos.permute(2, 1, 0).contiguous()
     sargs5 = (x5, v5, xo5, *engine.pairs, probs5.epsilon_self,
               probs5.obs_factor_self)
@@ -647,7 +696,7 @@ def main():
     err5 = max(compare(torch, "config 5 selfcol net", net_k, net_r),
                compare(torch, "config 5 selfcol cost", c_k, c_r))
     print(f"config 5 selfcol: max_abs_err {err5} (rtol {KERNEL_RTOL})")
-    del probs5, out5, costs5, x5, v5, a5, oargs5, xo5, sargs5
+    del probs5, out5, costs5, x5, v5, a5, oargs5, xo5, sargs5, t
     del net_k, c_k, net_r, c_r
 
     # -- the same solves on the CPU in float64 (plain versions) ---------------
@@ -698,7 +747,7 @@ def main():
     print(f"config 3 CPU float32 against CPU float64, same draws: max "
           f"|Δtraj| {float((cpu_outs[1] - cpu_outs[0]).abs().max())}")
 
-    results.append(entry_f3)
+    results += [entry_f3, entry_b5]
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -36,9 +36,13 @@ _SIGNATURES = {
     "cdx_sdf_cell_lookup": (_P, _I, _I, _I, _I, _P, _P, _I, _P, _P),
     # x, vel, acc, m, S, B, data, F, mx, my, mz, sizes, lengths,
     # pose_gsdf_world, pose_world_gsdf, field_enabled, radii, epsilon,
-    # obs_factor, cost, wgrad, dirs, stream
+    # obs_factor, cost, wgrad, dirs, grid, threads, per, smem, stream
     "cdx_obstacle": (_P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _P, _P,
-                     _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+                     _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # threads, smem, info (3 ints out)
+    "cdx_obstacle_launch_info": (_I, _I, _P),
+    # F, mx, my, mz
+    "cdx_obstacle_smem_bytes": (_I, _I, _I, _I),
     # xi, vel, xo, m, Sa, SI, B, pair_i, pair_j, rsum, P, eps_self,
     # obs_self, net, cost, stream
     "cdx_selfcol": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P,

@@ -9,10 +9,14 @@ tensors to the hand-written kernel (or an error).  There is no fallback.
 ``LAUNCHES`` / ``LOOKUP_LAUNCHES`` count kernel launches of
 :func:`obstacle` / :func:`sdf_cell_lookup`.  :func:`obstacle_traffic_bytes`
 and :func:`obstacle_flops` count the work of one :func:`obstacle` call
-for its bound on the card.
+for its bound on the card; :func:`launch_geometry` sizes its launch.
 """
 
 from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -22,6 +26,9 @@ LAUNCHES = 0          # fused obstacle kernel launches
 LOOKUP_LAUNCHES = 0   # raw sdf_cell_lookup kernel launches
 
 _VEL_EPS = 1e-6       # ‖ẋ‖ guard, orcdchomp_mod.cpp:1226/1285
+LANES = 32            # problems per warp, and per block tile (obstacle.cu)
+THREADS = 256         # threads per block: 8 warps, each walking rows
+SMEM_BLOCK_MAX = 232_448   # shared memory one block may use (227 KB)
 # float operations of one obstacle query, counted from obstacle_ref's
 # expressions and rounded: per field (frame transform, subscripts, cells,
 # gradient, rotation to world, min-select) and once (hinge, projection,
@@ -189,6 +196,67 @@ def obstacle_ref(x, vel, acc, data, sizes, lengths, pose_gsdf_world,
     return cost, wgrad
 
 
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """One launch of the obstacle kernel.  The (tile, row) space, tiles
+    of LANES problems by rows = m·S (point, sphere) rows, has ``units``
+    units; block k walks units [k·per, (k+1)·per), its warps every
+    (threads / LANES)-th row of each tile it meets."""
+
+    threads: int
+    smem_bytes: int       # dynamic shared memory per block
+    blocks_per_sm: int
+    per: int
+    grid: int
+    units: int
+
+
+def smem_bytes(F, mx, my, mz):
+    """Shared memory of a block: per field and lane the two staged poses
+    (12 words, field_enabled among them), per field 5×4 words of
+    constants, the cell centres (F, mx + my + mz).  The layout is
+    obstacle.cu's (smem_words); a GPU test holds the two counts equal."""
+    return 4 * (4 * 3 * F * LANES + 4 * 5 * F + F * (mx + my + mz))
+
+
+def launch_geometry(m, S, B, F, mx, my, mz, n_sm, occupancy):
+    """The launch of :func:`obstacle` on a card of ``n_sm`` SMs, where
+    ``occupancy(smem_bytes)`` gives the resident blocks per SM.  The grid
+    is one wave: the units are split evenly over the blocks that fit at
+    once, each block taking at least one row per warp."""
+    smem = smem_bytes(F, mx, my, mz)
+    if smem > SMEM_BLOCK_MAX:
+        raise ValueError(f"obstacle: {smem} B of shared memory per block "
+                         f"(F={F}) exceeds {SMEM_BLOCK_MAX}")
+    bps = occupancy(smem)
+    if bps < 1:
+        raise ValueError(f"obstacle: no block of {smem} B fits an SM")
+    units = -(-B // LANES) * m * S
+    per = max(THREADS // LANES, -(-units // (n_sm * bps)))
+    return Geometry(THREADS, smem, bps, per, -(-units // per), units)
+
+
+@functools.lru_cache(maxsize=None)
+def launch_info(smem):
+    """The kernel's launch on the card for blocks of THREADS threads and
+    ``smem`` bytes: resident blocks per SM, registers and local (spill)
+    bytes per thread."""
+    info = (ctypes.c_int * 3)()
+    kernels.check(kernels.library().cdx_obstacle_launch_info(
+        THREADS, smem, info), "obstacle launch_info")
+    return dict(blocks_per_sm=info[0], registers=info[1],
+                local_bytes=info[2])
+
+
+@functools.lru_cache(maxsize=None)
+def device_geometry(m, S, B, F, mx, my, mz, device_index):
+    """:func:`launch_geometry` on CUDA device ``device_index``."""
+    n_sm = torch.cuda.get_device_properties(
+        device_index).multi_processor_count
+    return launch_geometry(m, S, B, F, mx, my, mz, n_sm,
+                           lambda smem: launch_info(smem)["blocks_per_sm"])
+
+
 def obstacle(x, vel, acc, data, sizes, lengths, pose_gsdf_world,
              pose_world_gsdf, field_enabled, radii, epsilon, obs_factor,
              want_dirs=False):
@@ -205,14 +273,31 @@ def obstacle(x, vel, acc, data, sizes, lengths, pose_gsdf_world,
     (cost_soa.py:_obstacle_soa).  ``want_dirs`` adds the one-sided
     neighbour choice per field, (F, m, S, B) int32 with bit i set when
     axis i uses the next cell — a check of the subscript arithmetic.
+
+    The kernel indexes with 32-bit integers: on the card a call takes
+    fewer than 2**31 / 3 (point, sphere, problem) queries (about 716 M;
+    BASELINE's largest, config 5, has 15.2 M) and raises ValueError
+    beyond.  Split a larger batch along B.
     """
-    global LAUNCHES
     if x.device.type == "cpu":
         return obstacle_ref(x, vel, acc, data, sizes, lengths,
                             pose_gsdf_world, pose_world_gsdf, field_enabled,
                             radii, epsilon, obs_factor, want_dirs)
     if x.device.type != "cuda":
         raise ValueError(f"obstacle: unsupported device {x.device}")
+    geom = device_geometry(*x.shape[1:], *data.shape, x.device.index)
+    return obstacle_launch(geom, x, vel, acc, data, sizes, lengths,
+                           pose_gsdf_world, pose_world_gsdf, field_enabled,
+                           radii, epsilon, obs_factor, want_dirs)
+
+
+def obstacle_launch(geom, x, vel, acc, data, sizes, lengths,
+                    pose_gsdf_world, pose_world_gsdf, field_enabled, radii,
+                    epsilon, obs_factor, want_dirs=False):
+    """One launch of the kernel with the given :class:`Geometry` (from
+    :func:`device_geometry`; a test may give another grid).  Same
+    arguments and results as :func:`obstacle`, CUDA tensors only."""
+    global LAUNCHES
     _, m, S, B = x.shape
     F, mx, my, mz = data.shape
     dev = x.device
@@ -228,6 +313,9 @@ def obstacle(x, vel, acc, data, sizes, lengths, pose_gsdf_world,
     kernels.require(radii, "radii", f32, (S,), dev)
     kernels.require(epsilon, "epsilon", f32, (B,), dev)
     kernels.require(obs_factor, "obs_factor", f32, (B,), dev)
+    if 3 * m * S * B >= 2 ** 31:
+        raise ValueError(f"obstacle: {m * S * B} queries need 64-bit "
+                         "indices, which the kernel does not take")
     cost = torch.empty((m, S, B), dtype=f32, device=dev)
     wgrad = torch.empty((3, m, S, B), dtype=f32, device=dev)
     dirs = (torch.empty((F, m, S, B), dtype=torch.int32, device=dev)
@@ -240,7 +328,8 @@ def obstacle(x, vel, acc, data, sizes, lengths, pose_gsdf_world,
         pose_world_gsdf.data_ptr(), field_enabled.data_ptr(),
         radii.data_ptr(), epsilon.data_ptr(), obs_factor.data_ptr(),
         cost.data_ptr(), wgrad.data_ptr(),
-        dirs.data_ptr() if want_dirs else None, kernels.stream_ptr(x))
+        dirs.data_ptr() if want_dirs else None, geom.grid, geom.threads,
+        geom.per, geom.smem_bytes, kernels.stream_ptr(x))
     kernels.check(err, "obstacle")
     LAUNCHES += 1
     if want_dirs:

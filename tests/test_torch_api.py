@@ -14,7 +14,7 @@ from or_cdchomp_tpu.api import KinBody as JaxKinBody, Robot as JaxRobot
 
 import or_cdchomp_tpu_torch as pt
 from or_cdchomp_tpu_torch.api import KinBody, Robot
-from or_cdchomp_tpu_torch.chomp.solver import ChompEngine
+from or_cdchomp_tpu_torch.chomp.solver import ChompEngine, HmcDraw
 from or_cdchomp_tpu_torch.convert import fields_from_numpy, problem_from_numpy
 from or_cdchomp_tpu_torch.models.robot import CompiledFK
 from or_cdchomp_tpu_torch.ops.grid import Grid3D, pad_stack_grids
@@ -146,7 +146,7 @@ CUDA = torch.device("cuda")
 
 @pytest.mark.parametrize("entry", [
     ChompEngine, CompiledFK, Grid3D.create, pad_stack_grids,
-    problem_from_numpy, fields_from_numpy,
+    problem_from_numpy, fields_from_numpy, HmcDraw,
 ], ids=lambda f: f.__qualname__)
 def test_entry_point_defaults_to_cuda(entry):
     default = inspect.signature(entry).parameters["device"].default

@@ -1,6 +1,7 @@
-"""The PyTorch port imports neither JAX nor the JAX package: the machine
-with the card has no JAX.  An AST walk, because a subprocess check would
-see a JAX that this environment pre-imports."""
+"""The PyTorch port and its scripts (chip_smoke.py, ab_obstacle.py) import
+neither JAX nor the JAX package: the machine with the card has no JAX.
+An AST walk, because a subprocess check would see a JAX that this
+environment pre-imports."""
 
 import ast
 import pathlib
@@ -26,8 +27,9 @@ def _forbidden(name):
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PKG.rglob("*.py")),
-    ids=lambda p: str(p.relative_to(PKG)))
+    "path", sorted(PKG.rglob("*.py")) + [PKG.parent / "chip_smoke.py",
+                                         PKG.parent / "ab_obstacle.py"],
+    ids=lambda p: str(p.relative_to(PKG)) if PKG in p.parents else p.name)
 def test_no_jax_import(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     bad = [n for n in _imported(tree) if _forbidden(n)]

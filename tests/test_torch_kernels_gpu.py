@@ -3,11 +3,13 @@ at small shapes.  Skipped without a CUDA device; run on the card with
 ``python -m pytest tests/test_torch_kernels_gpu.py -q --noconftest``
 (tests/conftest.py configures JAX, which that machine does not have)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from or_cdchomp_tpu_torch.ops import sdf_lookup, selfcol
+from or_cdchomp_tpu_torch.ops import kernels, sdf_lookup, selfcol
 from or_cdchomp_tpu_torch.utils import np_pose
 
 pytestmark = pytest.mark.gpu
@@ -269,6 +271,207 @@ def test_obstacle_kernel_three_fields_exact(cuda):
     assert float((want[0] != 0).double().mean()) > 0.05  # hinge active
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# ---- K1's launch geometry and skip paths, bit-equal -------------------------
+
+_K1_SIZES = [[8, 9, 7], [6, 9, 5], [8, 4, 6], [3, 9, 2]]
+
+
+def _k1_args(rng, dev, F=2, m=7, S=5, B=33, sizes=None):
+    """K1 inputs over F fields of unequal true sizes (+inf padding, one
+    interior +inf cell) and unequal cell sizes, each problem with its
+    own poses; a list, so a case can change an argument."""
+    sizes = np.array(sizes or _K1_SIZES[:F], np.int32)
+    dims = sizes.max(axis=0)
+    lengths = sizes * rng.uniform(0.06, 0.12, size=(F, 1))
+    data = np.full((F, *dims), np.inf)
+    for f, (sx, sy, sz) in enumerate(sizes):
+        data[f, :sx, :sy, :sz] = rng.normal(size=(sx, sy, sz)) * 0.2 + 0.05
+    data[0, 1, 2, 1] = np.inf
+    pw = np.zeros((B, F, 7))
+    pw[..., :3] = rng.normal(size=(B, F, 3)) * 0.05
+    q = rng.normal(size=(B, F, 4))
+    pw[..., 3:] = q / np.linalg.norm(q, axis=-1, keepdims=True)
+    pg = np.stack([[np_pose.invert(p) for p in row] for row in pw])
+    f32 = dict(dtype=torch.float32, device=dev)
+    t = lambda a: torch.as_tensor(a, **f32).contiguous()   # noqa: E731
+    enabled = torch.ones((B, F), dtype=torch.bool, device=dev)
+    enabled[1::5, F - 1] = False
+    vel = rng.normal(size=(3, m, S, B))
+    vel[:, :, 0, :3] = 0.0
+    return [t(rng.uniform(-0.1, 0.9, size=(3, m, S, B))), t(vel),
+            t(rng.normal(size=(3, m, S, B))), t(data),
+            torch.as_tensor(sizes, device=dev), t(lengths), t(pg), t(pw),
+            enabled, t(rng.uniform(0.03, 0.1, size=S)),
+            t(rng.uniform(0.2, 0.5, size=B)), t(rng.uniform(100, 500, size=B))]
+
+
+def _k1_geometry(args, per=None):
+    """The wrapper's geometry for these inputs, or (``per``) one with a
+    smaller grid of longer per-block walks."""
+    _, m, S, B = args[0].shape
+    geom = sdf_lookup.device_geometry(m, S, B, *args[3].shape,
+                                      args[0].device.index)
+    if per is not None:
+        geom = dataclasses.replace(geom, per=per,
+                                   grid=-(-geom.units // per))
+    return geom
+
+
+def _k1_exact(args, geom=None):
+    """The kernel, with and without the one-sided choices (the main path
+    skips the subscripts of queries outside a box), against
+    obstacle_ref: torch.equal on cost, gradient and dirs."""
+    geom = geom or _k1_geometry(args)
+    want = sdf_lookup.obstacle_ref(*args, want_dirs=True)
+    n0 = sdf_lookup.LAUNCHES
+    got = sdf_lookup.obstacle_launch(geom, *args, want_dirs=True)
+    main = sdf_lookup.obstacle_launch(geom, *args)
+    torch.cuda.synchronize()
+    assert sdf_lookup.LAUNCHES == n0 + 2
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(main[0], want[0]) and torch.equal(main[1], want[1])
+    return want
+
+
+@pytest.mark.parametrize("shape", [
+    dict(B=33), dict(B=257, m=3, S=4), dict(m=1, S=1, B=40),
+    dict(m=1, S=9, B=70), dict(F=4, m=3, S=5, B=50), dict(F=1, B=1),
+], ids=["B33", "B257", "m1S1", "m1S9", "F4", "B1"])
+def test_obstacle_kernel_ragged_exact(cuda, shape):
+    """Tiles of 32 problems left partly empty (B = 33, 257, 70, 1), fewer
+    rows than warps (m = 1), F = 4 with unequal true sizes: bit-equal,
+    with the hinge active."""
+    args = _k1_args(np.random.default_rng(len(str(shape))), cuda, **shape)
+    want = _k1_exact(args)
+    assert float(want[0].abs().max()) > 0.0
+
+
+@pytest.mark.parametrize("per", [10, 37, 1000])
+def test_obstacle_kernel_partial_walks(cuda, per):
+    """Blocks of 10, 37 or 1000 (tile, row) units: warps walk unequal row
+    counts, a block's range crosses tiles (restaging their poses), and
+    the last block's range is cut short."""
+    args = _k1_args(np.random.default_rng(per), cuda, F=3, m=6, S=7, B=75)
+    geom = _k1_geometry(args, per=per)
+    assert geom.units % per != 0 and geom.grid * per >= geom.units
+    _k1_exact(args, geom)
+
+
+@pytest.mark.parametrize("case", ["outside", "disabled"])
+def test_obstacle_kernel_skipped_gathers(cuda, case):
+    """Every query outside every box, or every field disabled: no cell is
+    read and the cost and gradient are exactly the plain version's."""
+    args = _k1_args(np.random.default_rng(3), cuda, F=3, m=4, S=5, B=40)
+    if case == "outside":
+        args[0] = (args[0] + 50.0).contiguous()
+    else:
+        args[8] = torch.zeros_like(args[8])
+    want = _k1_exact(args)
+    assert float(want[0].abs().max()) == 0.0
+
+
+def test_obstacle_kernel_cell_centres(cuda):
+    """Queries exactly on cell centres of field 0 (identity pose), where
+    the one-sided choice takes the next cell only if the kernel's centre
+    rounds as obstacle_ref's: every centre axis uses the next cell."""
+    rng = np.random.default_rng(12)
+    m, S, B = 4, 6, 45
+    args = _k1_args(rng, cuda, F=2, m=m, S=S, B=B)
+    ident = torch.tensor([0, 0, 0, 0, 0, 0, 1.0], device=cuda)
+    for k in (6, 7):
+        args[k][:, 0] = ident
+    sizes = args[4][0].cpu()
+    ln = args[5][0].cpu()
+    x = torch.empty((3, m, S, B))
+    for i in range(3):
+        # inner cells only: cell 0 and the last one force their choice
+        si = torch.as_tensor(rng.integers(1, int(sizes[i]) - 1,
+                                          size=(m, S, B)))
+        szf = sizes[i].to(torch.float32)
+        x[i] = (si.to(torch.float32) + 0.5) / szf * ln[i]
+    args[0] = x.to(cuda).contiguous()
+    args[8] = torch.ones_like(args[8])
+    want = _k1_exact(args)
+    assert float((want[2][0] == 7).double().mean()) == 1.0
+
+
+def test_obstacle_kernel_box_faces(cuda):
+    """Queries on and around the faces of field 0's box (identity pose),
+    one axis at a time: -0, ±1e-45, the pre-test's bounds -1e-6·ln and
+    1.0001·ln and their float neighbours, ln and its neighbours.  The
+    main path's division-free pre-test may skip only queries certainly
+    outside, so with a 1 m hinge every query inside has a cost, and the
+    kernel is bit-equal on both paths."""
+    args = _k1_args(np.random.default_rng(13), cuda, F=1, m=1, S=1, B=33)
+    ln = args[5][0].cpu().numpy().astype(np.float32)
+    f32 = np.float32
+    rows = []
+    for i in range(3):
+        lo, hi = f32(-ln[i] * f32(1e-6)), f32(ln[i] * f32(1.0001))
+        for v in (f32(-0.0), f32(1e-45), f32(-1e-45), lo, ln[i], hi):
+            for w in (v, np.nextafter(v, f32(-1)), np.nextafter(v, f32(2))):
+                p = ln / 2
+                p[i] = w
+                rows.append(p)
+    S = len(rows)
+    x = torch.as_tensor(np.stack(rows).T[:, None, :, None].repeat(33, 3))
+    ident = torch.tensor([0, 0, 0, 0, 0, 0, 1.0], device=cuda)
+    args[0] = x.to(cuda).contiguous()
+    args[1] = torch.ones_like(args[0])
+    args[2] = torch.ones_like(args[0])
+    args[6][:] = ident
+    args[7][:] = ident
+    args[8] = torch.ones_like(args[8])
+    args[9] = torch.full((S,), 0.05, device=cuda)
+    args[10] = torch.ones_like(args[10])
+    want = _k1_exact(args)
+    inside = ((x[:, 0] >= 0) & (x[:, 0] <= torch.as_tensor(ln)[:, None, None])
+              ).all(dim=0)
+    assert bool(inside.any()) and bool((~inside).any())
+    assert bool((want[0][0].cpu() != 0)[inside].all())
+
+
+def test_obstacle_kernel_deterministic(cuda):
+    """Two launches on the same inputs are bit-equal."""
+    args = _k1_args(np.random.default_rng(5), cuda, F=3, m=9, S=15, B=96)
+    a = sdf_lookup.obstacle(*args)
+    b = sdf_lookup.obstacle(*args)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_obstacle_kernel_large_stack(cuda):
+    """A 280 KB stack, beyond what shared memory could hold: its cells
+    are read from global memory, bit-equal."""
+    args = _k1_args(np.random.default_rng(6), cuda, F=2, m=3, S=4, B=40,
+                    sizes=[[40, 44, 20], [30, 44, 17]])
+    assert 4 * args[3].numel() > sdf_lookup.SMEM_BLOCK_MAX
+    _k1_exact(args)
+
+
+def test_obstacle_kernel_launch_info(cuda):
+    """The kernel compiles without spills and keeps at least three
+    blocks of THREADS threads on an SM at config 2's shapes."""
+    geom = sdf_lookup.device_geometry(99, 15, 256, 3, 11, 19, 11,
+                                      torch.cuda.current_device())
+    info = sdf_lookup.launch_info(geom.smem_bytes)
+    assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 3
+    assert geom.blocks_per_sm == info["blocks_per_sm"]
+    assert geom.grid <= geom.blocks_per_sm * \
+        torch.cuda.get_device_properties(0).multi_processor_count
+
+
+@pytest.mark.parametrize("F, dims", [
+    (1, (12, 16, 12)), (3, (11, 19, 11)), (4, (8, 9, 7)), (2, (40, 44, 20)),
+])
+def test_obstacle_smem_bytes_matches_kernel(cuda, F, dims):
+    """The wrapper sizes the launch's shared memory with the layout the
+    kernel indexes (sdf_lookup.smem_bytes against obstacle.cu's count)."""
+    lib = kernels.library()
+    assert sdf_lookup.smem_bytes(F, *dims) == \
+        lib.cdx_obstacle_smem_bytes(F, *dims)
 
 
 def _hmc_run(device, dtype):
