@@ -44,8 +44,8 @@ def build(src, name, kernels):
     ptxas report)."""
     out = kernels._BUILD / "ab" / f"lib{name}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
-    res = subprocess.run([kernels._nvcc(), *kernels._FLAGS, "-o", str(out),
-                          str(src)], capture_output=True, text=True)
+    res = subprocess.run([kernels._nvcc(), *kernels._FLAGS, "-shared", "-o",
+                          str(out), str(src)], capture_output=True, text=True)
     log = res.stdout + res.stderr
     if res.returncode != 0:
         raise RuntimeError(f"nvcc {src} failed:\n{log}")

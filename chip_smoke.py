@@ -2,7 +2,7 @@
 
 Builds the two CUDA kernels from or_cdchomp_tpu_torch/csrc, holds each
 against its plain PyTorch version at the shapes of the paths below, and
-drives four of BASELINE's configurations through CHOMPModule and
+drives all five of BASELINE's configurations through CHOMPModule and
 BatchSolver, each with the kernel launch counts set to 0 just before it
 and read just after:
 
@@ -14,12 +14,19 @@ and read just after:
   iterations and the final cost report;
 - config 3: config 1's scene with HMC (seed 7), 256 problems,
   BatchSolver.solve and best_of_batch;
+- config 4: WAM7 on an SE(3) floating base (n = 14) with the upright
+  everyn TSR at every moving point, table + mug at 0.08 m (cache file),
+  n_points = 51, λ = 200, obs_factor = 200, 256 problems,
+  BatchSolver.iterate of 100 iterations and the final cost report; both
+  kernels are held against their plain versions on its inputs (K2 with
+  no inactive sphere), the projection's dense and quasiseparable solves
+  are timed, and the constraint residual is read before and after;
 - config 5: config 1 at 10,240 problems, 100 iterations; both kernels
   are held against their plain versions again on its inputs, and K1 is
   timed there.
 
 Each is timed on the card first; then the first 8 problems of configs
-1, 2 and 3 are re-solved on the CPU in float64 through the same API
+1, 2, 3 and 4 are re-solved on the CPU in float64 through the same API
 (config 3 fed the card's own HMC draws) and held to max |Δtraj| ≤ 1e-3.
 Any failed phase exits non-zero.
 
@@ -38,6 +45,7 @@ Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -60,6 +68,11 @@ GOAL = [0.4, 0.6, 0.1, 1.3, 0.0, -0.5, 0.0]
 # config 2's robot base (benchmarks/configs.py:38-40)
 CONFIG2_BASE = [0.0, -1.2, 1.0, 0.0, 0.70711, 0.0, 0.70711]
 CACHE_DIR = ROOT / "or_cdchomp_tpu_torch" / "build" / "sdf_cache"
+# config 4 (benchmarks/configs.py:102-134)
+CONFIG4_POINTS = 51
+CONFIG4_BW = [[-10, 10], [-10, 10], [-10, 10], [0, 0], [0, 0],
+              [-math.pi, math.pi]]
+CONFIG4_BASEGOAL = [0.15, 0.1, 0.0, 0.0, 0.0, 0.0, 1.0]
 
 
 class PhaseFailed(Exception):
@@ -149,6 +162,55 @@ def config3_run(pt, dtype, device):
     return mod.runs[h]
 
 
+def config4_run(pt, dtype, device, require_cache=False):
+    """Config 4 (benchmarks/configs.py:102-134): config 1's table + mug
+    as one SDF at 0.08 m (read from / written to CACHE_DIR), WAM7 on an
+    SE(3) floating base (n = 14) moving to CONFIG4_BASEGOAL, an upright
+    everyn TSR on the end effector (roll and pitch pinned) at every
+    moving point; returns the run."""
+    import numpy as np
+
+    from or_cdchomp_tpu_torch.api import KinBody, Robot
+
+    mod = pt.CHOMPModule(dtype=dtype, device=device)
+    mod.add_kinbody(KinBody("table", pt.Scene.build(
+        boxes=[((0.75, 0.0, 0.5, 0, 0, 0, 1), (0.25, 0.4, 0.02)),
+               ((0.75, 0.0, 0.25, 0, 0, 0, 1), (0.08, 0.08, 0.25))])))
+    mod.add_kinbody(KinBody("mug", pt.Scene.build(
+        cylinders=[((0.65, 0.15, 0.58, 0, 0, 0, 1), 0.04, 0.06)])))
+    robot = Robot("wam", pt.wam7(), q_active=np.array(START))
+    mod.add_robot(robot)
+    robot.enabled = False
+    mod.computedistancefield(kinbody="table", cube_extent=0.08,
+                             cache_filename=str(CACHE_DIR / "sdf_float.dat"),
+                             require_cache=require_cache)
+    robot.enabled = True
+    tsr = pt.TSR.from_matrices(np.eye(4), np.eye(4),
+                               Bw=np.array(CONFIG4_BW))
+    h = mod.create(robot="wam", adofgoal=np.array(GOAL),
+                   basegoal=np.array(CONFIG4_BASEGOAL), floating_base=True,
+                   lambda_=200.0, obs_factor=200.0, n_points=CONFIG4_POINTS,
+                   everyn_tsr=tsr)
+    return mod.runs[h]
+
+
+def run_endpoints(run, batch):
+    """benchmarks/run.py:37-47's batch: seed 0, σ = 0.02 around the
+    run's first and last points, a floating base's quaternion columns
+    3:7 kept.  Returns float64 (starts, goals), (batch, n) each."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    traj = run.problem.traj.double().cpu().numpy()
+    n = traj.shape[1]
+    starts = np.tile(traj[0], (batch, 1)) + 0.02 * rng.normal(size=(batch, n))
+    goals = np.tile(traj[-1], (batch, 1)) + 0.02 * rng.normal(size=(batch, n))
+    if run.spec.floating_base:
+        starts[:, 3:7] = traj[0, 3:7]
+        goals[:, 3:7] = traj[-1, 3:7]
+    return starts, goals
+
+
 def bench_endpoints(batch):
     """bench.py's seed-0 perturbed starts and goals, (batch, 7) each."""
     import numpy as np
@@ -204,6 +266,77 @@ def device_ms(torch, fn, reps=20):
     cuda = torch.autograd.DeviceType.CUDA
     us = [e.device_time for e in prof.events() if e.device_type == cuda]
     return sum(us) / reps / 1e3 if us else None
+
+
+def profile_calls(torch, fn, reps):
+    """torch.profiler over reps calls of fn: (top-level aten calls, device
+    kernels, device busy ms, wall ms), each per call; the wall is taken
+    under the profiler, with synchronize."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    kern = [e for e in events if e.device_type == cuda]
+    aten = [e for e in events if e.device_type != cuda
+            and e.name.startswith("aten::")
+            and (e.cpu_parent is None
+                 or not e.cpu_parent.name.startswith("aten::"))]
+    busy = sum(e.device_time for e in kern) / 1e3
+    return len(aten) / reps, len(kern) / reps, busy / reps, wall
+
+
+def step_profile(torch, eng, probs, label, card, reps=5):
+    """Print one step's host and device work: aten calls, device kernels,
+    device busy time and the idle share of the step's wall."""
+    state = [probs]
+
+    def step():
+        state[0], _ = eng.step_batched(state[0])
+
+    calls, kern, busy, wall = profile_calls(torch, step, reps)
+    print(f"{label} step profile over {reps} steps: {calls:.0f} aten calls, "
+          f"{kern:.0f} device kernels, device busy {busy:.4f} ms of a "
+          f"{wall:.4f} ms wall (under the profiler), device idle "
+          f"{1.0 - busy / wall:.4f} on {card}")
+
+
+def host_syncs(torch, fn):
+    """Every host synchronisation that fn makes, from torch.cuda's sync
+    debug mode: the innermost frames (file:line function) of the Python
+    stack at each, innermost first."""
+    import traceback
+    import warnings
+
+    found = []
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        frames = [f for f in traceback.extract_stack()[:-1]
+                  if Path(f.filename).name != "warnings.py"]
+        # switching the mode itself is reported as one; it is not fn's
+        if ("synchroniz" in str(message)
+                and frames[-1].name != "set_sync_debug_mode"):
+            found.append([f"{Path(f.filename).name}:{f.lineno} {f.name}"
+                          for f in reversed(frames[-4:])])
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return found
 
 
 def timings(torch, kernel, plain):
@@ -360,6 +493,175 @@ def max_dtraj(out, ref):
     return float((out.traj[:N_CHECK].double().cpu() - ref.traj).abs().max())
 
 
+def time_projection(torch, constraints, eng, probs, fk_out, card):
+    """The projection of config 4's batch with the dense Cholesky and with
+    the quasiseparable scan: per-call time (CUDA events, host work
+    included) and device time (profiler), their agreement, and the solve
+    the rule takes at this shape."""
+    spec, cons = eng.spec, eng.cons
+    val, jac = constraints.eval_tsr_all_soa(spec, eng.fk, probs, probs.traj,
+                                            cons, fk_out)
+    m = spec.m
+    AG = probs.AG + 1e-3            # a small update in every row
+
+    def project():
+        return constraints.project_constraints(
+            spec, cons, eng.proj_ops, probs.lambda_, AG,
+            probs.traj[:, 1:1 + m], val, jac)
+
+    def forced(limit):
+        def fn():
+            saved = constraints._DENSE_MAX_ELEMS
+            constraints._DENSE_MAX_ELEMS = limit
+            try:
+                return project()
+            finally:
+                constraints._DENSE_MAX_ELEMS = saved
+        return fn
+
+    dense, sss = forced(1 << 62), forced(0)
+    for name, fn, reps in (
+            ("evaluation", lambda: constraints.eval_tsr_all_soa(
+                spec, eng.fk, probs, probs.traj, cons, fk_out), 20),
+            ("dense projection", dense, 20), ("sss projection", sss, 3)):
+        calls, kern, busy, wall = profile_calls(torch, fn, reps)
+        print(f"config 4 TSR {name}: {calls:.0f} aten calls, {kern:.0f} "
+              f"device kernels, device busy {busy:.4f} ms, wall {wall:.4f} "
+              f"ms per call (under the profiler)")
+    got_d, got_s = dense(), sss()
+    check(bool(torch.isfinite(got_d).all() and torch.isfinite(got_s).all()),
+          "config 4: non-finite projection")
+    diff = float((got_d - got_s).abs().max())
+    scale = float(got_s.abs().max())
+    t_d = (time_ms(torch, dense), device_ms(torch, dense))
+    t_s = (time_ms(torch, sss, reps=5), device_ms(torch, sss, reps=5))
+    C, k = cons.n_constraints, sum(cons.enabled[0])
+    rule = "sss" if constraints.use_sss(spec, cons, probs.traj.shape[0]) \
+        else "dense"
+    print(f"config 4 projection (B={probs.traj.shape[0]}, C={C}, k={k}, "
+          f"system {C * k}x{C * k}): dense per call {t_d[0]:.4f} ms, device "
+          f"{t_d[1]} ms; sss per call {t_s[0]:.4f} ms, device {t_s[1]} ms; "
+          f"max |dense - sss| {diff} of max |correction| {scale}; the rule "
+          f"takes {rule} on {card}")
+
+
+def config4_phase(torch, pt, card, dev):
+    """Config 4 on the card: the kernels on its inputs, the projection
+    solves, iterate(100) with the final cost report and its launches,
+    the constraint residual and the warm wall.  Returns (output
+    problems, starts, goals, [K1 entry, K2 entry])."""
+    from or_cdchomp_tpu_torch.chomp import constraints, cost_soa
+    from or_cdchomp_tpu_torch.ops import sdf_lookup, selfcol
+    from or_cdchomp_tpu_torch.parallel.batch import (BatchSolver,
+                                                     problem_batch_from_grid)
+
+    t0 = time.perf_counter()
+    run = config4_run(pt, torch.float32, dev)
+    eng = run.engine
+    starts, goals = run_endpoints(run, BATCH)
+    probs = problem_batch_from_grid(run.problem, starts, goals, eng)
+    torch.cuda.synchronize()
+    spec, cons = eng.spec, eng.cons
+    print(f"config 4 setup (SDF build + cache write, create, batch): "
+          f"{time.perf_counter() - t0:.2f} s; field stack "
+          f"{tuple(eng.fields.data.shape)}, n = {spec.n}, m = {spec.m}, "
+          f"{cons.n_constraints} constraints of {cons.k_total} rows")
+    check(spec.floating_base and spec.n == 14
+          and spec.m == CONFIG4_POINTS - 2, f"config 4 spec {spec}")
+    check(cons.n_constraints == spec.m and cons.k_total == 2 * spec.m,
+          f"config 4 constraints {cons.n_constraints}, {cons.k_total}")
+
+    fk_out, x, vel, acc = cost_soa.sphere_kinematics(spec, eng.fk, probs)
+    m, S, B = x.shape[1:]
+    check((m, S, B) == (spec.m, 16, BATCH), f"config 4 spheres {(m, S, B)}")
+    oargs = obstacle_args(eng, probs, x, vel, acc)
+    k1_launch(torch, sdf_lookup, oargs, "config 4")
+    err = check_obstacle(torch, sdf_lookup, oargs, "config 4 obstacle",
+                         hinge=False)
+    t = time_obstacle(torch, sdf_lookup, oargs, "config 4 obstacle")
+    F, mx, my, mz = eng.fields.data.shape
+    k1 = kernel_entry(
+        "obstacle_config4", "or_cdchomp_tpu_torch/csrc/obstacle.cu",
+        "or_cdchomp_tpu/ops/pallas_sdf.py:86", err, t,
+        sdf_lookup.obstacle_traffic_bytes(m, S, B, F, mx, my, mz),
+        sdf_lookup.obstacle_flops(m, S, B, F))
+
+    # a floating base moves every sphere: K2 with no inactive one
+    xo = probs.inactive_pos.permute(2, 1, 0).contiguous()
+    check(tuple(xo.shape) == (3, 0, BATCH), f"config 4 xo {tuple(xo.shape)}")
+    sargs = (x, vel, xo, *eng.pairs, probs.epsilon_self,
+             probs.obs_factor_self)
+    P = eng.pairs[0].shape[0]
+    info = selfcol.launch_info(S, 0)
+    votes, near, taken, reach = selfcol.vote_stats(
+        x, xo, *eng.pairs, probs.epsilon_self)
+    print(f"config 4 selfcol (Sa = {S}, SI = 0, {P} pairs): "
+          f"{info['threads']} threads, {info['smem_bytes']} B shared memory "
+          f"per block, {info['blocks_per_sm']} blocks per SM; warp vote skips "
+          f"{(votes - taken) / votes:.4f}; {reach} of {m * P * B} in reach")
+    net_k, c_k = selfcol.selfcol_pairs(*sargs)
+    net_r, c_r = selfcol.selfcol_pairs_ref(*sargs)
+    err = max(compare(torch, "config 4 selfcol net", net_k, net_r),
+              compare(torch, "config 4 selfcol cost", c_k, c_r))
+    t = timings(torch, lambda: selfcol.selfcol_pairs(*sargs),
+                lambda: selfcol.selfcol_pairs_ref(*sargs))
+    print(f"config 4 selfcol: max_abs_err {err}, per call {t[0]:.4f} ms vs "
+          f"plain {t[1]:.4f} ms, device {t[2]} ms vs plain {t[3]} ms")
+    k2 = kernel_entry(
+        "selfcol_config4", "or_cdchomp_tpu_torch/csrc/selfcol.cu",
+        "or_cdchomp_tpu/ops/pallas_selfcol.py:197", err, t,
+        selfcol.traffic_bytes(m, S, 0, B, P), selfcol.flops(m, B, P, reach))
+    for r in (k1, k2):
+        print(f"{r['name']}: device {r['ms']} ms, bound {r['bound_ms']} ms "
+              f"({r['bound_by']}), share {r['bound_share']:.4f} on {card}")
+
+    time_projection(torch, constraints, eng, probs, fk_out, card)
+    step_profile(torch, eng, probs, "config 4", card)
+    # the limit repair's test (one per round) is the step's only sync
+    syncs = host_syncs(torch, lambda: eng.step_batched(probs))
+    print(f"config 4 step: {len(syncs)} host syncs, at {syncs}")
+    check(bool(syncs) and all(" _limit_repair_batched" in st[0]
+                              for st in syncs),
+          "config 4: a host sync outside the limit repair")
+    res0 = float(eng.constraint_values(probs).abs().max())
+
+    counts_zero(sdf_lookup, selfcol)
+    solver = BatchSolver(eng)
+    t0 = time.perf_counter()
+    out, costs = solver.iterate(probs, N_ITER)
+    fin = torch.stack(eng.final_costs_batch(out), dim=-1)
+    torch.cuda.synchronize()
+    first_wall = time.perf_counter() - t0
+    launches = counts(sdf_lookup, selfcol)
+    print(f"config 4: iterate({N_ITER}) + final costs at B={BATCH} in "
+          f"{first_wall:.3f} s (first call), launches {launches} "
+          f"(expected {N_ITER} + 1 each)")
+    check_launches(launches, N_ITER + 1, "config 4")
+    k1["launches"], k2["launches"] = launches["obstacle"], launches["selfcol"]
+    check(tuple(costs.shape) == (N_ITER, BATCH, 3)
+          and tuple(out.traj.shape) == (BATCH, CONFIG4_POINTS, 14),
+          f"config 4: costs {tuple(costs.shape)}, traj {tuple(out.traj.shape)}")
+    check(bool(torch.isfinite(costs).all() and torch.isfinite(fin).all()
+               and torch.isfinite(out.traj).all()),
+          "config 4: non-finite costs or trajectories")
+    qerr = float((out.traj[..., 3:7].norm(dim=-1) - 1.0).abs().max())
+    check(qerr <= 1e-5, f"config 4: base quaternion norm off by {qerr}")
+    res1 = float(eng.constraint_values(out).abs().max())
+    print(f"config 4 mean (total, obstacle + self, smoothness) cost: first "
+          f"iteration {costs[0].mean(0).tolist()}, final report "
+          f"{fin.mean(0).tolist()}")
+    print(f"config 4 constraint residual (max |roll|, |pitch| of the end "
+          f"effector over the batch): start {res0}, end {res1}; base "
+          f"quaternion norms within {qerr} of 1")
+    check(res1 < res0, "config 4: the constraint residual did not fall")
+
+    wall, walls = warm_walls(torch, lambda: solver.iterate(probs, N_ITER),
+                             WARM_REPS)
+    print(f"config 4 iterate({N_ITER}) at B={BATCH}: median warm wall {wall} "
+          f"s of {walls}, {BATCH / wall} solves/s on {card}")
+    return out, starts, goals, [k1, k2]
+
+
 def main():
     if not (ROOT / "or_cdchomp_tpu_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -514,6 +816,8 @@ def main():
     print(f"mean total cost: first iteration {c0:.6f}, last {c1:.6f}")
     check(c1 < c0, "the mean total cost did not fall")
 
+    step_profile(torch, engine, probs, "config 1", card)
+
     # -- warm wall of the flagship solve, before the CPU phases: the CPU's
     # worker threads slow a host-bound loop for seconds after a CPU solve
     wall, walls = warm_walls(torch, lambda: solver.iterate(probs, N_ITER), 7)
@@ -647,6 +951,9 @@ def main():
     print(f"config 3 solve({N_ITER}) at B={BATCH}: median warm wall {wall} s "
           f"of {walls}, {BATCH / wall} solves/s on {card}")
 
+    # -- config 4: floating base, everyn TSR ----------------------------------
+    out4, starts4, goals4, entries4 = config4_phase(torch, pt, card, dev)
+
     # -- config 5: config 1 at 10,240 problems --------------------------------
     starts5, goals5 = bench_endpoints(BATCH_POD)
     probs5 = problem_batch_from_grid(run.problem, starts5, goals5, engine)
@@ -747,7 +1054,19 @@ def main():
     print(f"config 3 CPU float32 against CPU float64, same draws: max "
           f"|Δtraj| {float((cpu_outs[1] - cpu_outs[0]).abs().max())}")
 
-    results += [entry_f3, entry_b5]
+    # config 4 reads the card's field from its cache file
+    t0 = time.perf_counter()
+    run4_64 = config4_run(pt, f64, cpu, require_cache=True)
+    p64 = problem_batch_from_grid(run4_64.problem, starts4[:N_CHECK],
+                                  goals4[:N_CHECK], run4_64.engine)
+    out64, _ = BatchSolver(run4_64.engine).iterate(p64, N_ITER)
+    dtraj = max_dtraj(out4, out64)
+    print(f"config 4 CPU float64 re-solve of {N_CHECK} problems: max "
+          f"|Δtraj| {dtraj} (bar {TRAJ_BAR}), "
+          f"{time.perf_counter() - t0:.2f} s")
+    check(dtraj <= TRAJ_BAR, f"config 4: max |Δtraj| {dtraj} > {TRAJ_BAR}")
+
+    results += [entry_f3, *entries4, entry_b5]
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -14,3 +14,4 @@ __version__ = "0.1.0"
 from or_cdchomp_tpu_torch.api import CHOMPModule, KinBody, Robot  # noqa: F401
 from or_cdchomp_tpu_torch.models.wam7 import wam7  # noqa: F401
 from or_cdchomp_tpu_torch.ops.voxelize import Scene  # noqa: F401
+from or_cdchomp_tpu_torch.tsr import TSR  # noqa: F401

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from or_cdchomp_tpu_torch.ops import soa
+from or_cdchomp_tpu_torch.ops.spatial import SpatialMats
 
 FIXED, REVOLUTE, PRISMATIC = 0, 1, 2
 _JTYPES = {"fixed": FIXED, "revolute": REVOLUTE, "hinge": REVOLUTE,
@@ -254,7 +255,8 @@ def _reduced_chain(model, origin64, subset):
     walks only *active* joints (robot.py:386-442): each link pose is
     pose(red(l)) ∘ off(l) with red(l) its nearest ancestor-or-self with
     an active joint, and sphere offsets are pre-folded.  Returns (chain,
-    n_red, per-sphere reduced slot (S,), folded sphere offsets (S, 3))."""
+    n_red, per-link reduced slot (L,), per-link offset off(l) (L, 7),
+    per-sphere reduced slot (S,), folded sphere offsets (S, 3))."""
     L = len(model.link_names)
     ID = np.array([0, 0, 0, 0, 0, 0, 1.0])
     red_slot = np.zeros(L, dtype=np.int64)
@@ -285,7 +287,8 @@ def _reduced_chain(model, origin64, subset):
         if len(sl) else np.zeros((0, 3))
     slot = (np.asarray(red_slot[sl]) if len(sl)
             else np.zeros((0,), np.int64))
-    return chain, next_slot, slot, np.asarray(folded, dtype=np.float64)
+    return (chain, next_slot, red_slot, off, slot,
+            np.asarray(folded, dtype=np.float64))
 
 
 def sphere_positions_np(model, q, base_pose):
@@ -295,7 +298,7 @@ def sphere_positions_np(model, q, base_pose):
     the quadratic sandwich form.  For a base quaternion that is not of
     unit norm this differs from :meth:`CompiledFK.fk_soa`'s form, as in
     the JAX package."""
-    chain, _, slot, folded = _reduced_chain(
+    chain, _, _, _, slot, folded = _reduced_chain(
         model, model.folded()[0], np.arange(len(model.sphere_link)))
     q = np.asarray(q, dtype=np.float64)
     red = [np.asarray(base_pose, dtype=np.float64)]
@@ -352,8 +355,24 @@ class CompiledFK:
                 self._jt_suffix = (order, start)
         self._jtype_per_dof_np = np.asarray(
             [self._jtype[self._dof_link[d]] for d in range(model.n_dof)])
-        (self._chain, self.n_red, self._sphere_red_slot_np,
+        (self._chain, self.n_red, red_slot, off, self._sphere_red_slot_np,
          self._sphere_folded_np) = _reduced_chain(model, origin64, subset)
+        # per link: its reduced slot and constant offset, a link's pose
+        # being red_pose[_red_slot[l]] ∘ _off64[l] (robot.py:421-426); the
+        # TSR path reads the end-effector link's
+        self._red_slot = [int(r) for r in red_slot]
+        self._off64 = off
+        # the end effector's constant pose in its reduced slot,
+        # off(ee) ∘ ee_origin folded into one (None if the identity)
+        ident = np.array([0, 0, 0, 0, 0, 0, 1.0])
+        self._ee_offset_np = None
+        if model.ee_link >= 0:
+            eo = self._off64[model.ee_link]
+            if model.ee_origin is not None:
+                eo = _pose_compose64(eo, np.asarray(model.ee_origin,
+                                                    dtype=np.float64))
+            if not np.allclose(eo, ident, atol=1e-14):
+                self._ee_offset_np = eo
         self._to_device()
 
     def _to_device(self):
@@ -374,6 +393,15 @@ class CompiledFK:
             self._sphere_dof_mask_np[None, :, :, None], dtype=dt, device=dev)
         self._jt_rev = torch.as_tensor(
             (self._jtype_per_dof_np == REVOLUTE)[None, :, None], device=dev)
+        # the TSR chain's constants: stacked small-matrix tables, the
+        # end effector's offset (position, quaternion) and its DOF mask
+        self.mats = SpatialMats(dev, dt)
+        self.ee_offset = None if self._ee_offset_np is None else (
+            torch.as_tensor(self._ee_offset_np[:3], dtype=dt, device=dev),
+            torch.as_tensor(self._ee_offset_np[3:], dtype=dt, device=dev))
+        self.ee_dof_mask_np = self.model.ancestor_dof_mask()[
+            self.model.ee_link]
+        self.ee_dof_mask = torch.as_tensor(self.ee_dof_mask_np, device=dev)
 
     # ----- structure-of-arrays (batch-last) cost path ----------------------
 

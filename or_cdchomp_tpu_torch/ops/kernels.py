@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
-The sources have a plain C interface: one ``nvcc`` call compiles them
-into a shared library, which ``ctypes`` loads.  The build runs at first
-use on a machine with the CUDA toolkit and an sm_90a (Hopper) card, and
-writes to ``or_cdchomp_tpu_torch/build/``.  The library file name holds
+The sources have a plain C interface: one ``nvcc`` per source compiles
+them in parallel, and one more links the objects into a shared library,
+which ``ctypes`` loads.  The build runs at first use on a machine with
+the CUDA toolkit and an sm_90a (Hopper) card, and writes to
+``or_cdchomp_tpu_torch/build/``.  The library file name holds
 a hash of the sources and flags, so a stale library is never loaded.
 
 Nothing here runs at import time: the CPU tests import every module.
@@ -26,8 +27,9 @@ _SOURCES = ("obstacle.cu", "selfcol.cu")
 # way the plain PyTorch version does, or a query sitting on a cell
 # centre picks the other one-sided neighbour (csrc/obstacle.cu).  The
 # self-collision kernel writes its fused multiply-adds out (__fmaf_rn).
-_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-fmad=false",
+          "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -67,8 +69,9 @@ def _nvcc():
 
 
 def build():
-    """Compile csrc/*.cu into build/ unless this exact build exists;
-    returns the library path.  Raises on a compiler error."""
+    """Compile csrc/*.cu into build/ unless this exact build exists: one
+    ``nvcc -c`` per source, all started together, then one link.
+    Returns the library path.  Raises on a compiler error."""
     global BUILD_LOG
     srcs = [_CSRC / s for s in _SOURCES]
     h = hashlib.sha256(" ".join(_FLAGS).encode())
@@ -78,12 +81,25 @@ def build():
     if lib.exists():
         return lib
     _BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, srcs)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOG = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{BUILD_LOG}")
+    stem = f"{lib.stem}.{os.getpid()}"
+    objs = [_BUILD / f"{stem}.{s.stem}.o" for s in srcs]
+    procs = [subprocess.Popen([_nvcc(), *_FLAGS, "-c", "-o", str(o), str(s)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for s, o in zip(srcs, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    BUILD_LOG = "".join(logs)
+    failed = [p.returncode for p in procs if p.returncode != 0]
+    tmp = lib.with_name(f"{stem}.tmp")
+    if not failed:
+        res = subprocess.run([_nvcc(), *_ARCH, "-shared", "-o", str(tmp),
+                              *map(str, objs)], capture_output=True, text=True)
+        BUILD_LOG += res.stdout + res.stderr
+        failed = [res.returncode] if res.returncode != 0 else []
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({failed[0]}):\n{BUILD_LOG}")
     os.replace(tmp, lib)
     return lib
 

@@ -1,9 +1,11 @@
 """Batched pose7 algebra on tensors (counterpart of
 or_cdchomp_tpu/ops/quat.py).
 
-Only what the SDF build needs: ``pose_apply``, ``pose_invert`` and
-``quat_to_R``.  A pose is ``[x, y, z, qx, qy, qz, qw]`` on the last axis;
-the quaternion order is (x, y, z, w) as in libcd (kin.c:116-420).
+Only what the SDF build needs (``pose_apply``, ``pose_invert``,
+``quat_to_R``) and the floating base's renormalisation
+(``quat_normalize``, ``pose_normalize``).  A pose is
+``[x, y, z, qx, qy, qz, qw]`` on the last axis; the quaternion order is
+(x, y, z, w) as in libcd (kin.c:116-420).
 """
 
 from __future__ import annotations
@@ -56,3 +58,13 @@ def quat_to_R(q):
         [2 * (xz - yw), 2 * (yz + xw), one - 2 * (xx + yy)],
     ]
     return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
+def quat_normalize(q):
+    """Unit-normalize quaternion(s) (kin.c:55-62)."""
+    return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+
+
+def pose_normalize(pose):
+    """Normalize the quaternion part of pose(s) (kin.c:64-70)."""
+    return torch.cat([pose[..., :3], quat_normalize(pose[..., 3:])], dim=-1)

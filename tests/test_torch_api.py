@@ -125,20 +125,55 @@ def test_error_probes_match_jax(mods, case):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(everyn_tsr=object()),
-    dict(start_cost=lambda t: t), dict(con_tsrs=[("all", object())]),
+    dict(start_cost=lambda t: t), dict(start_tsr=object()),
 ])
 def test_unported_kwargs_raise(mods, kw):
+    """Both need the per-problem (AoS) step, which is not ported."""
     tm, _ = mods
     name = next(iter(kw))
     with pytest.raises(NotImplementedError, match=name):
         tm.create(robot="wam", adofgoal=GOAL, n_points=11, **kw)
 
 
-def test_starttraj_alone_not_ported(mods):
-    tm, _ = mods
-    with pytest.raises(NotImplementedError, match="starttraj"):
-        tm.create(robot="wam", starttraj=np.zeros((3, 7)), n_points=11)
+_UPRIGHT = np.array([[-10, 10], [-10, 10], [-10, 10], [0, 0], [0, 0],
+                     [-np.pi, np.pi]])
+_POSED = np.array([[0, 0], [-10, 10], [0, 0], [0, 0], [-1, 1], [0, 0]])
+
+
+def _tsr_kw(tsr_cls, case):
+    up = tsr_cls.from_matrices(np.eye(4), np.eye(4), Bw=_UPRIGHT)
+    posed = tsr_cls.from_matrices(
+        np.array([[1, 0, 0, 0.5], [0, 0, -1, 0.2], [0, 1, 0, 0.8],
+                  [0, 0, 0, 1]]), np.eye(4), Bw=_POSED)
+    if case == "everyn_tsr":
+        return dict(adofgoal=GOAL, everyn_tsr=posed)
+    if case == "con_tsrs":
+        return dict(adofgoal=GOAL, con_tsrs=[("all", up), ("start", posed)])
+    if case == "con_tsr":
+        return dict(adofgoal=GOAL, con_tsr=("end", posed))
+    if case == "starttraj":
+        return dict(starttraj=np.stack([START, 0.5 * (START + GOAL), GOAL]))
+    raise AssertionError(case)
+
+
+@pytest.mark.parametrize("case", ["everyn_tsr", "con_tsrs", "con_tsr",
+                                  "starttraj"])
+def test_tsr_and_starttraj_kwargs_match_jax(mods, case):
+    """create with TSR constraints or a start trajectory on a fixed base:
+    the same problem, spec and constraint layout as the JAX package."""
+    from or_cdchomp_tpu.tsr import TSR as JaxTSR
+
+    tm, jm = mods
+    base = dict(robot="wam", lambda_=100.0, n_points=11)
+    trun = tm.runs[tm.create(**base, **_tsr_kw(pt.TSR, case))]
+    jrun = jm.runs[jm.create(**base, **_tsr_kw(JaxTSR, case))]
+    assert tuple(trun.spec) == tuple(jrun.spec)
+    assert tuple(trun.engine.cons) == tuple(jrun.engine.cons)
+    tl = trun.problem.leaves()
+    for k, v in jrun.problem._asdict().items():
+        if k != "hmc":
+            np.testing.assert_allclose(tl[k].numpy(), np.asarray(v),
+                                       rtol=1e-12, atol=1e-12, err_msg=k)
 
 
 CUDA = torch.device("cuda")

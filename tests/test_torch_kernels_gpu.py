@@ -531,3 +531,77 @@ def test_best_of_batch_on_card(cuda):
         best, idx = best_of_batch(probs, finals)
         assert int(idx) == want
         assert torch.equal(best.traj, probs.traj[want])
+
+
+def _config4_run(device, dtype, n_points=11, B=4):
+    """Config 4 (benchmarks/configs.py:102-134) at a small shape: WAM7 on
+    an SE(3) base with the upright everyn TSR, table + mug at 0.08 m,
+    bench-perturbed endpoints (quaternion columns kept)."""
+    from or_cdchomp_tpu_torch.parallel.batch import problem_batch_from_grid
+    import or_cdchomp_tpu_torch as pt
+
+    mod = pt.CHOMPModule(dtype=dtype, device=device)
+    mod.add_kinbody(pt.KinBody("table", pt.Scene.build(
+        boxes=[((0.75, 0.0, 0.5, 0, 0, 0, 1), (0.25, 0.4, 0.02)),
+               ((0.75, 0.0, 0.25, 0, 0, 0, 1), (0.08, 0.08, 0.25))])))
+    mod.add_kinbody(pt.KinBody("mug", pt.Scene.build(
+        cylinders=[((0.65, 0.15, 0.58, 0, 0, 0, 1), 0.04, 0.06)])))
+    start = np.array([2.5, -1.8, 0.0, 2.0, 0.0, 0.2, 0.0])
+    goal = np.array([0.4, 0.6, 0.1, 1.3, 0.0, -0.5, 0.0])
+    robot = pt.Robot("wam", pt.wam7(), q_active=start)
+    mod.add_robot(robot)
+    robot.enabled = False
+    mod.computedistancefield(kinbody="table", cube_extent=0.08)
+    robot.enabled = True
+    tsr = pt.TSR.from_matrices(np.eye(4), np.eye(4), Bw=np.array(
+        [[-10, 10], [-10, 10], [-10, 10], [0, 0], [0, 0], [-np.pi, np.pi]]))
+    run = mod.runs[mod.create(
+        robot="wam", adofgoal=goal,
+        basegoal=np.array([0.15, 0.1, 0.0, 0.0, 0.0, 0.0, 1.0]),
+        floating_base=True, lambda_=200.0, obs_factor=200.0,
+        n_points=n_points, everyn_tsr=tsr)]
+    traj = run.problem.traj.double().cpu().numpy()
+    rng = np.random.default_rng(0)
+    starts = traj[0] + 0.02 * rng.normal(size=(B, 14))
+    goals = traj[-1] + 0.02 * rng.normal(size=(B, 14))
+    starts[:, 3:7] = traj[0, 3:7]
+    goals[:, 3:7] = traj[-1, 3:7]
+    return run, problem_batch_from_grid(run.problem, starts, goals,
+                                        run.engine)
+
+
+def test_selfcol_kernel_no_inactive_spheres(cuda):
+    """A floating base makes every sphere active: K2 at SI = 0 (an empty
+    xo) and Sa = 16 on config 4's own inputs."""
+    from or_cdchomp_tpu_torch.chomp.cost_soa import sphere_kinematics
+
+    run, probs = _config4_run(cuda, torch.float32, B=40)
+    eng = run.engine
+    _, x, vel, _ = sphere_kinematics(eng.spec, eng.fk, probs)
+    xo = probs.inactive_pos.permute(2, 1, 0).contiguous()
+    assert tuple(xo.shape) == (3, 0, 40) and x.shape[2] == 16
+    args = [x, vel, xo, *eng.pairs, probs.epsilon_self, probs.obs_factor_self]
+    _selfcol_check(args)
+    # and with the spheres pulled together, so that pairs are in reach
+    args[0] = (0.3 * (x - x.mean(dim=2, keepdim=True))).contiguous()
+    _, want = _selfcol_check(args)
+    assert float(want[1].abs().max()) > 0.0
+
+
+def test_config4_steps_card_match_cpu(cuda):
+    """Three config-4 steps (floating base, TSR projection) on the card
+    in float32 against the same steps on the CPU in float64."""
+    run, probs = _config4_run(cuda, torch.float32)
+    run64, p64 = _config4_run("cpu", torch.float64)
+    before = float(run.engine.constraint_values(probs).abs().max())
+    n0 = selfcol.LAUNCHES, sdf_lookup.LAUNCHES
+    for _ in range(3):
+        probs, costs = run.engine.step_batched(probs)
+        p64, costs64 = run64.engine.step_batched(p64)
+    assert (selfcol.LAUNCHES, sdf_lookup.LAUNCHES) == (n0[0] + 3, n0[1] + 3)
+    err = float((probs.traj.double().cpu() - p64.traj).abs().max())
+    assert err <= 1e-5, err
+    _close(costs, costs64.float())
+    # the projection pulls roll and pitch of the end effector toward 0
+    assert float(run.engine.constraint_values(probs).abs().max()) < \
+        0.1 * before

@@ -11,6 +11,7 @@ import torch
 from or_cdchomp_tpu.parallel.batch import \
     problem_batch_from_grid as jax_batch_from_grid
 
+from or_cdchomp_tpu_torch.chomp.constraints import TSRConstraintSet
 from or_cdchomp_tpu_torch.chomp.problem import ChompSpec
 from or_cdchomp_tpu_torch.chomp.solver import ChompEngine
 from or_cdchomp_tpu_torch.convert import fields_from_numpy, problem_from_numpy
@@ -23,9 +24,10 @@ CONFIG2_BASE = np.array([0.0, -1.2, 1.0, 0.0, 0.70711, 0.0, 0.70711])
 CONFIG2_FIELDS = ("table", "shelf", "mugs")
 
 
-def config1_module(pkg, **mod_kw):
-    """Config 1's scene (table + mug, one SDF at 0.04 m) in ``pkg``
-    (``or_cdchomp_tpu`` or ``or_cdchomp_tpu_torch``); no run yet."""
+def config1_module(pkg, cube_extent=0.04, **mod_kw):
+    """Config 1's scene (table + mug, one SDF at 0.04 m; config 4 builds
+    it at 0.08 m) in ``pkg`` (``or_cdchomp_tpu`` or
+    ``or_cdchomp_tpu_torch``); no run yet."""
     mod = pkg.CHOMPModule(**mod_kw)
     mod.add_kinbody(pkg.KinBody("table", pkg.Scene.build(
         boxes=[((0.75, 0.0, 0.5, 0, 0, 0, 1), (0.25, 0.4, 0.02)),
@@ -35,7 +37,7 @@ def config1_module(pkg, **mod_kw):
     robot = pkg.Robot("wam", pkg.wam7(), q_active=START.copy())
     mod.add_robot(robot)
     robot.enabled = False
-    mod.computedistancefield(kinbody="table", cube_extent=0.04)
+    mod.computedistancefield(kinbody="table", cube_extent=cube_extent)
     robot.enabled = True
     return mod
 
@@ -66,6 +68,36 @@ CONFIG2_KW = dict(lambda_=100.0, obs_factor=500.0, obs_factor_self=10.0,
                   epsilon_self=0.04)
 
 
+# config 4 (benchmarks/configs.py:102-134): the upright everyn TSR and
+# the base goal, for either package's TSR class
+CONFIG4_BW = np.array([[-10, 10], [-10, 10], [-10, 10], [0, 0], [0, 0],
+                       [-np.pi, np.pi]])
+CONFIG4_BASEGOAL = np.array([0.15, 0.1, 0.0, 0.0, 0.0, 0.0, 1.0])
+
+
+def config4_kw(tsr_cls, n_points):
+    """create's kwargs of config 4 with ``tsr_cls``'s upright TSR."""
+    tsr = tsr_cls.from_matrices(np.eye(4), np.eye(4), Bw=CONFIG4_BW)
+    return dict(robot="wam", adofgoal=GOAL, basegoal=CONFIG4_BASEGOAL,
+                floating_base=True, lambda_=200.0, obs_factor=200.0,
+                n_points=n_points, everyn_tsr=tsr)
+
+
+def perturbed(run, B, seed=0, sigma=0.02):
+    """benchmarks/run.py:37-47's batch endpoints: B copies of the run's
+    first and last points plus σ-normal noise, a floating base's
+    quaternion columns 3:7 kept.  Returns (starts, goals) (B, n)."""
+    rng = np.random.default_rng(seed)
+    traj = np.asarray(run.problem.traj)
+    n = traj.shape[1]
+    starts = np.tile(traj[0], (B, 1)) + sigma * rng.normal(size=(B, n))
+    goals = np.tile(traj[-1], (B, 1)) + sigma * rng.normal(size=(B, n))
+    if run.spec.floating_base:
+        starts[:, 3:7] = traj[0, 3:7]
+        goals[:, 3:7] = traj[-1, 3:7]
+    return starts, goals
+
+
 def jax_batch(run, B, seed=0):
     """B seed-perturbed problems around START → GOAL, built by the JAX
     package (per-problem HMC keys from seeds 0..B−1)."""
@@ -76,13 +108,16 @@ def jax_batch(run, B, seed=0):
 
 
 def port_engine(jeng, dtype=torch.float64):
-    """The port's CPU engine for a JAX engine: same spec and fields."""
+    """The port's CPU engine for a JAX engine: same spec, fields and
+    constraint layout."""
     f = jeng.fields
     fields = fields_from_numpy(np.asarray(f.data), np.asarray(f.sizes),
                                np.asarray(f.lengths), device="cpu",
                                dtype=dtype)
+    cons = TSRConstraintSet.build(list(zip(jeng.cons.point_idx,
+                                           jeng.cons.enabled)))
     return ChompEngine(ChompSpec(*jeng.spec), wam7(), fields, dtype=dtype,
-                       device="cpu")
+                       device="cpu", cons=cons)
 
 
 def to_numpy(jprobs):
