@@ -73,6 +73,13 @@ CONFIG4_POINTS = 51
 CONFIG4_BW = [[-10, 10], [-10, 10], [-10, 10], [0, 0], [0, 0],
               [-math.pi, math.pi]]
 CONFIG4_BASEGOAL = [0.15, 0.1, 0.0, 0.0, 0.0, 0.0, 1.0]
+# the module-commands phase: a straight line from START through the table
+THROUGH_TABLE = [0.0, 1.5, 0.0, 0.5, 0.0, 0.0, 0.0]
+LATENCY_REPS = 3     # warm walls of create + iterate(100) at B = 1
+N_CHECK_POD = 512    # config 5 problems whose gettraj_batch flags the CPU checks
+# the grab phase: a tray of 10 x 11 spheres of 1.5 cm radius, 3 cm apart,
+# held 22 cm out from the hand's base frame
+TRAY_OFFSET = [0.0, 0.0, 0.22, 0.0, 0.0, 0.0, 1.0]
 
 
 class PhaseFailed(Exception):
@@ -112,8 +119,7 @@ def bench_module(pt, dtype, device):
     robot.enabled = False
     mod.computedistancefield(kinbody="table", cube_extent=0.04)
     robot.enabled = True
-    h = mod.create(robot="wam", adofgoal=np.array(GOAL), lambda_=100.0,
-                   obs_factor=500.0, n_points=N_POINTS)
+    h = mod.create(**run_kw())
     return mod, mod.runs[h]
 
 
@@ -144,21 +150,16 @@ def config2_module(pt, dtype, device, require_cache=False):
             cache_filename=str(CACHE_DIR / f"sdf_{name}.dat"),
             require_cache=require_cache)
     robot.enabled = True
-    h = mod.create(robot="wam", adofgoal=np.array(GOAL), lambda_=100.0,
-                   obs_factor=500.0, obs_factor_self=10.0, epsilon_self=0.04,
-                   n_points=N_POINTS)
+    h = mod.create(**run_kw(), obs_factor_self=10.0, epsilon_self=0.04)
     return mod, mod.runs[h]
 
 
 def config3_run(pt, dtype, device):
     """Config 3 (benchmarks/configs.py:92-99): config 1's module, then a
     second create with HMC; returns the HMC run."""
-    import numpy as np
-
     mod, _ = bench_module(pt, dtype, device)
-    h = mod.create(robot="wam", adofgoal=np.array(GOAL), lambda_=100.0,
-                   obs_factor=500.0, n_points=N_POINTS, use_hmc=True,
-                   hmc_resample_lambda=0.02, seed=7)
+    h = mod.create(**run_kw(), use_hmc=True, hmc_resample_lambda=0.02,
+                   seed=7)
     return mod.runs[h]
 
 
@@ -221,6 +222,47 @@ def bench_endpoints(batch):
     goals = np.tile(np.array(GOAL), (batch, 1)) \
         + 0.02 * rng.normal(size=(batch, 7))
     return starts, goals
+
+
+def run_kw(goal=GOAL):
+    """create's kwargs of a config-1 run."""
+    import numpy as np
+
+    return dict(robot="wam", adofgoal=np.array(goal), lambda_=100.0,
+                obs_factor=500.0, n_points=N_POINTS)
+
+
+def head(probs, n):
+    """The first n problems of a batch, on the CPU in float64."""
+    import torch
+
+    from or_cdchomp_tpu_torch.chomp.problem import ChompProblem
+
+    return ChompProblem(**{k: v[:n] for k, v in probs.leaves().items()}).to(
+        "cpu", torch.float64)
+
+
+def tray_scene(pt):
+    """The grab phase's tray: 110 spheres of 1.5 cm radius."""
+    return pt.Scene.build(spheres=[
+        ((0.03 * (i - 4.5), 0.03 * (j - 5.0), 0.0), 0.015)
+        for i in range(10) for j in range(11)])
+
+
+def grab_tray(pt, mod):
+    """Adds the tray to ``mod`` at TRAY_OFFSET from the robot's hand and
+    grabs it there; returns the tray."""
+    from or_cdchomp_tpu_torch.api import KinBody
+    from or_cdchomp_tpu_torch.models.robot import link_poses_np
+    from or_cdchomp_tpu_torch.utils import np_pose
+
+    robot = mod.robots["wam"]
+    hand = link_poses_np(robot.model, robot.q_active, robot.pose)[
+        robot.model.link_names.index("handbase")]
+    tray = mod.add_kinbody(KinBody("tray", tray_scene(pt),
+                                   pose=np_pose.compose(hand, TRAY_OFFSET)))
+    robot.grab(tray, "handbase")
+    return tray
 
 
 def due_tally(draw, dues):
@@ -662,6 +704,323 @@ def config4_phase(torch, pt, card, dev):
     return out, starts, goals, [k1, k2]
 
 
+def sync_sites(syncs):
+    """{innermost frame: count} of host_syncs' list."""
+    sites = {}
+    for st in syncs:
+        sites[st[0]] = sites.get(st[0], 0) + 1
+    return sites
+
+
+def check_flags(label, got, want):
+    """Fails, printing the problems, unless two arrays of collision
+    verdicts agree."""
+    import numpy as np
+
+    bad = np.nonzero(got != want)[0]
+    if len(bad):
+        print(f"{label}: verdicts differ at problems {bad.tolist()} (card "
+              f"{got[bad].tolist()}, CPU float64 {want[bad].tolist()})")
+    check(len(bad) == 0, f"{label}: {len(bad)} verdicts differ from the CPU")
+
+
+def module_phase(torch, pt, card, dev, out1, out5):
+    """The module commands on config 1's world on the card: runchomp at
+    full width against the CPU float64 runchomp and against row 0 of a
+    B = 256 batch with the same endpoints, the B = 1 latency of create +
+    iterate(100) with its host syncs and launches, gettraj's wall, a
+    colliding straight line, gettraj_batch on config 1's and config 5's
+    solved batches against CPU float64 checks, the field commands, and
+    K1 through a forced split.  Returns K1's split entry."""
+    import numpy as np
+
+    from or_cdchomp_tpu_torch.chomp import solver as solver_mod
+    from or_cdchomp_tpu_torch.ops import sdf_lookup, selfcol
+    from or_cdchomp_tpu_torch.parallel.batch import (BatchSolver,
+                                                     problem_batch_from_grid)
+
+    f32, f64, cpu = torch.float32, torch.float64, "cpu"
+    mod, _ = bench_module(pt, f32, dev)
+    kw = run_kw()
+
+    # -- runchomp at full width, strict collision check -----------------------
+    t0 = time.perf_counter()
+    traj = mod.runchomp(n_iter=N_ITER, **kw)
+    torch.cuda.synchronize()
+    print(f"module runchomp (n_points {N_POINTS}, {N_ITER} iterations, "
+          f"strict check): {time.perf_counter() - t0:.3f} s (first call), "
+          f"duration {traj.duration:.6f}, in collision {traj.in_collision}")
+    check(isinstance(traj, pt.api.Trajectory) and not traj.in_collision
+          and traj.positions.shape == (N_POINTS, 7)
+          and np.isfinite(traj.positions).all(), "runchomp trajectory")
+
+    # -- B = 1 latency: create + iterate(100), warm ---------------------------
+    def create_iterate(walls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = mod.create(**kw)
+        t1 = time.perf_counter()
+        mod.iterate(run=h, n_iter=N_ITER)
+        torch.cuda.synchronize()
+        walls.append((t1 - t0, time.perf_counter() - t1))
+        return h
+
+    mod.destroy(run=create_iterate([]))                  # warm-up
+    walls = []
+    for _ in range(LATENCY_REPS):
+        mod.destroy(run=create_iterate(walls))
+    tot = [a + b for a, b in walls]
+    print(f"B=1 create + iterate({N_ITER}): median warm wall "
+          f"{statistics.median(tot)} s of {tot} (create "
+          f"{[a for a, _ in walls]} s, iterate {[b for _, b in walls]} s) "
+          f"on {card}")
+    counts_zero(sdf_lookup, selfcol)
+    h = create_iterate([])
+    launches = counts(sdf_lookup, selfcol)
+    print(f"B=1 create + iterate({N_ITER}): launches {launches} (expected "
+          f"{N_ITER} + 1 each, the final cost report's)")
+    check_launches(launches, N_ITER + 1, "B=1 iterate")
+    steps = solver_mod.ChompEngine.ITER_CHUNK
+    syncs = host_syncs(torch, lambda: mod.iterate(run=h, n_iter=steps))
+    print(f"B=1 iterate({steps}): {len(syncs)} host syncs "
+          f"({len(syncs) / steps:.4f} per step) at {sync_sites(syncs)}")
+    check(all(" _limit_repair_batched" in st[0] or " iterate" in st[0]
+              for st in syncs), "B=1 iterate: a host sync outside the limit "
+          "repair and the cost reads")
+    t_get = []
+    for _ in range(LATENCY_REPS + 1):
+        t0 = time.perf_counter()
+        mod.gettraj(run=h)
+        t_get.append(time.perf_counter() - t0)
+    print(f"B=1 gettraj with its collision check "
+          f"({mod.last_check['samples']} samples of "
+          f"{mod.last_check['spheres']} spheres): warm walls {t_get[1:]} s "
+          f"on {card}")
+    mod.destroy(run=h)
+
+    # -- the same problem as row 0 of a B = 256 batch -------------------------
+    run = mod.runs[mod.create(**kw)]
+    same = problem_batch_from_grid(
+        run.problem, np.tile(START, (BATCH, 1)), np.tile(GOAL, (BATCH, 1)),
+        run.engine)
+    outb, _ = BatchSolver(run.engine).iterate(same, N_ITER)
+    d_batch = float(np.abs(outb.traj[0].double().cpu().numpy()
+                           - traj.positions).max())
+    print(f"runchomp against row 0 of a B={BATCH} batch of the same "
+          f"problem: max |Δtraj| {d_batch} (bar {TRAJ_BAR})")
+    check(d_batch <= TRAJ_BAR, f"runchomp vs batch row 0: {d_batch}")
+
+    # -- a straight line through the table, no iterations ---------------------
+    hc = mod.create(**run_kw(THROUGH_TABLE))
+    try:
+        mod.gettraj(run=hc, no_collision_details=True)
+        check(False, "the colliding line raised nothing")
+    except RuntimeError as e:
+        check(str(e) == "Resulting trajectory is in collision!",
+              f"colliding line: {e}")
+    coll = mod.gettraj(run=hc, no_collision_exception=True)
+    check(coll.in_collision, "colliding line: in_collision not set")
+    card_traj = mod.runs[hc].problem.traj
+
+    # -- gettraj_batch on config 1's and config 5's solved batches ------------
+    hb = next(iter(mod.runs))
+    flags = {}
+    for label, probs in (("config 1", out1), ("config 5", out5)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        trajs, fl = mod.gettraj_batch(run=hb, probs=probs)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base_mem
+        B = probs.traj.shape[0]
+        flags[label] = fl
+        print(f"gettraj_batch {label} (B={B}): {int(fl.sum())} of {B} in "
+              f"collision, {mod.last_check['samples']} samples of "
+              f"{mod.last_check['spheres']} spheres, chunk "
+              f"{mod.last_check['chunk']} problems, wall {wall} s "
+              f"({B / wall} checks/s), peak device memory {peak} B above "
+              f"the {base_mem} B in use, on {card}")
+        check(len(trajs) == B, f"gettraj_batch {label}: {len(trajs)} trajs")
+
+    # -- the CPU float64 side of the comparisons ------------------------------
+    mod64, _ = bench_module(pt, f64, cpu)
+    t0 = time.perf_counter()
+    traj64 = mod64.runchomp(n_iter=N_ITER, **kw)
+    d_cpu = float(np.abs(traj.positions - traj64.positions).max())
+    print(f"runchomp against the CPU float64 runchomp: max |Δtraj| {d_cpu} "
+          f"(bar {TRAJ_BAR}), {time.perf_counter() - t0:.2f} s")
+    check(d_cpu <= TRAJ_BAR, f"runchomp vs CPU float64: {d_cpu}")
+    h64 = mod64.create(**run_kw(THROUGH_TABLE))
+    rn64 = mod64.runs[h64]
+    rn64.problem = rn64.problem.replace(traj=card_traj.cpu().double())
+    coll64 = mod64.gettraj(run=h64, no_collision_exception=True)
+    print(f"colliding line: the card's gettraj raised the reference's "
+          f"message, in_collision {coll.in_collision}; CPU float64 check "
+          f"in_collision {coll64.in_collision}")
+    check(coll64.in_collision == coll.in_collision,
+          "colliding line: the CPU verdict differs")
+    t0 = time.perf_counter()
+    for label, probs, n in (("config 1", out1, BATCH),
+                            ("config 5", out5, N_CHECK_POD)):
+        _, fl64 = mod64.gettraj_batch(run=h64, probs=head(probs, n))
+        check_flags(f"gettraj_batch {label}", flags[label][:n], fl64)
+        print(f"gettraj_batch {label}: the first {n} flags equal the CPU "
+              f"float64 check's ({int(fl64.sum())} in collision)")
+    print(f"CPU float64 checks: {time.perf_counter() - t0:.2f} s")
+
+    # -- addfield_fromobsarray → viewfields → removefield on the card ---------
+    rng = np.random.default_rng(3)
+    occ = (rng.uniform(size=(8, 9, 7)) < 0.15).astype(np.uint8)
+    field = dict(kinbody="mug", obsarray=occ, lengths=(0.4, 0.45, 0.35),
+                 pose=[0.5, -0.6, 0.2, 0.0, 0.0, 0.38268343, 0.92387953])
+    views = []
+    for m_ in (mod, mod64):
+        check(m_.addfield_fromobsarray(**field) == "", "addfield")
+        views.append(m_.viewfields()["mug"])
+        check(m_.removefield(kinbody="mug") == "" and
+              "mug" not in m_.viewfields(), "removefield")
+    check(mod.sdfs[-1].kinbody_name == "table", "field registry")
+    d_view = float(np.abs(views[0] - views[1]).max())
+    print(f"addfield_fromobsarray → viewfields → removefield on the card: "
+          f"{len(views[0])} occupied cells, max |Δ| against the CPU "
+          f"{d_view}")
+    check(views[0].shape == views[1].shape and d_view <= 1e-5,
+          "viewfields differ from the CPU")
+
+    # -- K1 through a forced split, on the main path's cost report ------------
+    eng = run.engine
+    m, S = eng.spec.m, eng.n_spheres_active
+    saved = sdf_lookup.MAX_QUERIES
+    sdf_lookup.MAX_QUERIES = m * S * 100         # 256 problems: 100, 100, 56
+    try:
+        counts_zero(sdf_lookup, selfcol)
+        split_fin = torch.stack(eng.final_costs_batch(out1))
+        split_launches = counts(sdf_lookup, selfcol)["obstacle"]
+        from or_cdchomp_tpu_torch.chomp import cost_soa
+        _, x, v, a = cost_soa.sphere_kinematics(eng.spec, eng.fk, out1)
+        oargs = obstacle_args(eng, out1, x, v, a)
+        split = sdf_lookup.obstacle(*oargs)
+        t = timings(torch, lambda: sdf_lookup.obstacle(*oargs),
+                    lambda: sdf_lookup.obstacle_ref(*oargs))
+    finally:
+        sdf_lookup.MAX_QUERIES = saved
+    whole = sdf_lookup.obstacle(*oargs)
+    whole_fin = torch.stack(eng.final_costs_batch(out1))
+    err = max(compare(torch, "K1 split cost", split[0], whole[0], exact=True),
+              compare(torch, "K1 split gradient", split[1], whole[1],
+                      exact=True),
+              compare(torch, "split final costs", split_fin, whole_fin,
+                      exact=True))
+    print(f"K1 forced split (at most {m * S * 100} queries a launch): "
+          f"{split_launches} launches for the final cost report, bit-equal "
+          f"to one launch; device {t[2]} ms vs plain {t[3]} ms")
+    check(split_launches == 3, f"K1 split launched {split_launches} times")
+    F, mx, my, mz = eng.fields.data.shape
+    entry = kernel_entry(
+        "obstacle_split", "or_cdchomp_tpu_torch/csrc/obstacle.cu",
+        "or_cdchomp_tpu/ops/pallas_sdf.py:86", err, t,
+        sdf_lookup.obstacle_traffic_bytes(m, S, BATCH, F, mx, my, mz),
+        sdf_lookup.obstacle_flops(m, S, BATCH, F))
+    entry["launches"] = split_launches
+    return entry
+
+
+def grab_phase(torch, pt, card, dev):
+    """The robot grabs a tray of 110 spheres at its hand (S = 126, 125
+    active, 1 inactive): K2's tiled path against its plain version and
+    itself, a B = 256 solve of 100 iterations with its launches, the CPU
+    float64 re-solve of 8 problems, and release.  Returns K2's entry."""
+    from or_cdchomp_tpu_torch.chomp import cost_soa
+    from or_cdchomp_tpu_torch.ops import sdf_lookup, selfcol
+    from or_cdchomp_tpu_torch.parallel.batch import (BatchSolver,
+                                                     problem_batch_from_grid)
+
+    t0 = time.perf_counter()
+    mod, _ = bench_module(pt, torch.float32, dev)
+    tray = grab_tray(pt, mod)
+    robot = mod.robots["wam"]
+    run = mod.runs[mod.create(**run_kw())]
+    eng = run.engine
+    starts, goals = bench_endpoints(BATCH)
+    probs = problem_batch_from_grid(run.problem, starts, goals, eng)
+    torch.cuda.synchronize()
+    _, x, vel, _ = cost_soa.sphere_kinematics(eng.spec, eng.fk, probs)
+    m, Sa, B = x.shape[1:]
+    xo = probs.inactive_pos.permute(2, 1, 0).contiguous()
+    SI = xo.shape[1]
+    P = eng.pairs[0].shape[0]
+    print(f"grab setup (grab, create, batch): {time.perf_counter() - t0:.2f} "
+          f"s; {len(robot.model.sphere_radius)} spheres, Sa = {Sa}, SI = "
+          f"{SI}, {P} pairs")
+    check((len(robot.model.sphere_radius), Sa, SI) == (126, 125, 1),
+          f"grab sphere counts {(Sa, SI)}")
+    info = selfcol.launch_info(Sa, SI)
+    print(f"grab selfcol launch: {info['path']} path, {info['threads']} "
+          f"threads, {info['smem_bytes']} B shared memory per block, "
+          f"{info['blocks_per_sm']} blocks per SM, {info['registers']} "
+          f"registers, {info['local_bytes']} B local (spill) per thread, "
+          f"{4 * selfcol.scratch_words(m, Sa, SI, B)} B scratch")
+    check(info["path"] == "tiled", "grab: K2 did not take the tiled path")
+    sargs = (x, vel, xo, *eng.pairs, probs.epsilon_self,
+             probs.obs_factor_self)
+    votes, near, taken, reach = selfcol.vote_stats(
+        x, xo, *eng.pairs, probs.epsilon_self)
+    print(f"grab selfcol skips: of {votes} votes {near} pass the box test "
+          f"and {taken} are taken ({(votes - taken) / votes:.4f} skipped); "
+          f"{reach} of {m * P * B} (point, pair, problem) in reach")
+    net_k, c_k = selfcol.selfcol_pairs(*sargs)
+    net_r, c_r = selfcol.selfcol_pairs_ref(*sargs)
+    err = max(compare(torch, "grab selfcol net", net_k, net_r),
+              compare(torch, "grab selfcol cost", c_k, c_r))
+    again = selfcol.selfcol_pairs(*sargs)
+    check(torch.equal(again[0], net_k) and torch.equal(again[1], c_k),
+          "grab selfcol: two launches on the same inputs differ")
+    t = timings(torch, lambda: selfcol.selfcol_pairs(*sargs),
+                lambda: selfcol.selfcol_pairs_ref(*sargs))
+    print(f"grab selfcol: max_abs_err {err}, bit-equal across launches, per "
+          f"call {t[0]:.4f} ms vs plain {t[1]:.4f} ms, device {t[2]} ms vs "
+          f"plain {t[3]} ms")
+    entry = kernel_entry(
+        "selfcol_grab", "or_cdchomp_tpu_torch/csrc/selfcol.cu",
+        "or_cdchomp_tpu/ops/pallas_selfcol.py:197", err, t,
+        selfcol.traffic_bytes(m, Sa, SI, B, P), selfcol.flops(m, B, P, reach))
+    print(f"selfcol_grab: device {entry['ms']} ms, bound {entry['bound_ms']} "
+          f"ms ({entry['bound_by']}), share {entry['bound_share']:.4f} on "
+          f"{card}")
+    del net_k, c_k, net_r, c_r, again
+
+    counts_zero(sdf_lookup, selfcol)
+    t0 = time.perf_counter()
+    out, costs = BatchSolver(eng).iterate(probs, N_ITER)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts(sdf_lookup, selfcol)
+    print(f"grab: iterate({N_ITER}) at B={BATCH} in {wall:.3f} s (first "
+          f"call), {BATCH / wall} solves/s, launches {launches} on {card}")
+    check_launches(launches, N_ITER, "grab")
+    entry["launches"] = launches["selfcol"]
+    check(bool(torch.isfinite(costs).all() and torch.isfinite(out.traj).all()),
+          "grab: non-finite costs or trajectories")
+
+    t0 = time.perf_counter()
+    mod64, _ = bench_module(pt, torch.float64, "cpu")
+    grab_tray(pt, mod64)
+    run64 = mod64.runs[mod64.create(**run_kw())]
+    p64 = problem_batch_from_grid(run64.problem, starts[:N_CHECK],
+                                  goals[:N_CHECK], run64.engine)
+    out64, _ = BatchSolver(run64.engine).iterate(p64, N_ITER)
+    dtraj = max_dtraj(out, out64)
+    print(f"grab CPU float64 re-solve of {N_CHECK} problems: max |Δtraj| "
+          f"{dtraj} (bar {TRAJ_BAR}), {time.perf_counter() - t0:.2f} s")
+    check(dtraj <= TRAJ_BAR, f"grab: max |Δtraj| {dtraj} > {TRAJ_BAR}")
+    robot.release(tray)
+    check(len(robot.model.sphere_radius) == 16
+          and tray.grabbed_by is None, "release")
+    print(f"release: {len(robot.model.sphere_radius)} spheres")
+    return entry
+
+
 def main():
     if not (ROOT / "or_cdchomp_tpu_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -1003,8 +1362,13 @@ def main():
     err5 = max(compare(torch, "config 5 selfcol net", net_k, net_r),
                compare(torch, "config 5 selfcol cost", c_k, c_r))
     print(f"config 5 selfcol: max_abs_err {err5} (rtol {KERNEL_RTOL})")
-    del probs5, out5, costs5, x5, v5, a5, oargs5, xo5, sargs5, t
+    del probs5, costs5, x5, v5, a5, oargs5, xo5, sargs5, t
     del net_k, c_k, net_r, c_r
+
+    # -- the module commands, and a grabbed tray (K2 at S = 126) --------------
+    entry_split = module_phase(torch, pt, card, dev, out, out5)
+    del out5
+    entry_grab = grab_phase(torch, pt, card, dev)
 
     # -- the same solves on the CPU in float64 (plain versions) ---------------
     cpu, f64 = "cpu", torch.float64
@@ -1066,7 +1430,7 @@ def main():
           f"{time.perf_counter() - t0:.2f} s")
     check(dtraj <= TRAJ_BAR, f"config 4: max |Δtraj| {dtraj} > {TRAJ_BAR}")
 
-    results += [entry_f3, *entries4, entry_b5]
+    results += [entry_f3, *entries4, entry_b5, entry_split, entry_grab]
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

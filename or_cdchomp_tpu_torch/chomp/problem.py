@@ -7,8 +7,9 @@ a leading problem axis B to every leaf.  Quantities shared across the
 batch (A, A⁻¹, the SDF stack, the robot) live on the engine.  The HMC
 state of the JAX package's ``HmcState`` is carried as two flat leaves,
 ``resample_iter`` and ``leapfrog_first``; its PRNG key has no
-counterpart here, since the random draws come from the engine's draw
-source (chomp/solver.py ``HmcDraw``).
+counterpart here, since the random draws come from a draw source
+(chomp/solver.py ``HmcDraw``): a module run's own (``api.Run.draw``), or
+the engine's for a batch.
 """
 
 from __future__ import annotations

@@ -116,6 +116,10 @@ class ChompEngine:
     problem that shares its static structure; problems are batched along
     a leading axis."""
 
+    # steps a module run (api.CHOMPModule.iterate) takes between reads of
+    # its costs to the host (solver.py:593)
+    ITER_CHUNK = 16
+
     def __init__(self, spec, model, fields, dtype=torch.float32,
                  device="cuda", metric_ops=None, seed=0, cons=None):
         if spec.start_tsr:
@@ -131,8 +135,10 @@ class ChompEngine:
         self.dtype = dtype
         self.device = torch.device(device)
         self.fields = fields
-        # HMC draw source; a caller may replace it with any callable of
-        # the same contract (a recorder, or a replay of given draws)
+        # HMC draw source of the batch drivers; a caller may replace it
+        # with any callable of the same contract (a recorder, or a replay
+        # of given draws).  A module run carries its own (api.Run.draw),
+        # so runs that share a cached engine share no random state.
         self.draw = HmcDraw(seed, device)
         if metric_ops is None:
             metric_ops = metric_mod.build_metric(spec.m, spec.dt, D=spec.D)
@@ -238,11 +244,12 @@ class ChompEngine:
 
     # -- the step ------------------------------------------------------------
 
-    def step_batched(self, probs):
+    def step_batched(self, probs, draw=None):
         """One CHOMP iteration over a (B,)-batched problem.  Returns
         (next_probs, costs (B, 3)) — [total, obstacle, smoothness], the
         obstacle cost measured on the incoming trajectory, smoothness on
-        the updated one (chomp.c:475-491, 658-677)."""
+        the updated one (chomp.c:475-491, 658-677).  ``draw`` is the HMC
+        draw source (default :attr:`draw`); a run passes its own."""
         spec = self.spec
         m = spec.m
         lam = probs.lambda_                                 # (B,)
@@ -251,7 +258,8 @@ class ChompEngine:
         AG, resample_iter, leap = (probs.AG, probs.resample_iter,
                                    probs.leapfrog_first)
         if spec.use_hmc:
-            AG, resample_iter, leap = hmc_resample(probs, *self.draw(probs))
+            draw = self.draw if draw is None else draw
+            AG, resample_iter, leap = hmc_resample(probs, *draw(probs))
 
         c_obs, G, fk_out = cost_soa.total_cost_grad_batched(
             spec, self.fk, self.fields, self.pairs, self.radii_act, probs)
@@ -288,11 +296,12 @@ class ChompEngine:
         costs = torch.stack([c_obs + c_smooth, c_obs, c_smooth], dim=-1)
         return new_probs, costs
 
-    def iterate_batched(self, probs, n_iter: int):
-        """n_iter steps; returns (probs, costs (B, n_iter, 3))."""
+    def iterate_batched(self, probs, n_iter: int, draw=None):
+        """n_iter steps (``draw`` as in :meth:`step_batched`); returns
+        (probs, costs (B, n_iter, 3))."""
         costs = []
         for _ in range(n_iter):
-            probs, c = self.step_batched(probs)
+            probs, c = self.step_batched(probs, draw)
             costs.append(c)
         if not costs:
             B = probs.traj.shape[0]

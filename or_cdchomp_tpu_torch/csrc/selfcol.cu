@@ -59,6 +59,28 @@
 // instructions a warp runs (votes, shuffles, shared-memory loads), not
 // bytes; PERF.md has its time against the bound.
 //
+// That staged path's shared memory grows as Sa*So (the pair matrices) and
+// 262*S words of per-sphere terms: from Sa = So = 118 spheres (a robot
+// holding a body modelled by ~100 spheres) a block needs more than the
+// 227 KB an H100 block may have.  So a launch takes one of two paths, by a
+// fixed rule (selfcol_path_staged; ops/selfcol.py launch_shape mirrors it):
+//
+//  - staged (above), wherever its block fits in 232,448 B;
+//  - tiled, beyond: no shared memory at all.  A setup kernel turns the pair
+//    table into the dense (Sa, So) matrices of pair indices and radius
+//    sums in a global scratch buffer (after a memset of the indices to
+//    -1), and writes each sphere's bounding box over each 32-problem tile
+//    at each point there too.  The main kernel keeps one thread per
+//    (point, active sphere, problem), one warp per sphere (8 per block),
+//    and walks the other spheres 32 at a time: lane l reads row i and
+//    column i of the matrices and sphere base+l's box through L1, the
+//    same box test and warp votes skip pairs out of reach exactly, and the
+//    positions and velocities of the pairs taken are read from global
+//    memory (the block's warps share one point and one tile, so they hit
+//    in L1).  Outgoing and incoming pairs of a 32-sphere chunk are handled
+//    together, into two register sums added at the end: no atomics, the
+//    same order on every launch, so it is bit-deterministic too.
+//
 // The arithmetic is the Pallas body's: difference form |x_i - x_j|^2 (not
 // the expanded form, which cancels in f32), rsqrt(max(d2, 1e-24)) for both
 // 1/d and d, the |v| > 1e-6 guard, and the hinge of pallas_selfcol.py.
@@ -72,6 +94,8 @@ constexpr int kLanes = 32;      // problems per warp and per block
 constexpr int kMaxWarps = 16;   // warps per block: active spheres in flight
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMinBlocks = 3;   // resident blocks per SM: <= 40 registers
+constexpr size_t kSmemBlockMax = 232448;   // shared memory a block may use
+constexpr int kTiledWarps = 8;  // warps (active spheres) per tiled block
 
 struct Vec3 {
   float x, y, z;
@@ -347,10 +371,214 @@ selfcol_kernel(const float* __restrict__ xi, const float* __restrict__ vel,
   }
 }
 
-// Block shape and dynamic shared memory of a launch.
-void launch_shape(int Sa, int SI, dim3* block, size_t* smem) {
-  *block = dim3(kLanes, Sa < kMaxWarps ? Sa : kMaxWarps);
-  *smem = smem_words(Sa, Sa + SI, (int)block->y) * sizeof(float);
+// Component c of sphere s's position at (point k, problem b): an active
+// sphere from xi, an inactive one from xo.
+__device__ __forceinline__ float pos_at(const float* __restrict__ xi,
+                                        const float* __restrict__ xo, int c,
+                                        long long n, long long no, int Sa,
+                                        int k, int s, int B, int b) {
+  return s < Sa ? __ldg(xi + c * n + ((long long)k * Sa + s) * B + b)
+                : __ldg(xo + c * no + (long long)(s - Sa) * B + b);
+}
+
+__device__ __forceinline__ Vec3 pos3(const float* __restrict__ xi,
+                                     const float* __restrict__ xo, long long n,
+                                     long long no, int Sa, int k, int s,
+                                     int B, int b) {
+  return {pos_at(xi, xo, 0, n, no, Sa, k, s, B, b),
+          pos_at(xi, xo, 1, n, no, Sa, k, s, B, b),
+          pos_at(xi, xo, 2, n, no, Sa, k, s, B, b)};
+}
+
+// Setup of the tiled path, grid (tiles, m), blocks of 32 x nw threads:
+// every thread scatters its share of the pair table into the dense (Sa,
+// So) matrices pidx (indices, set to -1 before) and prs (radius sums), and
+// the block writes the bounding box of every sphere over its tile's
+// problems at its point to box[k][tile][6][So] (low corner, high corner).
+__global__ void selfcol_prep_kernel(
+    const float* __restrict__ xi, const float* __restrict__ xo, int m, int Sa,
+    int SI, int B, const int* __restrict__ pair_i,
+    const int* __restrict__ pair_j, const float* __restrict__ rsum, int P,
+    int* __restrict__ pidx, float* __restrict__ prs, float* __restrict__ box) {
+  const int So = Sa + SI;
+  const int lane = threadIdx.x;
+  const int nw = blockDim.y;
+  const long long nt = (long long)gridDim.x * gridDim.y * nw * kLanes;
+  const long long tid =
+      (((long long)blockIdx.y * gridDim.x + blockIdx.x) * nw + threadIdx.y) *
+          kLanes + lane;
+  for (long long p = tid; p < P; p += nt) {
+    const int i = pair_i[p];
+    const int j = pair_j[p];
+    if (i >= 0 && i < Sa && j >= 0 && j < So) {
+      pidx[(long long)i * So + j] = (int)p;
+      prs[(long long)i * So + j] = rsum[p];
+    }
+  }
+  const int k = blockIdx.y;
+  const int b = blockIdx.x * kLanes + lane;
+  const bool live = b < B;
+  const long long n = (long long)m * Sa * B;
+  const long long no = (long long)SI * B;
+  float* bx = box + ((long long)k * gridDim.x + blockIdx.x) * 6 * So;
+  for (int s = threadIdx.y; s < So; s += nw)
+    for (int c = 0; c < 3; ++c)
+      stage_box(bx, So, s, c,
+                live ? pos_at(xi, xo, c, n, no, Sa, k, s, B, b) : 0.f, live,
+                lane);
+}
+
+// The tiled path's main kernel, grid (tiles, m, ceil(Sa / 8)), blocks of
+// 32 x 8 threads: thread (lane, w) owns (point k, active sphere i =
+// 8*blockIdx.z + w, problem b = 32*tile + lane).  Same pair math, skip tests
+// and contract as selfcol_kernel.
+__global__ void __launch_bounds__(kTiledWarps * kLanes)
+selfcol_tiled_kernel(const float* __restrict__ xi,
+                     const float* __restrict__ vel,
+                     const float* __restrict__ xo, int m, int Sa, int SI,
+                     int B, const int* __restrict__ pidx,
+                     const float* __restrict__ prs,
+                     const float* __restrict__ box,
+                     const float* __restrict__ eps_self,
+                     const float* __restrict__ obs_self,
+                     float* __restrict__ net, float* __restrict__ cost) {
+  const int So = Sa + SI;
+  const int lane = threadIdx.x;
+  const int i = blockIdx.z * blockDim.y + threadIdx.y;
+  if (i >= Sa) return;              // a whole warp: no block barrier follows
+  const int k = blockIdx.y;
+  const int b = blockIdx.x * kLanes + lane;
+  const bool live = b < B;          // dead lanes vote "out of reach"
+  const long long n = (long long)m * Sa * B;
+  const long long no = (long long)SI * B;
+  const long long at = ((long long)k * Sa + i) * B + b;
+
+  Vec3 xs = {0.f, 0.f, 0.f}, vs = {0.f, 0.f, 0.f};
+  if (live) {
+    xs = {__ldg(xi + at), __ldg(xi + n + at), __ldg(xi + 2 * n + at)};
+    vs = {__ldg(vel + at), __ldg(vel + n + at), __ldg(vel + 2 * n + at)};
+  }
+  const float vv = __fmaf_rn(vs.z, vs.z, __fmaf_rn(vs.y, vs.y, vs.x * vs.x));
+  const float vn = sqrtf(vv);
+  const bool safe = vn > 1e-6f;
+  const float iv2 = safe ? __frcp_rn(vv) : 0.0f;
+  const float e = live ? eps_self[b] : 1.0f;
+  const float inv_e = __frcp_rn(e);
+  const float ofs = live ? obs_self[b] : 0.0f;
+  const float ofv = ofs * vn;
+  const float emax = warp_max(e, live);   // the largest eps of the warp
+
+  const float* bx = box + ((long long)k * gridDim.x + blockIdx.x) * 6 * So;
+  float lo_i[3], hi_i[3];
+  for (int c = 0; c < 3; ++c) {
+    lo_i[c] = __ldg(bx + c * So + i);
+    hi_i[c] = __ldg(bx + (3 + c) * So + i);
+  }
+  const int* prow = pidx + (long long)i * So;
+  const float* rrow = prs + (long long)i * So;
+
+  Vec3 acc_out = {0.f, 0.f, 0.f}, acc_in = {0.f, 0.f, 0.f};
+  float c_acc = 0.f;
+  for (int base = 0; base < So; base += kLanes) {
+    const int j = base + lane;
+    // pair (i, j) outgoing, pair (j, i) incoming with j active; a mirror
+    // (both, same radius sum) has a bit-equal d, so one vote serves both
+    const bool out = j < So && __ldg(prow + j) >= 0;
+    const float rs_out = out ? __ldg(rrow + j) : 0.f;
+    const long long ji = (long long)j * So + i;
+    const bool in = j < Sa && __ldg(pidx + ji) >= 0;
+    const float rs_in = in ? __ldg(prs + ji) : 0.f;
+    const bool mirror = out && in && rs_in == rs_out;
+    const unsigned mirrors = __ballot_sync(kFull, mirror);
+    bool near_out = false, near_in = false;
+    if (out || (in && !mirror)) {
+      // boxes_near on the global boxes: the gap is symmetric in (i, j)
+      float g2 = 0.f;
+      for (int c = 0; c < 3; ++c) {
+        const float lo_j = __ldg(bx + c * So + j);
+        const float hi_j = __ldg(bx + (3 + c) * So + j);
+        const float gap =
+            fmaxf(0.f, fmaxf(lo_j - hi_i[c], lo_i[c] - hi_j));
+        g2 = __fmaf_rn(gap, gap, g2);
+      }
+      const float r_out = (emax + rs_out) * (1.0f + 1e-4f) + 1e-6f;
+      const float r_in = (emax + rs_in) * (1.0f + 1e-4f) + 1e-6f;
+      near_out = out && g2 <= r_out * r_out;
+      near_in = in && !mirror && g2 <= r_in * r_in;
+    }
+
+    unsigned taken = 0u;
+    for (unsigned bits = __ballot_sync(kFull, near_out); bits;
+         bits &= bits - 1u) {
+      const int c = __ffs(bits) - 1;
+      const float rs = __shfl_sync(kFull, rs_out, c);
+      const Vec3 xj = live ? pos3(xi, xo, n, no, Sa, k, base + c, B, b)
+                           : Vec3{0.f, 0.f, 0.f};
+      const Dist p = distance(xs, xj, rs);
+      if (!__any_sync(kFull, live && p.d <= e)) continue;
+      taken |= 1u << c;
+      Vec3 g;
+      c_acc += pair_grad(p, vs, ofv, iv2, safe, e, inv_e, &g);
+      acc_out.x += g.x;
+      acc_out.y += g.y;
+      acc_out.z += g.z;
+    }
+    taken &= mirrors;
+    for (unsigned bits = __ballot_sync(kFull, near_in); bits;
+         bits &= bits - 1u) {
+      const int c = __ffs(bits) - 1;
+      const float rs = __shfl_sync(kFull, rs_in, c);
+      const Vec3 xj = live ? pos3(xi, xo, n, no, Sa, k, base + c, B, b)
+                           : Vec3{0.f, 0.f, 0.f};
+      const Dist p = distance(xj, xs, rs);
+      taken |= (unsigned)(__any_sync(kFull, live && p.d <= e) != 0) << c;
+    }
+    for (; taken; taken &= taken - 1u) {
+      const int c = __ffs(taken) - 1;
+      const int jj = base + c;
+      const float rs = __shfl_sync(kFull, rs_in, c);
+      Vec3 xj = {0.f, 0.f, 0.f}, vj = {0.f, 0.f, 0.f};
+      if (live) {
+        const long long aj = ((long long)k * Sa + jj) * B + b;
+        xj = {__ldg(xi + aj), __ldg(xi + n + aj), __ldg(xi + 2 * n + aj)};
+        vj = {__ldg(vel + aj), __ldg(vel + n + aj), __ldg(vel + 2 * n + aj)};
+      }
+      const float vvj = __fmaf_rn(vj.z, vj.z,
+                                  __fmaf_rn(vj.y, vj.y, vj.x * vj.x));
+      const float vnj = sqrtf(vvj);
+      const bool safej = vnj > 1e-6f;
+      const Dist p = distance(xj, xs, rs);
+      Vec3 g;
+      pair_grad(p, vj, ofs * vnj, safej ? __frcp_rn(vvj) : 0.0f, safej, e,
+                inv_e, &g);
+      acc_in.x -= g.x;
+      acc_in.y -= g.y;
+      acc_in.z -= g.z;
+    }
+  }
+
+  if (live) {
+    net[at] = acc_out.x + acc_in.x;
+    net[n + at] = acc_out.y + acc_in.y;
+    net[2 * n + at] = acc_out.z + acc_in.z;
+    cost[at] = c_acc;
+  }
+}
+
+// Which path a launch takes, by a fixed rule: the staged path wherever its
+// block (one warp per active sphere, up to 16) fits in shared memory, else
+// the tiled path.  block and smem are the main kernel's launch.
+bool selfcol_path_staged(int Sa, int SI, dim3* block, size_t* smem) {
+  const int nw = Sa < kMaxWarps ? Sa : kMaxWarps;
+  const size_t staged = smem_words(Sa, Sa + SI, nw) * sizeof(float);
+  if (staged <= kSmemBlockMax) {
+    *block = dim3(kLanes, nw);
+    *smem = staged;
+    return true;
+  }
+  *block = dim3(kLanes, kTiledWarps);
+  *smem = 0;
+  return false;
 }
 
 // Allow the dynamic shared memory a launch needs (above the default 48 KB
@@ -364,47 +592,73 @@ cudaError_t allow_smem(size_t smem) {
 
 }  // namespace
 
+// scratch: the tiled path's buffer of 2*Sa*So + m*tiles*6*So words (pair
+// indices, radius sums, boxes; ops/selfcol.py scratch_words), unused (may
+// be null) on the staged path.
 extern "C" int cdx_selfcol(const float* xi, const float* vel, const float* xo,
                            int m, int Sa, int SI, int B, const int* pair_i,
                            const int* pair_j, const float* rsum, int P,
                            const float* eps_self, const float* obs_self,
-                           float* net, float* cost, void* stream) {
+                           float* net, float* cost, float* scratch,
+                           void* stream) {
   if (m == 0 || Sa == 0 || B == 0) return 0;
   if (m > 65535) return (int)cudaErrorInvalidConfiguration;
   dim3 block;
   size_t smem;
-  launch_shape(Sa, SI, &block, &smem);
-  cudaError_t err = allow_smem(smem);
+  cudaStream_t st = (cudaStream_t)stream;
+  const int tiles = (B + kLanes - 1) / kLanes;
+  if (selfcol_path_staged(Sa, SI, &block, &smem)) {
+    cudaError_t err = allow_smem(smem);
+    if (err != cudaSuccess) return (int)err;
+    selfcol_kernel<<<dim3(tiles, m), block, smem, st>>>(
+        xi, vel, xo, m, Sa, SI, B, pair_i, pair_j, rsum, P, eps_self,
+        obs_self, net, cost);
+    return (int)cudaGetLastError();
+  }
+  const int So = Sa + SI;
+  int* pidx = reinterpret_cast<int*>(scratch);
+  float* prs = scratch + (size_t)Sa * So;
+  float* box = prs + (size_t)Sa * So;
+  cudaError_t err =
+      cudaMemsetAsync(pidx, 0xff, (size_t)Sa * So * sizeof(int), st);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((B + kLanes - 1) / kLanes, m);
-  selfcol_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-      xi, vel, xo, m, Sa, SI, B, pair_i, pair_j, rsum, P, eps_self, obs_self,
-      net, cost);
+  selfcol_prep_kernel<<<dim3(tiles, m), dim3(kLanes, kTiledWarps), 0, st>>>(
+      xi, xo, m, Sa, SI, B, pair_i, pair_j, rsum, P, pidx, prs, box);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(tiles, m, (Sa + kTiledWarps - 1) / kTiledWarps);
+  selfcol_tiled_kernel<<<grid, block, 0, st>>>(xi, vel, xo, m, Sa, SI, B,
+                                               pidx, prs, box, eps_self,
+                                               obs_self, net, cost);
   return (int)cudaGetLastError();
 }
 
-// Launch facts for Sa active and SI inactive spheres: info[0] threads per
-// block, info[1] dynamic shared memory per block (bytes), info[2] resident
-// blocks per SM, info[3] registers per thread, info[4] local memory per
-// thread (bytes; non-zero means spills).
+// Launch facts of the main kernel for Sa active and SI inactive spheres:
+// info[0] threads per block, info[1] dynamic shared memory per block
+// (bytes), info[2] resident blocks per SM, info[3] registers per thread,
+// info[4] local memory per thread (bytes; non-zero means spills), info[5]
+// the path (0 staged, 1 tiled).
 extern "C" int cdx_selfcol_launch_info(int Sa, int SI, int* info) {
   dim3 block;
   size_t smem;
-  launch_shape(Sa, SI, &block, &smem);
-  cudaError_t err = allow_smem(smem);
+  const bool staged = selfcol_path_staged(Sa, SI, &block, &smem);
+  const void* fn = staged ? (const void*)selfcol_kernel
+                          : (const void*)selfcol_tiled_kernel;
+  cudaError_t err = staged ? allow_smem(smem) : cudaSuccess;
   if (err != cudaSuccess) return (int)err;
   const int threads = (int)(block.x * block.y);
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, selfcol_kernel,
-                                                      threads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads,
+                                                      smem);
   if (err != cudaSuccess) return (int)err;
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, selfcol_kernel);
+  err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return (int)err;
   info[0] = threads;
   info[1] = (int)smem;
   info[2] = blocks;
   info[3] = attr.numRegs;
   info[4] = (int)attr.localSizeBytes;
+  info[5] = staged ? 0 : 1;
   return 0;
 }

@@ -196,6 +196,32 @@ class RobotModel:
             dof_max_vel=mv,
         )
 
+    def with_spheres(self, rows) -> "RobotModel":
+        """Append collision spheres; rows: (link_name, pos3, radius).
+        Used for grabbed-body geometry re-rooted to the grabbing link
+        (orcdchomp_mod.cpp:2200-2208)."""
+        if not rows:
+            return self
+        link_idx = {n: i for i, n in enumerate(self.link_names)}
+        sl = np.concatenate([self.sphere_link,
+                             np.array([link_idx[r[0]] for r in rows])])
+        sp = np.concatenate([self.sphere_pos,
+                             np.asarray([r[1] for r in rows],
+                                        dtype=np.float64).reshape(-1, 3)])
+        sr = np.concatenate([self.sphere_radius,
+                             np.asarray([r[2] for r in rows],
+                                        dtype=np.float64)])
+        return dataclasses.replace(self, sphere_link=sl, sphere_pos=sp,
+                                   sphere_radius=sr)
+
+    def select_spheres(self, idx) -> "RobotModel":
+        """Keep only the spheres at ``idx`` (release of a grabbed body)."""
+        idx = np.asarray(idx)
+        return dataclasses.replace(
+            self, sphere_link=self.sphere_link[idx],
+            sphere_pos=self.sphere_pos[idx],
+            sphere_radius=self.sphere_radius[idx])
+
     # ----- static analysis -------------------------------------------------
 
     def folded(self):
@@ -236,6 +262,38 @@ class RobotModel:
         """(S, S) bool: spheres on the same link (self-collision skip,
         orcdchomp_mod.cpp:1256)."""
         return self.sphere_link[:, None] == self.sphere_link[None, :]
+
+    def sphere_adjacent_link(self):
+        """(S, S) bool: same link OR links connected through only fixed
+        /frozen joints OR parent-child — the pairs a hard self-collision
+        *check* must ignore (OpenRAVE's adjacency filtering; the soft
+        epsilon_self cost intentionally keeps parent-child pairs)."""
+        L = len(self.link_names)
+        # map each link to its nearest "articulated root": walk up
+        # through fixed/frozen joints
+        art = np.arange(L)
+        for i in range(L):
+            j = i
+            while j > 0 and self.dof_index[j] < 0:
+                j = int(self.parent[j])
+            art[i] = j
+
+        def art_parent(i):
+            j = int(self.parent[i])
+            while j > 0 and self.dof_index[j] < 0:
+                j = int(self.parent[j])
+            return j if i > 0 else -1
+
+        adj = np.zeros((L, L), dtype=bool)
+        for i in range(L):
+            ai = art[i]
+            for j in range(L):
+                aj = art[j]
+                if ai == aj:
+                    adj[i, j] = True
+                elif art_parent(ai) == aj or art_parent(aj) == ai:
+                    adj[i, j] = True
+        return adj[self.sphere_link][:, self.sphere_link]
 
 
 class FkSoA(NamedTuple):
@@ -291,6 +349,18 @@ def _reduced_chain(model, origin64, subset):
             np.asarray(folded, dtype=np.float64))
 
 
+def _red_poses_np(chain, q, base_pose):
+    """The reduced chain's world poses (base first, then one per active
+    joint) at one configuration, float64 numpy."""
+    q = np.asarray(q, dtype=np.float64)
+    red = [np.asarray(base_pose, dtype=np.float64)]
+    for e in chain:
+        anchor = _pose_compose64(red[e["parent_slot"]], e["K"])
+        red.append(_pose_compose64(
+            anchor, _motion_pose64(e["jtype"], e["axis"], q[e["dof"]])))
+    return red
+
+
 def sphere_positions_np(model, q, base_pose):
     """World centres (S, 3) of every sphere of ``model`` at one
     configuration q (n_dof,) under ``base_pose`` (7,), float64 numpy:
@@ -300,14 +370,21 @@ def sphere_positions_np(model, q, base_pose):
     the JAX package."""
     chain, _, _, _, slot, folded = _reduced_chain(
         model, model.folded()[0], np.arange(len(model.sphere_link)))
-    q = np.asarray(q, dtype=np.float64)
-    red = [np.asarray(base_pose, dtype=np.float64)]
-    for e in chain:
-        anchor = _pose_compose64(red[e["parent_slot"]], e["K"])
-        red.append(_pose_compose64(
-            anchor, _motion_pose64(e["jtype"], e["axis"], q[e["dof"]])))
+    red = _red_poses_np(chain, q, base_pose)
     return np.array([_rotate64(red[s][3:], f) + red[s][:3]
                      for s, f in zip(slot, folded)]).reshape(-1, 3)
+
+
+def link_poses_np(model, q, base_pose):
+    """World poses (L, 7) of every link of ``model`` at one configuration
+    q (n_dof,) under ``base_pose`` (7,), float64 numpy: each link is its
+    reduced slot's pose composed with its constant offset (the JAX
+    package's ``CompiledFK.link_poses``, robot.py:498-512)."""
+    chain, _, red_slot, off, _, _ = _reduced_chain(
+        model, model.folded()[0], np.arange(len(model.sphere_link)))
+    red = _red_poses_np(chain, q, base_pose)
+    return np.stack([_pose_compose64(red[s], off[i])
+                     for i, s in enumerate(red_slot)])
 
 
 class CompiledFK:

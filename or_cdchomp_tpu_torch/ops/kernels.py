@@ -46,10 +46,10 @@ _SIGNATURES = {
     # F, mx, my, mz
     "cdx_obstacle_smem_bytes": (_I, _I, _I, _I),
     # xi, vel, xo, m, Sa, SI, B, pair_i, pair_j, rsum, P, eps_self,
-    # obs_self, net, cost, stream
+    # obs_self, net, cost, scratch, stream
     "cdx_selfcol": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P,
-                    _P, _P, _P),
-    # Sa, SI, info (5 ints out)
+                    _P, _P, _P, _P),
+    # Sa, SI, info (6 ints out)
     "cdx_selfcol_launch_info": (_I, _I, _P),
 }
 

@@ -7,7 +7,8 @@ its tensors: CPU tensors go to the plain PyTorch version beside it, CUDA
 tensors to the hand-written kernel (or an error).  There is no fallback.
 
 ``LAUNCHES`` / ``LOOKUP_LAUNCHES`` count kernel launches of
-:func:`obstacle` / :func:`sdf_cell_lookup`.  :func:`obstacle_traffic_bytes`
+:func:`obstacle` (one per call unless it splits a call past MAX_QUERIES)
+/ :func:`sdf_cell_lookup`.  :func:`obstacle_traffic_bytes`
 and :func:`obstacle_flops` count the work of one :func:`obstacle` call
 for its bound on the card; :func:`launch_geometry` sizes its launch.
 """
@@ -29,6 +30,9 @@ _VEL_EPS = 1e-6       # ‖ẋ‖ guard, orcdchomp_mod.cpp:1226/1285
 LANES = 32            # problems per warp, and per block tile (obstacle.cu)
 THREADS = 256         # threads per block: 8 warps, each walking rows
 SMEM_BLOCK_MAX = 232_448   # shared memory one block may use (227 KB)
+# queries (point, sphere, problem) one launch takes: the kernel indexes
+# the three components of x, vel and acc with 32-bit ints (3·q < 2**31)
+MAX_QUERIES = (2 ** 31 - 1) // 3
 # float operations of one obstacle query, counted from obstacle_ref's
 # expressions and rounded: per field (frame transform, subscripts, cells,
 # gradient, rotation to world, min-select) and once (hinge, projection,
@@ -274,10 +278,12 @@ def obstacle(x, vel, acc, data, sizes, lengths, pose_gsdf_world,
     neighbour choice per field, (F, m, S, B) int32 with bit i set when
     axis i uses the next cell — a check of the subscript arithmetic.
 
-    The kernel indexes with 32-bit integers: on the card a call takes
-    fewer than 2**31 / 3 (point, sphere, problem) queries (about 716 M;
-    BASELINE's largest, config 5, has 15.2 M) and raises ValueError
-    beyond.  Split a larger batch along B.
+    The kernel indexes with 32-bit integers, so one launch takes at most
+    MAX_QUERIES (point, sphere, problem) queries (about 716 M; BASELINE's
+    largest, config 5, has 15.2 M).  On the card a larger call is split
+    along B into contiguous chunks of problems, one launch each: every
+    query's arithmetic is its own, so the result is bit-equal to one
+    launch.
     """
     if x.device.type == "cpu":
         return obstacle_ref(x, vel, acc, data, sizes, lengths,
@@ -285,10 +291,27 @@ def obstacle(x, vel, acc, data, sizes, lengths, pose_gsdf_world,
                             radii, epsilon, obs_factor, want_dirs)
     if x.device.type != "cuda":
         raise ValueError(f"obstacle: unsupported device {x.device}")
-    geom = device_geometry(*x.shape[1:], *data.shape, x.device.index)
-    return obstacle_launch(geom, x, vel, acc, data, sizes, lengths,
-                           pose_gsdf_world, pose_world_gsdf, field_enabled,
-                           radii, epsilon, obs_factor, want_dirs)
+    _, m, S, B = x.shape
+    per = max(1, MAX_QUERIES // (m * S))        # problems per launch
+    outs = []
+    for lo in range(0, B, per):
+        hi = min(lo + per, B)
+        if (lo, hi) == (0, B):
+            cx, cv, ca, per_problem = x, vel, acc, (
+                pose_gsdf_world, pose_world_gsdf, field_enabled, epsilon,
+                obs_factor)
+        else:
+            cx, cv, ca = (t[..., lo:hi].contiguous() for t in (x, vel, acc))
+            per_problem = tuple(t[lo:hi] for t in (
+                pose_gsdf_world, pose_world_gsdf, field_enabled, epsilon,
+                obs_factor))
+        pg, pw, en, eps, of = per_problem
+        geom = device_geometry(m, S, hi - lo, *data.shape, x.device.index)
+        outs.append(obstacle_launch(geom, cx, cv, ca, data, sizes, lengths,
+                                    pg, pw, en, radii, eps, of, want_dirs))
+    if len(outs) == 1:
+        return outs[0]
+    return tuple(torch.cat(parts, dim=-1) for parts in zip(*outs))
 
 
 def obstacle_launch(geom, x, vel, acc, data, sizes, lengths,
@@ -313,9 +336,10 @@ def obstacle_launch(geom, x, vel, acc, data, sizes, lengths,
     kernels.require(radii, "radii", f32, (S,), dev)
     kernels.require(epsilon, "epsilon", f32, (B,), dev)
     kernels.require(obs_factor, "obs_factor", f32, (B,), dev)
-    if 3 * m * S * B >= 2 ** 31:
-        raise ValueError(f"obstacle: {m * S * B} queries need 64-bit "
-                         "indices, which the kernel does not take")
+    if m * S * B > MAX_QUERIES:
+        raise ValueError(f"obstacle_launch: {m * S * B} queries need 64-bit "
+                         f"indices; one launch takes at most {MAX_QUERIES} "
+                         "(obstacle splits a larger call)")
     cost = torch.empty((m, S, B), dtype=f32, device=dev)
     wgrad = torch.empty((3, m, S, B), dtype=f32, device=dev)
     dirs = (torch.empty((F, m, S, B), dtype=torch.int32, device=dev)

@@ -10,6 +10,13 @@ an error).  There is no fallback.
 ``LAUNCHES`` counts kernel launches of :func:`selfcol_pairs`.
 :func:`traffic_bytes`, :func:`flops` and :func:`vote_stats` count the
 work of one call for its bound on the card.
+
+The kernel has two paths, chosen by a fixed rule that
+:func:`launch_shape` mirrors: the staged path (the pair matrices and the
+spheres of a block in shared memory) wherever its block fits in
+SMEM_BLOCK_MAX bytes, which holds up to 117 spheres, and beyond that the
+tiled path, which uses no shared memory and a global scratch buffer of
+:func:`scratch_words` words that the wrapper allocates.
 """
 
 from __future__ import annotations
@@ -23,6 +30,9 @@ from or_cdchomp_tpu_torch.ops import kernels
 
 LAUNCHES = 0
 LANES = 32          # problems per warp of the kernel: one vote each
+MAX_WARPS = 16      # warps (active spheres in flight) of a staged block
+TILED_WARPS = 8     # warps (active spheres) of a tiled block
+SMEM_BLOCK_MAX = 232_448   # shared memory one block may use (227 KB)
 FLOPS_TEST = 12     # per (point, pair, problem): diff, d², rsqrt, d, test
 FLOPS_REACH = 33    # more per pair in reach: hinge, w1, w2, g, the sums
 
@@ -118,12 +128,15 @@ def selfcol_pairs(xi, vel, xo, pair_i, pair_j, rsum, eps_self, obs_self):
     kernels.require(obs_self, "obs_self", f32, (B,), dev)
     net = torch.empty((3, m, Sa, B), dtype=f32, device=dev)
     cost = torch.empty((m, Sa, B), dtype=f32, device=dev)
+    words = scratch_words(m, Sa, SI, B)
+    scratch = torch.empty(words, dtype=f32, device=dev) if words else None
     lib = kernels.library()
     err = lib.cdx_selfcol(
         xi.data_ptr(), vel.data_ptr(), xo.data_ptr(), m, Sa, SI, B,
         pair_i.data_ptr(), pair_j.data_ptr(), rsum.data_ptr(), P,
         eps_self.data_ptr(), obs_self.data_ptr(), net.data_ptr(),
-        cost.data_ptr(), kernels.stream_ptr(xi))
+        cost.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        kernels.stream_ptr(xi))
     kernels.check(err, "selfcol_pairs")
     LAUNCHES += 1
     return net, cost
@@ -180,12 +193,49 @@ def vote_stats(xi, xo, pair_i, pair_j, rsum, eps_self):
     return taken.numel(), int(near.sum()), int(taken.sum()), int(ok.sum())
 
 
+def smem_words(Sa, So, nw):
+    """Shared memory of a staged block of nw warps, in 4-byte words: the
+    positions of So spheres and the velocities, |v| and 1/|v|² of the Sa
+    active ones for 32 problems, each sphere's bounding box, the (Sa, So)
+    matrices of radius sums and pair indices, and one vote word per warp
+    and 32 spheres (selfcol.cu's smem_words; a GPU test holds the two
+    equal through launch_info)."""
+    return (LANES * (3 * So + 5 * Sa) + 6 * So + 2 * Sa * So
+            + nw * -(-So // LANES))
+
+
+def launch_shape(Sa, SI):
+    """The kernel's path for Sa active and SI inactive spheres and its
+    main launch: (path, threads, dynamic shared memory bytes) per block.
+    The staged path wherever its block fits in SMEM_BLOCK_MAX, else the
+    tiled path (selfcol.cu selfcol_path_staged)."""
+    nw = min(Sa, MAX_WARPS)
+    smem = 4 * smem_words(Sa, Sa + SI, nw)
+    if smem <= SMEM_BLOCK_MAX:
+        return "staged", LANES * nw, smem
+    return "tiled", LANES * TILED_WARPS, 0
+
+
+def scratch_words(m, Sa, SI, B):
+    """Global scratch of a call, in 4-byte words: none on the staged
+    path; on the tiled path the (Sa, So) matrices of pair indices and
+    radius sums and each sphere's box (6 words) per point and 32-problem
+    tile."""
+    if launch_shape(Sa, SI)[0] == "staged":
+        return 0
+    So = Sa + SI
+    return 2 * Sa * So + m * -(-B // LANES) * 6 * So
+
+
 def launch_info(Sa, SI):
-    """The kernel's launch on the card for Sa active and SI inactive
+    """The kernel's main launch on the card for Sa active and SI inactive
     spheres: threads and dynamic shared memory per block, resident
-    blocks per SM, registers and local (spill) bytes per thread."""
-    info = (ctypes.c_int * 5)()
+    blocks per SM, registers and local (spill) bytes per thread, and the
+    path taken ("staged" or "tiled")."""
+    info = (ctypes.c_int * 6)()
     kernels.check(kernels.library().cdx_selfcol_launch_info(Sa, SI, info),
                   "selfcol launch_info")
-    return dict(zip(("threads", "smem_bytes", "blocks_per_sm", "registers",
-                     "local_bytes"), info))
+    out = dict(zip(("threads", "smem_bytes", "blocks_per_sm", "registers",
+                    "local_bytes"), info))
+    out["path"] = ("staged", "tiled")[info[5]]
+    return out

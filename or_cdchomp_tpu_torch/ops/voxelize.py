@@ -11,6 +11,11 @@ collision sweep (orcdchomp_mod.cpp:495-525):
  - cylinder vs cell cube: inscribed/circumscribed sphere bounds, then 96
    alternating projections between the solid cube and solid cylinder for
    the thin shell of undecided cells (hit within 1e-4 m)
+
+The same primitives give exact signed point distances
+(``scene_distance``), which the trajectory validity check uses (the
+replacement for gettraj's sampled CheckCollision pass,
+orcdchomp_mod.cpp:2958-3006).
 """
 
 from __future__ import annotations
@@ -57,8 +62,35 @@ class Scene(NamedTuple):
                    arr([c[1] for c in cylinders]),
                    arr([c[2] for c in cylinders]))
 
-    def to(self, device):
-        return Scene(*(t.to(device) for t in self))
+    def to(self, device=None, dtype=None):
+        return Scene(*(t.to(device=device, dtype=dtype) for t in self))
+
+    def bounding_spheres(self):
+        """(centers (N, 3), radii (N,)) float64 numpy covering every
+        primitive — sphere primitives exactly, boxes/cylinders by their
+        circumscribed spheres.  Used when a grabbed body's geometry
+        becomes robot collision spheres (orcdchomp_mod.cpp:2200-2208
+        analog)."""
+        def host(t):
+            return t.cpu().numpy().astype(np.float64)
+
+        sc, sr = host(self.sphere_center), host(self.sphere_radius)
+        bp, bh = host(self.box_pose), host(self.box_half)
+        cp, cr, ch = (host(self.cyl_pose), host(self.cyl_radius),
+                      host(self.cyl_half))
+        centers = [*sc, *bp[:, :3], *cp[:, :3]]
+        radii = [*sr, *np.linalg.norm(bh, axis=1), *np.sqrt(cr ** 2 + ch ** 2)]
+        if not centers:
+            return np.zeros((0, 3)), np.zeros((0,))
+        return np.stack(centers), np.asarray(radii)
+
+
+def sd_box(p_local, half):
+    """Signed distance of local-frame point(s) to a centred box."""
+    q = torch.abs(p_local) - half
+    outside = torch.linalg.norm(torch.clamp(q, min=0.0), dim=-1)
+    inside = torch.clamp(torch.max(q, dim=-1).values, max=0.0)
+    return outside + inside
 
 
 def sd_cylinder(p_local, radius, half):
@@ -69,6 +101,26 @@ def sd_cylinder(p_local, radius, half):
     outside = torch.linalg.norm(torch.clamp(q, min=0.0), dim=-1)
     inside = torch.clamp(torch.max(q, dim=-1).values, max=0.0)
     return outside + inside
+
+
+def scene_distance(scene: Scene, p):
+    """Min signed distance from point(s) p (..., 3) to all primitives of
+    ``scene`` (in its frame); +inf for an empty scene."""
+    dists = []
+    if scene.box_pose.shape[0]:
+        pl = pose_apply(pose_invert(scene.box_pose), p[..., None, :])
+        dists.append(torch.amin(sd_box(pl, scene.box_half), dim=-1))
+    if scene.sphere_center.shape[0]:
+        d = torch.linalg.norm(p[..., None, :] - scene.sphere_center, dim=-1)
+        dists.append(torch.amin(d - scene.sphere_radius, dim=-1))
+    if scene.cyl_pose.shape[0]:
+        pl = pose_apply(pose_invert(scene.cyl_pose), p[..., None, :])
+        dists.append(torch.amin(
+            sd_cylinder(pl, scene.cyl_radius, scene.cyl_half), dim=-1))
+    if not dists:
+        return torch.full(p.shape[:-1], float("inf"), dtype=p.dtype,
+                          device=p.device)
+    return torch.amin(torch.stack(dists), dim=0)
 
 
 def _obb_aabb_overlap(center, half_aabb, box_pose, box_half):

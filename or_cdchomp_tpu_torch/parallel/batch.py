@@ -19,12 +19,23 @@ import torch
 from or_cdchomp_tpu_torch.chomp.problem import ChompProblem
 
 
-def problem_batch_from_grid(problem: ChompProblem, starts, goals, engine):
+def problem_batch_from_grid(problem: ChompProblem, starts, goals, engine,
+                            metric_ops=None, seeds=None):
     """(P,)-batched problem on the engine's device and dtype: the
     template supplies fields, limits and weights; each row gets the
     straight line from starts[p] to goals[p] ((P, n) arrays), its own
     metric affine terms and a fresh HMC state (resample at iteration 0,
-    leapfrog half step first).  Every leaf is a contiguous tensor."""
+    leapfrog half step first).  Every leaf is a contiguous tensor.
+
+    The JAX package's signature: ``metric_ops`` is accepted and unused
+    there too (the engine's metric builds the affine terms).  ``seeds``
+    (a per-problem HMC key stream) is not ported: the batch draws from
+    the engine's draw source as one, so it raises NotImplementedError.
+    """
+    if seeds is not None:
+        raise NotImplementedError(
+            "seeds: per-problem HMC streams are not ported yet (the batch "
+            "draws from the engine's draw source)")
     starts = np.asarray(starts, dtype=np.float64)
     goals = np.asarray(goals, dtype=np.float64)
     P_, n = starts.shape

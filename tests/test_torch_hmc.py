@@ -140,9 +140,15 @@ def test_recorded_draws_replay_the_run():
     own draws do not; a recorder with ``n`` keeps the first n problems'
     draws."""
     mod = config1_module(pt, dtype=torch.float64, device="cpu")
-    runs = [mod.runs[mod.create(robot="wam", adofgoal=GOAL, n_points=11,
-                                use_hmc=True, hmc_resample_lambda=2.0,
-                                seed=s)] for s in (7, 8)]
+    runs = []
+    for s in (7, 8):
+        # creates of one structure share a cached engine and its batch
+        # draw source; each run here needs an engine seeded by its own
+        mod.clear_engine_cache()
+        runs.append(mod.runs[mod.create(
+            robot="wam", adofgoal=GOAL, n_points=11, use_hmc=True,
+            hmc_resample_lambda=2.0, seed=s)])
+    assert runs[0].engine is not runs[1].engine
     rng = np.random.default_rng(0)
     starts = START + 0.02 * rng.normal(size=(3, 7))
     goals = GOAL + 0.02 * rng.normal(size=(3, 7))

@@ -605,3 +605,85 @@ def test_config4_steps_card_match_cpu(cuda):
     # the projection pulls roll and pitch of the end effector toward 0
     assert float(run.engine.constraint_values(probs).abs().max()) < \
         0.1 * before
+
+
+# ---- K2 at any sphere count, K1 split along B, a module run -----------------
+
+@pytest.mark.parametrize("SI", [0, 1])
+@pytest.mark.parametrize("S", [117, 118, 250, 600])
+def test_selfcol_kernel_any_sphere_count(cuda, S, SI):
+    """S spheres in all (SI inactive) on either side of the staged path's
+    shared-memory limit: the launch takes the path launch_shape names,
+    matches the plain version and is bit-equal across two launches."""
+    Sa = S - SI
+    args = _selfcol_args(np.random.default_rng(S + SI), cuda, m=3, Sa=Sa,
+                         SI=SI, B=40, scale=0.6)
+    info = selfcol.launch_info(Sa, SI)
+    assert info["path"] == selfcol.launch_shape(Sa, SI)[0]
+    assert info["path"] == ("staged" if Sa + SI <= 117 else "tiled")
+    got, want = _selfcol_check(args)
+    again = selfcol.selfcol_pairs(*args)
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+    assert float(want[1].abs().max()) > 0.0
+
+
+@pytest.mark.parametrize("Sa, SI", [(1, 0), (15, 1), (16, 0), (116, 1),
+                                    (117, 0), (117, 1), (118, 0), (125, 1),
+                                    (600, 1), (1024, 0)])
+def test_selfcol_launch_shape_matches_kernel(cuda, Sa, SI):
+    """The wrapper's mirror of the dispatch rule and of the staged
+    layout (selfcol.launch_shape) against cdx_selfcol_launch_info; no
+    path spills or needs more than a block may have."""
+    path, threads, smem = selfcol.launch_shape(Sa, SI)
+    info = selfcol.launch_info(Sa, SI)
+    assert (info["path"], info["threads"], info["smem_bytes"]) == \
+        (path, threads, smem)
+    assert smem <= selfcol.SMEM_BLOCK_MAX and info["blocks_per_sm"] >= 1
+    assert info["local_bytes"] == 0
+
+
+def test_obstacle_forced_split_bit_equal(cuda, monkeypatch):
+    """A call past the per-launch query limit (forced low) is split along
+    B into launches whose results are bit-equal to one launch."""
+    args = _k1_args(np.random.default_rng(21), cuda, F=3, m=5, S=7, B=100)
+    whole = sdf_lookup.obstacle(*args, want_dirs=True)
+    monkeypatch.setattr(sdf_lookup, "MAX_QUERIES", 5 * 7 * 37)
+    n0 = sdf_lookup.LAUNCHES
+    split = sdf_lookup.obstacle(*args, want_dirs=True)
+    assert sdf_lookup.LAUNCHES == n0 + 3               # 37 + 37 + 26
+    for a, b in zip(split, whole):
+        assert torch.equal(a, b)
+
+
+def test_module_iterate_card_matches_cpu(cuda):
+    """A run (B = 1) iterated on the card in float32 against the same
+    run on the CPU in float64; launches one K1 and one K2 per step and
+    one each for the final cost."""
+    import or_cdchomp_tpu_torch as pt
+
+    def run(device, dtype):
+        mod = pt.CHOMPModule(dtype=dtype, device=device)
+        mod.add_kinbody(pt.KinBody("table", pt.Scene.build(
+            boxes=[((0.75, 0.0, 0.5, 0, 0, 0, 1), (0.25, 0.4, 0.02))])))
+        robot = pt.Robot("wam", pt.wam7(), q_active=np.array(
+            [2.5, -1.8, 0.0, 2.0, 0.0, 0.2, 0.0]))
+        mod.add_robot(robot)
+        robot.enabled = False
+        mod.computedistancefield(kinbody="table", cube_extent=0.04)
+        robot.enabled = True
+        h = mod.create(robot="wam", adofgoal=np.array(
+            [0.4, 0.6, 0.1, 1.3, 0.0, -0.5, 0.0]), lambda_=100.0,
+            obs_factor=500.0, n_points=21)
+        return mod, h
+
+    mod, h = run(cuda, torch.float32)
+    mod64, h64 = run("cpu", torch.float64)
+    n0 = selfcol.LAUNCHES, sdf_lookup.LAUNCHES
+    cost = mod.iterate(run=h, n_iter=20)
+    assert (selfcol.LAUNCHES, sdf_lookup.LAUNCHES) == (n0[0] + 21, n0[1] + 21)
+    cost64 = mod64.iterate(run=h64, n_iter=20)
+    assert mod.runs[h].problem.traj.device.type == "cuda"
+    err = float((mod.runs[h].problem.traj.double().cpu()
+                 - mod64.runs[h64].problem.traj).abs().max())
+    assert err <= 1e-5, err
+    assert abs(cost - cost64) <= 1e-4 * abs(cost64)

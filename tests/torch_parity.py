@@ -162,3 +162,15 @@ def close(a, b, rtol):
     b = np.asarray(b)
     np.testing.assert_allclose(a, b, rtol=rtol,
                                atol=rtol * max(np.abs(b).max(), 1e-300))
+
+
+def share_fields(tm, jm):
+    """Give the port's module ``tm`` the JAX module's field values: the
+    two packages' float32 EDTs differ by an ulp on some cells (684 of
+    config 1's 2,304), which moves a solve by ~5e-9 relative, so a
+    module-level parity test compares the algorithms on one field."""
+    for ts, js in zip(tm.sdfs, jm.sdfs):
+        ts.grid.data = torch.as_tensor(np.array(js.grid.data),
+                                       device=ts.grid.data.device)
+    tm.clear_engine_cache()
+    return tm, jm
