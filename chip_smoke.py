@@ -25,6 +25,15 @@ and read just after:
   are held against their plain versions again on its inputs, and K1 is
   timed there.
 
+Then the module commands on config 1's world (runchomp, B = 1 create +
+iterate, gettraj, gettraj_batch, the field commands), a grabbed tray of
+110 spheres (K2's tiled path), and the front door: the WAM7 + hand
+loaded from OpenRAVE XML text and driven by SendCommand strings only
+(create with start_tsr at n_points 101, iterate 100, gettraj, destroy)
+against the same strings on the CPU in float64, B = 256 batches with
+start_tsr and with a quadratic start_cost hook timed beside config 1 and
+re-solved on the CPU, and both kernels at the start_tsr shape (m = 100).
+
 Each is timed on the card first; then the first 8 problems of configs
 1, 2, 3 and 4 are re-solved on the CPU in float64 through the same API
 (config 3 fed the card's own HMC draws) and held to max |Δtraj| ≤ 1e-3.
@@ -80,6 +89,15 @@ N_CHECK_POD = 512    # config 5 problems whose gettraj_batch flags the CPU check
 # the grab phase: a tray of 10 x 11 spheres of 1.5 cm radius, 3 cm apart,
 # held 22 cm out from the hand's base frame
 TRAY_OFFSET = [0.0, 0.0, 0.22, 0.0, 0.0, 0.0, 1.0]
+# the front door: the robot waits 0.1 rad up on J2 from START, its tool
+# ~4 cm above the start TSR's height (x, y and rotation free)
+FRONT_START = [2.5, -1.7, 0.0, 2.0, 0.0, 0.2, 0.0]
+FRONT_BW = [[-10, 10], [-10, 10], [0, 0], [-math.pi, math.pi],
+            [-math.pi, math.pi], [-math.pi, math.pi]]
+# the start_cost hook's mid posture and weight
+FRONT_QMID = [1.45, -0.45, 0.05, 1.65, 0.0, -0.15, 0.0]
+FRONT_W = 0.05
+XML_BAR = {"cpu": 1e-12, "cuda": 1e-5}   # XML robot vs wam7(), f64 / f32
 
 
 class PhaseFailed(Exception):
@@ -101,9 +119,10 @@ def card_line():
 
 # ---- the configurations (benchmarks/configs.py, copied) --------------------
 
-def bench_module(pt, dtype, device):
-    """Config 1: the bench.py scene through the port's API; returns
-    (module, run)."""
+def config1_world(pt, dtype, device, model=None, q=START):
+    """The bench.py scene (table + mug) and the robot ``model`` (the
+    built-in WAM7 by default) at ``q``, no field yet; returns (module,
+    robot)."""
     import numpy as np
 
     from or_cdchomp_tpu_torch.api import KinBody, Robot
@@ -114,8 +133,15 @@ def bench_module(pt, dtype, device):
                ((0.75, 0.0, 0.25, 0, 0, 0, 1), (0.08, 0.08, 0.25))])))
     mod.add_kinbody(KinBody("mug", pt.Scene.build(
         cylinders=[((0.65, 0.15, 0.58, 0, 0, 0, 1), 0.04, 0.06)])))
-    robot = Robot("wam", pt.wam7(), q_active=np.array(START))
-    mod.add_robot(robot)
+    robot = mod.add_robot(Robot("wam", model or pt.wam7(),
+                                q_active=np.array(q)))
+    return mod, robot
+
+
+def bench_module(pt, dtype, device):
+    """Config 1: the bench.py scene through the port's API; returns
+    (module, run)."""
+    mod, robot = config1_world(pt, dtype, device)
     robot.enabled = False
     mod.computedistancefield(kinbody="table", cube_extent=0.04)
     robot.enabled = True
@@ -171,16 +197,7 @@ def config4_run(pt, dtype, device, require_cache=False):
     moving point; returns the run."""
     import numpy as np
 
-    from or_cdchomp_tpu_torch.api import KinBody, Robot
-
-    mod = pt.CHOMPModule(dtype=dtype, device=device)
-    mod.add_kinbody(KinBody("table", pt.Scene.build(
-        boxes=[((0.75, 0.0, 0.5, 0, 0, 0, 1), (0.25, 0.4, 0.02)),
-               ((0.75, 0.0, 0.25, 0, 0, 0, 1), (0.08, 0.08, 0.25))])))
-    mod.add_kinbody(KinBody("mug", pt.Scene.build(
-        cylinders=[((0.65, 0.15, 0.58, 0, 0, 0, 1), 0.04, 0.06)])))
-    robot = Robot("wam", pt.wam7(), q_active=np.array(START))
-    mod.add_robot(robot)
+    mod, robot = config1_world(pt, dtype, device)
     robot.enabled = False
     mod.computedistancefield(kinbody="table", cube_extent=0.08,
                              cache_filename=str(CACHE_DIR / "sdf_float.dat"),
@@ -274,6 +291,146 @@ def due_tally(draw, dues):
     return tallied
 
 
+# ---- the front door: a robot from XML, driven by command strings ------------
+
+def wam7_xml(pt):
+    """The port's built-in WAM7 + hand (``wam7(active="all")``) as
+    OpenRAVE robot XML text: each body placed from its parent by
+    <Translation> and <quat> (w x y z), each joint a hinge about its axis
+    in the child frame (a fixed joint disabled), limits in radians, the
+    16 spheres in <orcdchomp><spheres>, and a <Manipulator> whose chain
+    makes the 7 arm joints the active DOFs."""
+    model = pt.wam7(active="all")
+    names = model.link_names
+
+    def nums(v):
+        return " ".join(repr(float(x)) for x in v)
+
+    out = ['<Robot name="BarrettWAM">', " <KinBody>",
+           f'  <Body name="{names[0]}" type="static"/>']
+    for i in range(1, len(names)):
+        o = model.origin[i]
+        out += [f'  <Body name="{names[i]}">',
+                f"   <offsetfrom>{names[model.parent[i]]}</offsetfrom>",
+                f"   <Translation>{nums(o[:3])}</Translation>",
+                f"   <quat>{nums([o[6], *o[3:6]])}</quat>", "  </Body>"]
+    for i in range(1, len(names)):
+        d = int(model.dof_index[i])
+        kind = "slider" if model.jtype[i] == 2 else "hinge"
+        enable = "" if d >= 0 else ' enable="false"'
+        out += [f'  <Joint name="{model.joint_names[i]}" type="{kind}"'
+                f"{enable}>",
+                f"   <Body>{names[model.parent[i]]}</Body>"
+                f"<Body>{names[i]}</Body>",
+                f"   <offsetfrom>{names[i]}</offsetfrom>",
+                f"   <axis>{nums(model.axis[i])}</axis>"]
+        if d >= 0:
+            lim = nums([model.dof_limits_lower[d], model.dof_limits_upper[d]])
+            out += [f"   <limitsrad>{lim}</limitsrad>",
+                    f"   <maxvel>{float(model.dof_max_vel[d])!r}</maxvel>"]
+        out.append("  </Joint>")
+    out.append("  <orcdchomp><spheres>")
+    for link, pos, r in zip(model.sphere_link, model.sphere_pos,
+                            model.sphere_radius):
+        out.append(f'   <sphere link="{names[link]}" pos="{nums(pos)}" '
+                   f'radius="{float(r)!r}"/>')
+    out += ["  </spheres></orcdchomp>", " </KinBody>",
+            ' <Manipulator name="arm">',
+            f"  <base>{names[0]}</base>",
+            f"  <effector>{names[model.ee_link]}</effector>",
+            f"  <Translation>{nums(model.ee_origin[:3])}</Translation>",
+            " </Manipulator>", "</Robot>"]
+    return "\n".join(out)
+
+
+def xml_sphere_error(torch, pt, model, device, dtype, n=64):
+    """max |Δx| of the sphere centres of ``model`` against the built-in
+    wam7() at n seeded configurations within the joint limits, through
+    CompiledFK on ``device`` in ``dtype``."""
+    import numpy as np
+
+    from or_cdchomp_tpu_torch.models.robot import CompiledFK
+
+    ref = pt.wam7()
+    rng = np.random.default_rng(11)
+    q = rng.uniform(ref.dof_limits_lower, ref.dof_limits_upper,
+                    size=(n, ref.n_dof))
+    opts = dict(dtype=dtype, device=device)
+    qT = torch.as_tensor(q.T[None], **opts)                # (1, n_dof, n)
+    base = torch.as_tensor(np.tile([0, 0, 0, 0, 0, 0, 1.0], (n, 1)), **opts)
+    xs = []
+    for mdl in (model, ref):
+        fk = CompiledFK(mdl, **opts)
+        xs.append(torch.stack(fk.fk_soa(
+            qT, tuple(base[:, i] for i in range(3)),
+            tuple(base[:, i] for i in range(3, 7))).x))
+    return float((xs[0].double() - xs[1].double()).abs().max())
+
+
+def front_door_tsr(pt):
+    """The front door's start TSR: the tool held at its height in
+    START, x, y and the rotation free."""
+    import numpy as np
+
+    from or_cdchomp_tpu_torch.models.robot import link_poses_np
+    from or_cdchomp_tpu_torch.utils import np_pose
+
+    model = pt.wam7()
+    ee = link_poses_np(model, np.array(START), np_pose.POSE_ID)[
+        model.ee_link]
+    H = np.eye(4)
+    H[:3, 3] = np_pose.compose(ee, model.ee_origin)[:3]
+    return pt.TSR.from_matrices(H, np.eye(4), Bw=np.array(FRONT_BW))
+
+
+def front_door_module(pt, model, dtype, device):
+    """Config 1's world with the robot ``model`` at FRONT_START, its field
+    built by a command string; returns the module."""
+    mod, robot = config1_world(pt, dtype, device, model, FRONT_START)
+    robot.enabled = False
+    check(mod.SendCommand("computedistancefield kinbody table "
+                          "cube_extent 0.04") == "", "computedistancefield")
+    robot.enabled = True
+    return mod
+
+
+def string_drive(pt, mod, tsr, n_iter=N_ITER, n_points=N_POINTS):
+    """The reference-style drive, by command strings only: create with
+    start_tsr, iterate, gettraj, destroy.  Returns (final cost, gettraj's
+    JSON as a dict, point 0's constraint residual (max |value|) before
+    and after, the run's spec)."""
+    import json
+
+    from or_cdchomp_tpu_torch.chomp.problem import as_batch
+
+    goal = " ".join(repr(float(v)) for v in GOAL)
+    h = mod.SendCommand(
+        f"create robot wam adofgoal '{goal}' n_points {n_points} lambda 100 "
+        f"obs_factor 500 start_tsr '{tsr.serialize()}'")
+    rn = mod.runs[h]
+    before = float(rn.engine.constraint_values(as_batch(rn.problem))
+                   .abs().max())
+    cost = float(mod.SendCommand(f"iterate run {h} n_iter {n_iter}"))
+    after = float(rn.engine.constraint_values(as_batch(rn.problem))
+                  .abs().max())
+    out = json.loads(mod.SendCommand(f"gettraj run {h}"))
+    check(mod.SendCommand(f"destroy run {h}") == "" and h not in mod.runs,
+          "destroy")
+    return cost, out, before, after, rn.spec
+
+
+def quadratic_hook(torch, dtype, device):
+    """create's start_cost for the front door: ½·FRONT_W·Σ (T −
+    FRONT_QMID)² over the moving points, pulling them towards a mid
+    posture; torch ops only, so torch.func.vmap takes it."""
+    mid = torch.as_tensor(FRONT_QMID, dtype=dtype, device=device)
+
+    def hook(T):
+        d = T - mid
+        return 0.5 * FRONT_W * torch.sum(d * d), FRONT_W * d
+    return hook
+
+
 # ---- timing and comparison --------------------------------------------------
 
 def time_ms(torch, fn, reps=20):
@@ -293,9 +450,16 @@ def time_ms(torch, fn, reps=20):
 
 
 def device_ms(torch, fn, reps=20):
-    """Device time per call of fn: the summed durations of the kernels it
-    launches, from torch.profiler over reps calls (None if the profiler
-    records no device activity)."""
+    """Device time per call of fn, from torch.profiler over reps calls:
+    for each kernel fn launches, the mean duration of its recorded
+    launches times its launches per call.  The profiler loses some
+    kernel events (on an H100 with torch 2.11: 1 of 20 in most profiles,
+    up to 12 of 20 late in this script's run), so a plain sum over reps
+    reads low; the per-call count is ceil(recorded / reps), right while
+    fewer than reps launches of a kernel are lost.  A loss is printed.
+    None if the profiler records no device activity."""
+    from collections import defaultdict
+
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -306,8 +470,17 @@ def device_ms(torch, fn, reps=20):
             fn()
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    us = [e.device_time for e in prof.events() if e.device_type == cuda]
-    return sum(us) / reps / 1e3 if us else None
+    us = defaultdict(list)
+    for e in prof.events():
+        if e.device_type == cuda:
+            us[e.name].append(e.device_time)
+    lost = {n: len(v) for n, v in us.items() if len(v) % reps}
+    if lost:
+        print(f"device_ms: {len(lost)} of {len(us)} kernels recorded a "
+              f"count that is not a multiple of {reps} calls: "
+              f"{sorted(lost.values())}")
+    total = sum(statistics.mean(v) * -(-len(v) // reps) for v in us.values())
+    return total / 1e3 if us else None
 
 
 def profile_calls(torch, fn, reps):
@@ -1021,6 +1194,173 @@ def grab_phase(torch, pt, card, dev):
     return entry
 
 
+def front_door_phase(torch, pt, card, dev):
+    """The reference's front door on the card: the WAM7 + hand loaded
+    from OpenRAVE XML text, held against the built-in wam7(); a solve
+    driven by command strings only (computedistancefield, create with
+    start_tsr at n_points 101, iterate 100, gettraj, destroy) against
+    the same strings on the CPU in float64, with its launches and point
+    0's residual; B = 256 batches with start_tsr and with a quadratic
+    start_cost hook, timed beside config 1, re-solved on the CPU; K1 and
+    K2 at the start_tsr shape against their plain versions.  Returns
+    their kernel entries."""
+    import numpy as np
+
+    from or_cdchomp_tpu_torch.chomp import cost_soa
+    from or_cdchomp_tpu_torch.ops import sdf_lookup, selfcol
+    from or_cdchomp_tpu_torch.parallel.batch import (BatchSolver,
+                                                     problem_batch_from_grid)
+
+    f32, f64, cpu = torch.float32, torch.float64, "cpu"
+
+    # -- the robot from XML ---------------------------------------------------
+    t0 = time.perf_counter()
+    xml = wam7_xml(pt)
+    model = pt.parse_robot_xml(xml)
+    errs = {d: xml_sphere_error(torch, pt, model, d, dt)
+            for d, dt in (("cpu", f64), ("cuda", f32))}
+    print(f"front door: WAM7 + hand from {len(xml)} B of OpenRAVE XML "
+          f"({len(model.link_names)} links, {model.n_dof} active DOFs "
+          f"{model.dof_names}, {len(model.sphere_radius)} spheres) in "
+          f"{time.perf_counter() - t0:.3f} s; sphere centres against "
+          f"wam7() at 64 configurations: max |Δx| {errs['cpu']} (CPU "
+          f"float64, bar {XML_BAR['cpu']}), {errs['cuda']} (card float32, "
+          f"bar {XML_BAR['cuda']})")
+    check(model.dof_names == pt.wam7().dof_names, "XML robot's DOFs")
+    for d, e in errs.items():
+        check(e <= XML_BAR[d], f"XML robot's spheres ({d}): {e}")
+
+    # -- driven by command strings, on the card and on the CPU ----------------
+    tsr = front_door_tsr(pt)
+    mod = front_door_module(pt, model, f32, dev)
+    counts_zero(sdf_lookup, selfcol)
+    t0 = time.perf_counter()
+    cost, out, before, after, spec = string_drive(pt, mod, tsr)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts(sdf_lookup, selfcol)
+    mod64 = front_door_module(pt, model, f64, cpu)
+    t1 = time.perf_counter()
+    cost64, out64, before64, after64, _ = string_drive(pt, mod64, tsr)
+    wall64 = time.perf_counter() - t1
+    d_str = float(np.abs(np.array(out["positions"])
+                         - np.array(out64["positions"])).max())
+    print(f"front door strings (create start_tsr, n_points {N_POINTS}, m "
+          f"{spec.m}; iterate {N_ITER}; gettraj; destroy): {wall:.3f} s "
+          f"(first call) on {card}, launches {launches} (expected {N_ITER} "
+          f"+ 1 each); final cost {cost} (CPU float64 {cost64}); point 0's "
+          f"residual {before} → {after} (CPU float64 {before64} → "
+          f"{after64}); max |Δtraj| against the CPU float64 strings {d_str} "
+          f"(bar {TRAJ_BAR}, {wall64:.2f} s on the CPU)")
+    check(spec.start_tsr and spec.m == N_POINTS - 1, f"front door {spec}")
+    check_launches(launches, N_ITER + 1, "front door strings")
+    check(len(out["positions"]) == N_POINTS
+          and np.isfinite(np.array(out["positions"])).all(),
+          "front door gettraj")
+    check(after < 0.01 * before, f"point 0's residual {before} → {after}")
+    check(d_str <= TRAJ_BAR, f"front door strings vs CPU: {d_str}")
+
+    # -- B = 256 batches: start_tsr, and a start_cost hook --------------------
+    _, run1 = bench_module(pt, f32, dev)
+    starts, goals = bench_endpoints(BATCH)
+    hook = quadratic_hook(torch, f32, dev)
+    runs = {"config 1": run1,
+            "start_tsr": mod.runs[mod.create(**run_kw(), start_tsr=tsr)],
+            "start_cost": mod.runs[mod.create(**run_kw(), start_cost=hook)]}
+    check(runs["start_cost"].engine.extra_cost is hook, "start_cost hook")
+    batches = {k: problem_batch_from_grid(r.problem, starts, goals, r.engine)
+               for k, r in runs.items()}
+    solvers = {k: BatchSolver(r.engine) for k, r in runs.items()}
+    outs, batch_launches = {}, {}
+    for k in ("start_tsr", "start_cost"):
+        counts_zero(sdf_lookup, selfcol)
+        t0 = time.perf_counter()
+        outs[k], costs = solvers[k].iterate(batches[k], N_ITER)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        batch_launches[k] = counts(sdf_lookup, selfcol)
+        print(f"front door {k}: iterate({N_ITER}) at B={BATCH} in {wall:.3f} "
+              f"s (first call), launches {batch_launches[k]}")
+        check_launches(batch_launches[k], N_ITER, f"front door {k}")
+        check(bool(torch.isfinite(costs).all()
+                   and torch.isfinite(outs[k].traj).all()),
+              f"front door {k}: non-finite costs or trajectories")
+    # warm walls in turns, config 1 beside the two
+    walls = {k: [] for k in solvers}
+    for _ in range(LATENCY_REPS):
+        for k, sv in solvers.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sv.iterate(batches[k], N_ITER)
+            torch.cuda.synchronize()
+            walls[k].append(time.perf_counter() - t0)
+    for k, w in walls.items():
+        print(f"front door {k} iterate({N_ITER}) at B={BATCH}: warm walls "
+              f"{w} s, median {BATCH / statistics.median(w)} solves/s on "
+              f"{card}")
+    res = runs["start_tsr"].engine.constraint_values
+    r0 = float(res(batches["start_tsr"]).abs().max())
+    r1 = float(res(outs["start_tsr"]).abs().max())
+    print(f"front door start_tsr batch: point 0's residual over the batch "
+          f"{r0} → {r1}")
+    check(r1 < 0.1 * r0, f"start_tsr batch residual {r0} → {r1}")
+
+    # -- K1 and K2 at the start_tsr shape (m = 100) ---------------------------
+    eng, probs = runs["start_tsr"].engine, batches["start_tsr"]
+    _, x, vel, acc = cost_soa.sphere_kinematics(eng.spec, eng.fk, probs)
+    m, S, B = x.shape[1:]
+    check((m, S, B) == (N_POINTS - 1, 15, BATCH), f"start_tsr {(m, S, B)}")
+    oargs = obstacle_args(eng, probs, x, vel, acc)
+    k1_launch(torch, sdf_lookup, oargs, "start_tsr")
+    err = check_obstacle(torch, sdf_lookup, oargs, "start_tsr obstacle")
+    t = time_obstacle(torch, sdf_lookup, oargs, "start_tsr obstacle")
+    F, mx, my, mz = eng.fields.data.shape
+    e1 = kernel_entry(
+        "obstacle_start_tsr", "or_cdchomp_tpu_torch/csrc/obstacle.cu",
+        "or_cdchomp_tpu/ops/pallas_sdf.py:86", err, t,
+        sdf_lookup.obstacle_traffic_bytes(m, S, B, F, mx, my, mz),
+        sdf_lookup.obstacle_flops(m, S, B, F))
+    xo = probs.inactive_pos.permute(2, 1, 0).contiguous()
+    sargs = (x, vel, xo, *eng.pairs, probs.epsilon_self,
+             probs.obs_factor_self)
+    P, SI = eng.pairs[0].shape[0], xo.shape[1]
+    *_, reach = selfcol.vote_stats(x, xo, *eng.pairs, probs.epsilon_self)
+    net_k, c_k = selfcol.selfcol_pairs(*sargs)
+    net_r, c_r = selfcol.selfcol_pairs_ref(*sargs)
+    err = max(compare(torch, "start_tsr selfcol net", net_k, net_r),
+              compare(torch, "start_tsr selfcol cost", c_k, c_r))
+    t = timings(torch, lambda: selfcol.selfcol_pairs(*sargs),
+                lambda: selfcol.selfcol_pairs_ref(*sargs))
+    print(f"start_tsr selfcol: max_abs_err {err}, per call {t[0]:.4f} ms vs "
+          f"plain {t[1]:.4f} ms, device {t[2]} ms vs plain {t[3]} ms")
+    e2 = kernel_entry(
+        "selfcol_start_tsr", "or_cdchomp_tpu_torch/csrc/selfcol.cu",
+        "or_cdchomp_tpu/ops/pallas_selfcol.py:197", err, t,
+        selfcol.traffic_bytes(m, S, SI, B, P), selfcol.flops(m, B, P, reach))
+    for e, k in ((e1, "obstacle"), (e2, "selfcol")):
+        e["launches"] = batch_launches["start_tsr"][k]
+        print(f"{e['name']}: device {e['ms']} ms, bound {e['bound_ms']} ms "
+              f"({e['bound_by']}), share {e['bound_share']:.4f} on {card}")
+    del x, vel, acc, oargs, sargs, net_k, c_k, net_r, c_r
+
+    # -- the first 8 of each batch re-solved on the CPU in float64 ------------
+    cpu_runs = {
+        "start_tsr": mod64.runs[mod64.create(**run_kw(), start_tsr=tsr)],
+        "start_cost": mod64.runs[mod64.create(
+            **run_kw(), start_cost=quadratic_hook(torch, f64, cpu))]}
+    for k, r in cpu_runs.items():
+        t0 = time.perf_counter()
+        p64 = problem_batch_from_grid(r.problem, starts[:N_CHECK],
+                                      goals[:N_CHECK], r.engine)
+        out64, _ = BatchSolver(r.engine).iterate(p64, N_ITER)
+        dtraj = max_dtraj(outs[k], out64)
+        print(f"front door {k} CPU float64 re-solve of {N_CHECK} problems: "
+              f"max |Δtraj| {dtraj} (bar {TRAJ_BAR}), "
+              f"{time.perf_counter() - t0:.2f} s")
+        check(dtraj <= TRAJ_BAR, f"front door {k}: max |Δtraj| {dtraj}")
+    return [e1, e2]
+
+
 def main():
     if not (ROOT / "or_cdchomp_tpu_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -1369,6 +1709,7 @@ def main():
     entry_split = module_phase(torch, pt, card, dev, out, out5)
     del out5
     entry_grab = grab_phase(torch, pt, card, dev)
+    entries_front = front_door_phase(torch, pt, card, dev)
 
     # -- the same solves on the CPU in float64 (plain versions) ---------------
     cpu, f64 = "cpu", torch.float64
@@ -1430,7 +1771,8 @@ def main():
           f"{time.perf_counter() - t0:.2f} s")
     check(dtraj <= TRAJ_BAR, f"config 4: max |Δtraj| {dtraj} > {TRAJ_BAR}")
 
-    results += [entry_f3, *entries4, entry_b5, entry_split, entry_grab]
+    results += [entry_f3, *entries4, entry_b5, entry_split, entry_grab,
+                *entries_front]
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

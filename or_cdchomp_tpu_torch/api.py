@@ -10,12 +10,15 @@ orcdchomp.py:204-219):
  - create / iterate / gettraj / destroy, runchomp
  - gettraj_batch: retime and check a whole BatchSolver batch
 
-``create`` takes momentum and HMC, a floating base, ``starttraj`` and
-the TSR constraints ``con_tsr``, ``con_tsrs`` and ``everyn_tsr``
-(``start_tsr`` and ``start_cost`` need the per-problem path, which is
-not ported).  A run is one problem: ``iterate`` steps it as a batch of
-one through ``ChompEngine.step_batched``, with the run's own HMC draw
-source, so runs that share a cached engine share no random state.
+``create`` takes every kwarg of the reference: momentum and HMC, a
+floating base, ``starttraj``, the TSR constraints ``con_tsr``,
+``con_tsrs``, ``everyn_tsr`` and ``start_tsr`` (the start point moves,
+held to its TSR), and ``start_cost``, an extra-cost hook of one problem
+that the engine applies with ``torch.func.vmap``.  A run is one problem:
+``iterate`` steps it as a batch of one through
+``ChompEngine.step_batched``, with the run's own HMC draw source, so
+runs that share a cached engine share no random state.
+``SendCommand`` takes the reference's command strings (transport.py).
 Robots can grab kinbodies (their spheres re-root to the grabbing link).
 A created run's engine and problem feed ``parallel.batch`` for batched
 solves.
@@ -32,7 +35,8 @@ import torch
 
 from or_cdchomp_tpu_torch.chomp import metric as metric_mod
 from or_cdchomp_tpu_torch.chomp.constraints import TSRConstraintSet
-from or_cdchomp_tpu_torch.chomp.problem import ChompProblem, ChompSpec
+from or_cdchomp_tpu_torch.chomp.problem import (ChompProblem, ChompSpec,
+                                                as_batch, first)
 from or_cdchomp_tpu_torch.chomp.solver import ChompEngine, HmcDraw
 from or_cdchomp_tpu_torch.models.robot import (CompiledFK, RobotModel,
                                                link_poses_np,
@@ -43,6 +47,7 @@ from or_cdchomp_tpu_torch.ops.grid import Grid3D, pad_stack_grids
 from or_cdchomp_tpu_torch.ops.quat import pose_apply
 from or_cdchomp_tpu_torch.ops.voxelize import (Scene, scene_distance,
                                                voxelize_scene)
+from or_cdchomp_tpu_torch.transport import send_command
 from or_cdchomp_tpu_torch.utils import np_pose
 
 _DEFAULTS = dict(  # orcdchomp_mod.cpp:1840-1875
@@ -341,16 +346,6 @@ def _retime(q, vmax):
     return times, seg
 
 
-def _as_batch(problem):
-    """A run's problem as a batch of one (views)."""
-    return ChompProblem(**{k: v[None] for k, v in problem.leaves().items()})
-
-
-def _first(probs):
-    """Problem 0 of a batch, unbatched (views)."""
-    return ChompProblem(**{k: v[0] for k, v in probs.leaves().items()})
-
-
 class CHOMPModule:
     """The module: world registry + SDF registry + run registry.  Fields,
     engines and problems live on ``device`` (the card unless the caller
@@ -591,9 +586,11 @@ class CHOMPModule:
         (orcdchomp_mod.cpp:2090-2101).  ``use_hmc`` implies momentum;
         ``seed`` seeds the run's HMC draw source (``Run.draw``), and the
         engine's (``ChompEngine.draw``, which batch solves use) when this
-        create builds the engine rather than taking a cached one.  Kwargs
-        of features not ported yet raise NotImplementedError naming the
-        kwarg.
+        create builds the engine rather than taking a cached one.
+        ``start_tsr`` makes the start point a moving point
+        (m = n_points − 1) held to that TSR; ``start_cost`` is the
+        engine's ``extra_cost`` hook, ``hook(T_mov (m, n)) → (cost (),
+        grad (m, n))`` on tensors.
         """
         r = self._resolve_robot(robot)
         n_points = n_points or _DEFAULTS["n_points"]
@@ -644,16 +641,13 @@ class CHOMPModule:
                 raise ValueError(
                     "size of ee_torque_weights does not match active dofs!")
 
-        # both need the per-problem (AoS) step, which is not ported
-        for kw, v in dict(start_tsr=start_tsr, start_cost=start_cost).items():
-            if v is not None:
-                raise NotImplementedError(f"{kw}: not ported yet")
-
-        m = n_points - 2
+        m = n_points - 2 + (start_tsr is not None)
         spec = ChompSpec(n_points=n_points, n=n, m=m, D=D,
                          floating_base=bool(floating_base),
                          use_momentum=bool(use_momentum or use_hmc),
-                         use_hmc=bool(use_hmc), n_fields=len(self.sdfs))
+                         use_hmc=bool(use_hmc),
+                         start_tsr=start_tsr is not None,
+                         n_fields=len(self.sdfs))
 
         # initial trajectory (orcdchomp_mod.cpp:2371-2464): starttraj
         # resampled to n_points, else the straight line; a floating
@@ -678,7 +672,10 @@ class CHOMPModule:
             for i in range(n_points):
                 traj[i, :7] = np_pose.normalize(traj[i, :7])
 
-        ops = metric_mod.build_metric(m, spec.dt, D=D)     # chomp.c:239-428
+        # chomp.c:239-428; under start_tsr the start point is free
+        ops = metric_mod.build_metric(m, spec.dt, D=D,
+                                      has_init0=start_tsr is None)
+        init0 = None if start_tsr is not None else traj[0]
         # joint limits (orcdchomp_mod.cpp:2638-2660); the base is free
         lo = np.asarray(r.model.dof_limits_lower, dtype=np.float64)
         hi = np.asarray(r.model.dof_limits_upper, dtype=np.float64)
@@ -703,6 +700,8 @@ class CHOMPModule:
             tsr_T0w_inv.append(np_pose.invert(tsr.T0w))
             tsr_Twe_inv.append(np_pose.invert(tsr.Twe))
 
+        if start_tsr is not None:
+            add_con(start_tsr, 0)
         if everyn_tsr is not None:
             for i in range(m):
                 add_con(everyn_tsr, i)
@@ -723,18 +722,21 @@ class CHOMPModule:
 
         # the engine, shared by creates of the same static structure
         # (api.py:792-809); the model is keyed by identity (grab and
-        # release make a new one), the fields by their registry version
-        key = (spec, id(r.model), self._fields_version, cons)
+        # release make a new one), the fields by their registry version,
+        # the hook by identity (the cached engine holds it, so its id is
+        # not reused while the entry lives)
+        key = (spec, id(r.model), self._fields_version, cons,
+               None if start_cost is None else id(start_cost))
         engine = self._engine_cache.pop(key, None)
         if engine is None:
             engine = ChompEngine(
                 spec, r.model, pad_stack_grids([s.grid for s in self.sdfs],
                                                self.device, self.dtype),
                 dtype=self.dtype, device=self.device, metric_ops=ops,
-                seed=seed, cons=cons)
+                seed=seed, cons=cons, extra_cost=start_cost)
         self._engine_cache[key] = engine   # at the back: most recent
         self._evict_engines()
-        B, trC, Evels = engine.build_affine(traj[0], traj[-1], n)
+        B, trC, Evels = engine.build_affine(init0, traj[-1], n)
 
         # inactive sphere world positions (orcdchomp_mod.cpp:2334-2345)
         order = engine._sphere_order
@@ -799,14 +801,14 @@ class CHOMPModule:
         done = 0
         chunk = 1 if (max_time is not None or trajs_fileformstr) \
             else rn.engine.ITER_CHUNK
-        probs = _as_batch(rn.problem)
+        probs = as_batch(rn.problem)
         while done < n_iter:
             todo = min(chunk, n_iter - done)
             if trajs_fileformstr:
                 np.savetxt(trajs_fileformstr % rn.iteration,
                            rn.problem.traj.cpu().numpy())
             probs, costs = rn.engine.iterate_batched(probs, todo, rn.draw)
-            rn.problem = _first(probs)
+            rn.problem = first(probs)
             costs = costs[0].cpu().numpy()                 # (todo, 3)
             # no_report_cost suppresses the per-iteration cost report
             # (README.md:137); the .dat rows do not depend on it: the
@@ -1001,6 +1003,13 @@ class CHOMPModule:
         hits &= active[None, :]
         return CheckResult(collides=hits.any(axis=0), env_hits=hits[:-1],
                            self_hit=hits[-1], names=names)
+
+    # ----- string transport (orcwrap parity) ------------------------------
+
+    def SendCommand(self, cmd: str, releasegil: bool = False) -> str:
+        """Dispatch a shell-quoted command string (the reference's
+        SendCommand wire format, orcwrap.cpp:37-69)."""
+        return send_command(self, cmd)
 
     # ----- destroy / runchomp --------------------------------------------
 

@@ -52,12 +52,20 @@ def _selfcol_soa(pairs, probs, x_i, vel):
     return cost.sum(dim=(0, 1)), net
 
 
+def mov_lo(spec):
+    """The first moving point: 0 under start_tsr (the start point moves),
+    else 1 (solver.py:215-224, orcdchomp_mod.cpp:1040-1046)."""
+    return 0 if spec.start_tsr else 1
+
+
 def sphere_kinematics(spec, fk, probs):
     """FK of a batch and the finite-difference workspace velocities /
     accelerations of the spheres at the moving points (sphere_cost_pre,
     orcdchomp_mod.cpp:968-1132).  A fixed base is the problem's
     robot_pose; a floating one is each point's traj[..., :7]
-    (cost_soa.py:652-656).
+    (cost_soa.py:652-656).  Under start_tsr point 0 moves too: its
+    velocity is the one-sided difference and its acceleration repeats
+    point 1's (chomp/cost.py:89-110).
 
     Returns (fk_out, x_mov, vel, acc), the last three (3, m, S, B).
     """
@@ -71,20 +79,25 @@ def sphere_kinematics(spec, fk, probs):
         fk_out = fk.fk_soa(Tt, tuple(base[:, i] for i in range(3)),
                            tuple(base[:, i] for i in range(3, 7)))
     X = torch.stack(fk_out.x)                           # (3, n_points, S, B)
-    x_mov = X[:, 1:-1].contiguous()
     vel = (X[:, 2:] - X[:, :-2]) / (2.0 * dt)
     acc = (X[:, :-2] - 2.0 * X[:, 1:-1] + X[:, 2:]) / (dt * dt)
+    if spec.start_tsr:
+        x_mov = X[:, :-1].contiguous()
+        vel = torch.cat([(X[:, 1:2] - X[:, :1]) / dt, vel], dim=1)
+        acc = torch.cat([acc[:, :1], acc], dim=1)
+    else:
+        x_mov = X[:, 1:-1].contiguous()
     return fk_out, x_mov, vel, acc
 
 
-def _base_jacT(fk, probs, m, x_mov, w):
+def _base_jacT(fk, probs, lo, m, x_mov, w):
     """The floating base's block of G (orcdchomp_mod.cpp:1050-1086,
     cost_soa.py:699-743): damp·pose_jac(base)ᵀ·[Σ_s x×w; Σ_s w] per
-    moving point, with pose_jac stacked as (B, m, 6, 7).  x_mov, w
-    (3, m, S, B).  Returns (B, m, 7)."""
+    moving point (points lo .. lo + m − 1), with pose_jac stacked as
+    (B, m, 6, 7).  x_mov, w (3, m, S, B).  Returns (B, m, 7)."""
     xw = torch.linalg.cross(x_mov, w, dim=0)
     s = torch.cat([xw, w]).sum(dim=2).permute(2, 1, 0)      # (B, m, 6)
-    Jsp = fk.mats.pose_jac(probs.traj[:, 1:1 + m, :7])
+    Jsp = fk.mats.pose_jac(probs.traj[:, lo:lo + m, :7])
     return _BASE_JAC_DAMP * torch.matmul(s[..., None, :], Jsp)[..., 0, :]
 
 
@@ -105,11 +118,12 @@ def total_cost_grad_batched(spec, fk, fields, pairs, radii_act, probs,
         return (c_obs + c_self) / spec.m, None, fk_out
 
     w = w_obs + w_self
-    anch_mov = tuple(c[1:-1] for c in fk_out.anch_pos)
-    axw_mov = tuple(c[1:-1] for c in fk_out.axis_w)
+    lo, m = mov_lo(spec), spec.m
+    anch_mov = tuple(c[lo:lo + m] for c in fk_out.anch_pos)
+    axw_mov = tuple(c[lo:lo + m] for c in fk_out.axis_w)
     G = fk.apply_sphere_jacT_soa(anch_mov, axw_mov, tuple(x_mov), tuple(w))
     G = G.permute(2, 0, 1)                              # (B, m, n_arm)
     if spec.floating_base:
-        G = torch.cat([_base_jacT(fk, probs, spec.m, x_mov, w), G], dim=-1)
+        G = torch.cat([_base_jacT(fk, probs, lo, m, x_mov, w), G], dim=-1)
     return (c_obs + c_self) / spec.m, G / spec.m, fk_out
 

@@ -87,3 +87,13 @@ class ChompProblem:
         """{name: tensor} of every leaf."""
         return {f.name: getattr(self, f.name)
                 for f in dataclasses.fields(self)}
+
+
+def as_batch(problem: ChompProblem) -> ChompProblem:
+    """One problem as a batch of one (views)."""
+    return ChompProblem(**{k: v[None] for k, v in problem.leaves().items()})
+
+
+def first(probs: ChompProblem) -> ChompProblem:
+    """Problem 0 of a batch, unbatched (views)."""
+    return ChompProblem(**{k: v[0] for k, v in probs.leaves().items()})

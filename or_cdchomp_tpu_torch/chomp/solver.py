@@ -18,8 +18,12 @@ The m×m A/A⁻¹ products are dense matmuls shared across the batch;
 iterations are a Python loop.  The HMC resample is split into a random
 draw (``HmcDraw``, or any callable of the same contract) and a
 deterministic update (``hmc_resample``), so that a test can replay
-another implementation's random numbers.  start_tsr (which needs the
-per-problem path) and the semiseparable metric are not ported yet.
+another implementation's random numbers.  Under start_tsr the start
+point moves (the window of moving points begins at 0), and an
+``extra_cost`` hook (create's start_cost) adds its cost and gradient to
+every problem through ``torch.func.vmap``.  The per-problem entry
+points ``step``, ``iterate`` and ``costs_only`` are this batch step at
+B = 1.  The semiseparable metric is not ported yet.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from or_cdchomp_tpu_torch.chomp import cost_soa
 from or_cdchomp_tpu_torch.chomp import metric as metric_mod
 from or_cdchomp_tpu_torch.chomp.constraints import (
     ProjectionOps, TSRConstraintSet, eval_tsr_all_soa, project_constraints)
+from or_cdchomp_tpu_torch.chomp.problem import as_batch, first
 from or_cdchomp_tpu_torch.models.robot import CompiledFK
 from or_cdchomp_tpu_torch.ops.quat import pose_normalize
 from or_cdchomp_tpu_torch.ops.selfcol import pair_table
@@ -112,21 +117,26 @@ def hmc_resample(probs, z, u):
 
 class ChompEngine:
     """Static solver context on one device: spec + robot + fields + dense
-    metric operators + constraint layout.  One engine serves every
-    problem that shares its static structure; problems are batched along
-    a leading axis."""
+    metric operators + constraint layout + the extra-cost hook.  One
+    engine serves every problem that shares its static structure;
+    problems are batched along a leading axis.
+
+    ``extra_cost`` (JAX solver.py:226-236, chomp.c:495-501) is a hook of
+    one problem, ``hook(T_mov (m, n)) → (cost (), grad (m, n))`` on
+    tensors, added after the 1/m scaling to the cost and the gradient
+    of every step and to the final cost report; the batch applies it
+    with ``torch.func.vmap``."""
 
     # steps a module run (api.CHOMPModule.iterate) takes between reads of
     # its costs to the host (solver.py:593)
     ITER_CHUNK = 16
 
     def __init__(self, spec, model, fields, dtype=torch.float32,
-                 device="cuda", metric_ops=None, seed=0, cons=None):
-        if spec.start_tsr:
-            # start_tsr moves the first point, which only the per-problem
-            # path takes (batch_native_ok, solver.py:380-384)
-            raise NotImplementedError("start_tsr: not ported yet")
-        if (metric_mod.sep_eligible(spec.D, True)
+                 device="cuda", metric_ops=None, seed=0, cons=None,
+                 extra_cost=None):
+        # the JAX engine's metric choice (solver.py:70-75): start_tsr
+        # frees the start point, so it keeps the dense metric at any m
+        if (metric_mod.sep_eligible(spec.D, not spec.start_tsr)
                 and spec.m >= metric_mod.SEP_MIN_M):
             raise NotImplementedError(
                 f"m={spec.m} >= {metric_mod.SEP_MIN_M} selects the "
@@ -135,13 +145,16 @@ class ChompEngine:
         self.dtype = dtype
         self.device = torch.device(device)
         self.fields = fields
+        self.extra_cost = extra_cost
+        self.mov_lo = cost_soa.mov_lo(spec)
         # HMC draw source of the batch drivers; a caller may replace it
         # with any callable of the same contract (a recorder, or a replay
         # of given draws).  A module run carries its own (api.Run.draw),
         # so runs that share a cached engine share no random state.
         self.draw = HmcDraw(seed, device)
         if metric_ops is None:
-            metric_ops = metric_mod.build_metric(spec.m, spec.dt, D=spec.D)
+            metric_ops = metric_mod.build_metric(
+                spec.m, spec.dt, D=spec.D, has_init0=not spec.start_tsr)
         self.metric_ops = metric_ops
         self.A = torch.as_tensor(metric_ops.A, dtype=dtype, device=device)
         self.Ainv = torch.as_tensor(metric_ops.Ainv, dtype=dtype,
@@ -184,7 +197,8 @@ class ChompEngine:
 
     def build_affine(self, init0, final0, n):
         """(B, trC, Evels) of one problem's endpoint values
-        (chomp.c:319-330, 348-386), float64 numpy."""
+        (chomp.c:319-330, 348-386), float64 numpy; ``init0`` is None
+        under start_tsr."""
         ops = self.metric_ops
         B, trC = metric_mod.build_B_trC(ops, init0, final0, n)
         Ev = metric_mod.build_Evels(ops, init0, final0, n)
@@ -193,22 +207,24 @@ class ChompEngine:
     def build_affine_batch(self, inits, finals, n):
         """Vectorised :meth:`build_affine` over (P, n) endpoints: the
         metric terms are linear in the endpoints
-        (metric.affine_generators).  Returns float64 numpy
-        (B (P, m, n), trC (P,), Evels (P, m, n))."""
+        (metric.affine_generators).  Under start_tsr the start point
+        moves, so ``inits`` (which may be None) adds nothing.  Returns
+        float64 numpy (B (P, m, n), trC (P,), Evels (P, m, n))."""
         m, dt = self.spec.m, self.spec.dt
-        inits = np.asarray(inits, dtype=np.float64)
         finals = np.asarray(finals, dtype=np.float64)
         P = finals.shape[0]
         binit, bfinal, c_ii, c_if, c_ff = metric_mod.affine_generators(
             self.metric_ops)
-        B = (bfinal[None, :, None] * finals[:, None, :]
-             + binit[None, :, None] * inits[:, None, :])
-        trC = (c_ff * np.sum(finals * finals, axis=1)
-               + c_ii * np.sum(inits * inits, axis=1)
-               + c_if * np.sum(inits * finals, axis=1))
+        B = bfinal[None, :, None] * finals[:, None, :]
+        trC = c_ff * np.sum(finals * finals, axis=1)
         Ev = np.zeros((P, m, n))
-        Ev[:, 0] = -0.5 / dt * inits
         Ev[:, m - 1] = 0.5 / dt * finals
+        if not self.spec.start_tsr:
+            inits = np.asarray(inits, dtype=np.float64)
+            B = B + binit[None, :, None] * inits[:, None, :]
+            trC = (trC + c_ii * np.sum(inits * inits, axis=1)
+                   + c_if * np.sum(inits * finals, axis=1))
+            Ev[:, 0] = -0.5 / dt * inits
         return B, trC, Ev
 
     # -- joint limits --------------------------------------------------------
@@ -242,6 +258,20 @@ class ChompEngine:
             T = torch.where(pred[:, None, None], T_new, T)
         return T
 
+    # -- the extra-cost hook ------------------------------------------------
+
+    def _extra(self, T_mov):
+        """The hook's (cost (B,), grad (B, m, n)) over the batch, through
+        ``torch.func.vmap`` (JAX: vmap of the per-problem step)."""
+        try:
+            return torch.func.vmap(self.extra_cost)(T_mov)
+        except (RuntimeError, ValueError) as e:
+            name = getattr(self.extra_cost, "__qualname__",
+                           repr(self.extra_cost))
+            raise type(e)(
+                f"extra_cost hook {name} cannot run under torch.func.vmap "
+                f"over the problem batch: {e}") from e
+
     # -- the step ------------------------------------------------------------
 
     def step_batched(self, probs, draw=None):
@@ -251,9 +281,9 @@ class ChompEngine:
         the updated one (chomp.c:475-491, 658-677).  ``draw`` is the HMC
         draw source (default :attr:`draw`); a run passes its own."""
         spec = self.spec
-        m = spec.m
+        lo, hi = self.mov_lo, self.mov_lo + spec.m
         lam = probs.lambda_                                 # (B,)
-        T_mov = probs.traj[:, 1:1 + m]                      # (B, m, n)
+        T_mov = probs.traj[:, lo:hi]                        # (B, m, n)
 
         AG, resample_iter, leap = (probs.AG, probs.resample_iter,
                                    probs.leapfrog_first)
@@ -263,6 +293,10 @@ class ChompEngine:
 
         c_obs, G, fk_out = cost_soa.total_cost_grad_batched(
             spec, self.fk, self.fields, self.pairs, self.radii_act, probs)
+        if self.extra_cost is not None:
+            # after the 1/m scaling (chomp.c:495-501)
+            ce, Ge = self._extra(T_mov)
+            c_obs, G = c_obs + ce, G + Ge
         G = G + self.apply_A_b(T_mov) + probs.B
         if spec.use_momentum:
             # leapfrog: a half step on first use (chomp.c:533-548)
@@ -282,7 +316,7 @@ class ChompEngine:
         # on the pre-renormalisation trajectory (chomp.c:660-677)
         c_smooth = self._smooth_cost(probs, T_mov)
 
-        traj = torch.cat([probs.traj[:, :1], T_mov, probs.traj[:, 1 + m:]],
+        traj = torch.cat([probs.traj[:, :lo], T_mov, probs.traj[:, hi:]],
                          dim=1)
         if spec.floating_base:
             # per-iteration quaternion renormalisation of every point
@@ -308,6 +342,25 @@ class ChompEngine:
             return probs, probs.traj.new_zeros((B, 0, 3))
         return probs, torch.stack(costs, dim=1)
 
+    # -- per-problem entry points (JAX solver.py:244, 304, 578) --------------
+
+    def step(self, prob, draw=None):
+        """One iteration of one problem: :meth:`step_batched` at B = 1.
+        Returns (next_prob, (total, obstacle, smoothness)), 0-d each."""
+        probs, costs = self.step_batched(as_batch(prob), draw)
+        return first(probs), tuple(costs[0])
+
+    def iterate(self, prob, n_iter: int, draw=None):
+        """n_iter iterations of one problem; returns (prob, costs
+        (n_iter, 3))."""
+        probs, costs = self.iterate_batched(as_batch(prob), n_iter, draw)
+        return first(probs), costs[0]
+
+    def costs_only(self, prob):
+        """The cost report of one problem without an update:
+        (total, obstacle, smoothness), 0-d each."""
+        return tuple(c[0] for c in self.final_costs_batch(as_batch(prob)))
+
     # -- final costs ---------------------------------------------------------
 
     def _smooth_cost(self, probs, T_mov):
@@ -321,12 +374,15 @@ class ChompEngine:
         (cd_chomp_iterate with do_iteration=0, orcdchomp_mod.cpp:
         2830-2831; JAX ``vmap(costs_only)``): (total, obstacle,
         smoothness), each (B,).  Runs the SoA cost path, so K1 and K2
-        launch once each."""
+        launch once each; the extra-cost hook's cost is in the obstacle
+        term, as in the step."""
+        T_mov = probs.traj[:, self.mov_lo:self.mov_lo + self.spec.m]
         c_obs, _, _ = cost_soa.total_cost_grad_batched(
             self.spec, self.fk, self.fields, self.pairs, self.radii_act,
             probs, want_grad=False)
-        c_smooth = self._smooth_cost(probs,
-                                     probs.traj[:, 1:1 + self.spec.m])
+        if self.extra_cost is not None:
+            c_obs = c_obs + self._extra(T_mov)[0]
+        c_smooth = self._smooth_cost(probs, T_mov)
         return c_obs + c_smooth, c_obs, c_smooth
 
     def constraint_values(self, probs):

@@ -25,7 +25,9 @@ def problem_batch_from_grid(problem: ChompProblem, starts, goals, engine,
     template supplies fields, limits and weights; each row gets the
     straight line from starts[p] to goals[p] ((P, n) arrays), its own
     metric affine terms and a fresh HMC state (resample at iteration 0,
-    leapfrog half step first).  Every leaf is a contiguous tensor.
+    leapfrog half step first).  Every leaf is a contiguous tensor.  Under
+    start_tsr the start is a moving point: it seeds the line and adds no
+    affine term.
 
     The JAX package's signature: ``metric_ops`` is accepted and unused
     there too (the engine's metric builds the affine terms).  ``seeds``

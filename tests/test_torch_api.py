@@ -124,17 +124,6 @@ def test_error_probes_match_jax(mods, case):
     assert str(got.value) == str(want.value)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(start_cost=lambda t: t), dict(start_tsr=object()),
-])
-def test_unported_kwargs_raise(mods, kw):
-    """Both need the per-problem (AoS) step, which is not ported."""
-    tm, _ = mods
-    name = next(iter(kw))
-    with pytest.raises(NotImplementedError, match=name):
-        tm.create(robot="wam", adofgoal=GOAL, n_points=11, **kw)
-
-
 _UPRIGHT = np.array([[-10, 10], [-10, 10], [-10, 10], [0, 0], [0, 0],
                      [-np.pi, np.pi]])
 _POSED = np.array([[0, 0], [-10, 10], [0, 0], [0, 0], [-1, 1], [0, 0]])

@@ -42,3 +42,31 @@ def test_rule_catches_jax_and_package():
                      "import or_cdchomp_tpu_torch.ops\n")
     assert [n for n in _imported(tree) if _forbidden(n)] == [
         "jax.numpy", "or_cdchomp_tpu.ops"]
+
+
+# host modules the port keeps as copies of the JAX package's: each is
+# walked above and names its source in its first line
+COPIES = ["transport", "client", "utils/shparse", "models/kdata",
+          "models/orxml", "models/urdf", "models/wam7", "tsr",
+          "utils/np_pose", "chomp/metric"]
+
+
+@pytest.mark.parametrize("name", COPIES)
+def test_copies_walked_and_headed(name):
+    path = PKG / f"{name}.py"
+    assert path in set(PKG.rglob("*.py"))
+    first = path.read_text().splitlines()[0]
+    assert first.startswith(f"# Copied from or_cdchomp_tpu/{name}.py")
+
+
+def test_front_door_exports():
+    """The loaders and the transport from the package, as
+    or_cdchomp_tpu/__init__.py:16-17 exports them."""
+    import or_cdchomp_tpu_torch as pt
+    from or_cdchomp_tpu_torch import client, transport
+    from or_cdchomp_tpu_torch.models import orxml, urdf
+
+    assert pt.parse_robot_xml is orxml.parse_robot_xml
+    assert (pt.parse_urdf, pt.load_urdf) == (urdf.parse_urdf, urdf.load_urdf)
+    assert client.send_command is transport.send_command
+    assert callable(pt.CHOMPModule.SendCommand)

@@ -687,3 +687,83 @@ def test_module_iterate_card_matches_cpu(cuda):
                  - mod64.runs[h64].problem.traj).abs().max())
     assert err <= 1e-5, err
     assert abs(cost - cost64) <= 1e-4 * abs(cost64)
+
+
+# ---- the front door: start_tsr, start_cost, an XML robot by strings ---------
+
+def _front_door(device, dtype):
+    """chip_smoke's front door at a small shape: the WAM7 + hand from its
+    OpenRAVE XML text on config 1's world, the field built by a command
+    string.  Returns (module, start TSR)."""
+    import chip_smoke as cs
+    import or_cdchomp_tpu_torch as pt
+
+    model = pt.parse_robot_xml(cs.wam7_xml(pt))
+    return cs.front_door_module(pt, model, dtype, device), cs.front_door_tsr(pt)
+
+
+def test_kernels_at_start_tsr_shape(cuda):
+    """K1 (bit-equal, both paths) and K2 on a start_tsr batch's own
+    inputs: n_points − 1 moving rows, point 0 with its one-sided
+    velocity."""
+    import chip_smoke as cs
+    from or_cdchomp_tpu_torch.chomp.cost_soa import sphere_kinematics
+    from or_cdchomp_tpu_torch.parallel.batch import problem_batch_from_grid
+
+    mod, tsr = _front_door(cuda, torch.float32)
+    run = mod.runs[mod.create(**dict(cs.run_kw(), n_points=11),
+                              start_tsr=tsr)]
+    starts, goals = cs.bench_endpoints(40)
+    probs = problem_batch_from_grid(run.problem, starts, goals, run.engine)
+    eng = run.engine
+    _, x, vel, acc = sphere_kinematics(eng.spec, eng.fk, probs)
+    assert tuple(x.shape) == (3, 10, 15, 40)
+    _k1_exact(cs.obstacle_args(eng, probs, x, vel, acc))
+    xo = probs.inactive_pos.permute(2, 1, 0).contiguous()
+    _selfcol_check([x, vel, xo, *eng.pairs, probs.epsilon_self,
+                    probs.obs_factor_self])
+
+
+def test_front_door_strings_card_match_cpu(cuda):
+    """create with start_tsr, iterate, gettraj and destroy as command
+    strings on the card in float32 against the CPU in float64; one K1
+    and one K2 launch per step and one each for the final cost."""
+    import chip_smoke as cs
+    import or_cdchomp_tpu_torch as pt
+
+    mod, tsr = _front_door(cuda, torch.float32)
+    mod64, _ = _front_door("cpu", torch.float64)
+    n0 = selfcol.LAUNCHES, sdf_lookup.LAUNCHES
+    cost, out, before, after, spec = cs.string_drive(pt, mod, tsr, n_iter=20,
+                                                     n_points=21)
+    assert (selfcol.LAUNCHES, sdf_lookup.LAUNCHES) == (n0[0] + 21, n0[1] + 21)
+    cost64, out64, *_ = cs.string_drive(pt, mod64, tsr, n_iter=20,
+                                        n_points=21)
+    assert spec.start_tsr and spec.m == 20
+    err = np.abs(np.array(out["positions"]) - np.array(out64["positions"]))
+    assert err.max() <= 1e-5, err.max()
+    assert abs(cost - cost64) <= 1e-4 * abs(cost64)
+    assert after < 0.01 * before
+
+
+def test_start_cost_batch_card_matches_cpu(cuda):
+    """A quadratic start_cost hook, vmapped over a B = 4 batch, on the
+    card in float32 against the CPU in float64."""
+    import chip_smoke as cs
+    from or_cdchomp_tpu_torch.parallel.batch import (BatchSolver,
+                                                     problem_batch_from_grid)
+
+    starts, goals = cs.bench_endpoints(4)
+    outs = []
+    for dev, dt in ((cuda, torch.float32), ("cpu", torch.float64)):
+        mod, _ = _front_door(dev, dt)
+        run = mod.runs[mod.create(**dict(cs.run_kw(), n_points=11),
+                                  start_cost=cs.quadratic_hook(torch, dt,
+                                                               dev))]
+        probs = problem_batch_from_grid(run.problem, starts, goals,
+                                        run.engine)
+        outs.append(BatchSolver(run.engine).iterate(probs, 5))
+    (out, costs), (out64, costs64) = outs
+    err = float((out.traj.double().cpu() - out64.traj).abs().max())
+    assert err <= 1e-5, err
+    _close(costs, costs64.float())

@@ -15,7 +15,9 @@ from or_cdchomp_tpu_torch.chomp.constraints import TSRConstraintSet
 from or_cdchomp_tpu_torch.chomp.problem import ChompSpec
 from or_cdchomp_tpu_torch.chomp.solver import ChompEngine
 from or_cdchomp_tpu_torch.convert import fields_from_numpy, problem_from_numpy
+from or_cdchomp_tpu_torch.models.robot import link_poses_np
 from or_cdchomp_tpu_torch.models.wam7 import wam7
+from or_cdchomp_tpu_torch.utils import np_pose
 
 START = np.array([2.5, -1.8, 0.0, 2.0, 0.0, 0.2, 0.0])
 GOAL = np.array([0.4, 0.6, 0.1, 1.3, 0.0, -0.5, 0.0])
@@ -40,6 +42,34 @@ def config1_module(pkg, cube_extent=0.04, **mod_kw):
     mod.computedistancefield(kinbody="table", cube_extent=cube_extent)
     robot.enabled = True
     return mod
+
+
+def table_module(pkg, **mod_kw):
+    """tests/test_transport.py's world: a table at 0.6 m and the WAM7 at
+    START, in ``pkg``; no field yet."""
+    mod = pkg.CHOMPModule(**mod_kw)
+    mod.add_kinbody(pkg.KinBody("table", pkg.Scene.build(
+        boxes=[((0.5, 0.0, 0.6, 0, 0, 0, 1), (0.25, 0.35, 0.03))])))
+    mod.add_robot(pkg.Robot("wam", pkg.wam7(), q_active=START.copy()))
+    return mod
+
+
+# start_tsr's bounds: the end effector's height held, x, y and the
+# rotation free
+Z_ONLY = np.array([[-10, 10], [-10, 10], [0, 0], [-np.pi, np.pi],
+                   [-np.pi, np.pi], [-np.pi, np.pi]])
+
+
+def start_tsr(tsr_cls, lift=0.03):
+    """A start TSR for ``tsr_cls`` (either package's TSR): the WAM7's
+    tool height at START plus ``lift`` metres, so that point 0 starts
+    off it."""
+    model = wam7()
+    ee = link_poses_np(model, START, np_pose.POSE_ID)[model.ee_link]
+    H = np.eye(4)
+    H[:3, 3] = np_pose.compose(ee, model.ee_origin)[:3]
+    H[2, 3] += lift
+    return tsr_cls.from_matrices(H, np.eye(4), Bw=Z_ONLY)
 
 
 def config2_module(pkg, **mod_kw):
@@ -109,7 +139,7 @@ def jax_batch(run, B, seed=0):
 
 def port_engine(jeng, dtype=torch.float64):
     """The port's CPU engine for a JAX engine: same spec, fields and
-    constraint layout."""
+    constraint layout (not its extra-cost hook, which is JAX code)."""
     f = jeng.fields
     fields = fields_from_numpy(np.asarray(f.data), np.asarray(f.sizes),
                                np.asarray(f.lengths), device="cpu",
