@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-Builds the two CUDA kernels from or_cdchomp_tpu_torch/csrc, holds each
-against its plain PyTorch version at the shapes of the paths below, and
-drives all five of BASELINE's configurations through CHOMPModule and
+Builds the three CUDA kernels from or_cdchomp_tpu_torch/csrc (K1
+obstacle, K2 self-collision, the seeded HMC draw), holds each against
+its plain PyTorch version at the shapes of the paths below, and drives
+all five of BASELINE's configurations through CHOMPModule and
 BatchSolver, each with the kernel launch counts set to 0 just before it
 and read just after:
 
@@ -33,6 +34,26 @@ loaded from OpenRAVE XML text and driven by SendCommand strings only
 against the same strings on the CPU in float64, B = 256 batches with
 start_tsr and with a quadratic start_cost hook timed beside config 1 and
 re-solved on the CPU, and both kernels at the start_tsr shape (m = 100).
+
+Three phases of long trajectories, meshes and seeds follow:
+
+- long trajectories: config 1's world at n_points 1001 (m = 999, the
+  semiseparable metric, checked to hold no m×m tensor), B = 256,
+  iterate(100) with its step profile, K1 and K2 held and timed at
+  m = 999, the first 8 problems re-solved on the CPU in float64; and
+  runchomp at n_points 258 (m = 256) against the CPU float64 runchomp;
+- the mesh demo (examples/wam7_mesh_demo.py's scene: box meshes for the
+  table, a 24-gon mug): its field at 0.04 m against the CPU build (ties
+  listed) and built in chunks against one piece, runchomp
+  collision-free against the CPU float64 runchomp, a B = 256 batch with
+  gettraj_batch's verdicts against the CPU float64 check, K1 on the mesh
+  field; then the table at 0.0025 m (180 × 240 × 184 cells, above
+  192³): build wall and peak memory, its sign against sd_trimesh at
+  10,000 sampled cells, K1 and a B = 256 iterate on it;
+- seeded HMC: config 3 with seeds 7 + p at B = 256: the draw kernel
+  against its plain version (words bit-equal), one draw launch per step,
+  and rows 0-7 re-run as a batch of 8: draws bit-equal at every step,
+  trajectories within 1e-5.
 
 Each is timed on the card first; then the first 8 problems of configs
 1, 2, 3 and 4 are re-solved on the CPU in float64 through the same API
@@ -98,6 +119,18 @@ FRONT_BW = [[-10, 10], [-10, 10], [0, 0], [-math.pi, math.pi],
 FRONT_QMID = [1.45, -0.45, 0.05, 1.65, 0.0, -0.15, 0.0]
 FRONT_W = 0.05
 XML_BAR = {"cpu": 1e-12, "cuda": 1e-5}   # XML robot vs wam7(), f64 / f32
+# long trajectories: config 1 at m = 999 (the semiseparable metric) and
+# runchomp at the first semiseparable shape (m = 256)
+LONG_POINTS = 1001
+SEP_FIRST_POINTS = 258
+# the mesh demo (examples/wam7_mesh_demo.py:38-52) and its large grid:
+# the table at 0.0025 m, 180 x 240 x 184 cells, above 192^3
+MESH_EXTENT = 0.04
+LARGE_EXTENT = 0.0025
+N_SIGN = 10_000      # sampled cells of the large grid's sign check
+TIE_BAND = 1e-5      # m: a cell whose verdict flips within it is a tie
+SEEDED_BAR = 1e-5    # seeded rows: B = 256 against B = 8 on the card
+DRAW_RTOL = 1e-6     # draw kernel against its plain version
 
 
 class PhaseFailed(Exception):
@@ -655,6 +688,16 @@ def moved_in_args(torch, oargs, probs):
     return wide
 
 
+def k1_bytes(sdf_lookup, oargs):
+    """K1's bytes on a call's own inputs: the field cells its in-box
+    queries need (sdf_lookup.obstacle_cells), not the whole stack."""
+    x, data = oargs[0], oargs[3]
+    m, S, B = x.shape[1:]
+    cells = sdf_lookup.obstacle_cells(x, data, oargs[4], oargs[5], oargs[6],
+                                      oargs[8])
+    return sdf_lookup.obstacle_traffic_bytes(m, S, B, *data.shape, cells)
+
+
 def k1_launch(torch, sdf_lookup, oargs, label):
     """Print K1's launch for these arguments: the wrapper's geometry and
     the path's registers, spills and resident blocks."""
@@ -690,9 +733,11 @@ def warm_walls(torch, fn, reps):
     return statistics.median(walls), walls
 
 
-def counts_zero(sdf_lookup, selfcol):
+def counts_zero(sdf_lookup, selfcol, draw=None):
     sdf_lookup.LAUNCHES = 0
     selfcol.LAUNCHES = 0
+    if draw is not None:
+        draw.LAUNCHES = 0
 
 
 def counts(sdf_lookup, selfcol):
@@ -798,7 +843,7 @@ def config4_phase(torch, pt, card, dev):
     k1 = kernel_entry(
         "obstacle_config4", "or_cdchomp_tpu_torch/csrc/obstacle.cu",
         "or_cdchomp_tpu/ops/pallas_sdf.py:86", err, t,
-        sdf_lookup.obstacle_traffic_bytes(m, S, B, F, mx, my, mz),
+        k1_bytes(sdf_lookup, oargs),
         sdf_lookup.obstacle_flops(m, S, B, F))
 
     # a floating base moves every sphere: K2 with no inactive one
@@ -1093,7 +1138,7 @@ def module_phase(torch, pt, card, dev, out1, out5):
     entry = kernel_entry(
         "obstacle_split", "or_cdchomp_tpu_torch/csrc/obstacle.cu",
         "or_cdchomp_tpu/ops/pallas_sdf.py:86", err, t,
-        sdf_lookup.obstacle_traffic_bytes(m, S, BATCH, F, mx, my, mz),
+        k1_bytes(sdf_lookup, oargs),
         sdf_lookup.obstacle_flops(m, S, BATCH, F))
     entry["launches"] = split_launches
     return entry
@@ -1318,7 +1363,7 @@ def front_door_phase(torch, pt, card, dev):
     e1 = kernel_entry(
         "obstacle_start_tsr", "or_cdchomp_tpu_torch/csrc/obstacle.cu",
         "or_cdchomp_tpu/ops/pallas_sdf.py:86", err, t,
-        sdf_lookup.obstacle_traffic_bytes(m, S, B, F, mx, my, mz),
+        k1_bytes(sdf_lookup, oargs),
         sdf_lookup.obstacle_flops(m, S, B, F))
     xo = probs.inactive_pos.permute(2, 1, 0).contiguous()
     sargs = (x, vel, xo, *eng.pairs, probs.epsilon_self,
@@ -1359,6 +1404,488 @@ def front_door_phase(torch, pt, card, dev):
               f"{time.perf_counter() - t0:.2f} s")
         check(dtraj <= TRAJ_BAR, f"front door {k}: max |Δtraj| {dtraj}")
     return [e1, e2]
+
+
+def square_tensors(obj, m, seen=None, depth=0):
+    """Shapes of the tensors held by ``obj`` (its attributes, and those of
+    the tuples, lists, dicts and objects among them, four levels deep)
+    that have two axes of length m."""
+    import torch
+
+    seen = set() if seen is None else seen
+    if id(obj) in seen or depth > 4:
+        return []
+    seen.add(id(obj))
+    if isinstance(obj, torch.Tensor):
+        return [tuple(obj.shape)] if list(obj.shape).count(m) >= 2 else []
+    if isinstance(obj, dict):
+        items = list(obj.values())
+    elif isinstance(obj, (tuple, list)):
+        items = list(obj)
+    elif hasattr(obj, "__dict__") and not isinstance(obj, type):
+        items = list(vars(obj).values())
+    else:
+        return []
+    return [sh for it in items
+            for sh in square_tensors(it, m, seen, depth + 1)]
+
+
+def kernels_at(torch, sdf_lookup, selfcol, eng, probs, label, card,
+               k2=True):
+    """K1 (both paths) and, with ``k2``, K2 against their plain versions
+    on a path's own inputs, timed; returns their kernel entries (launches
+    unset)."""
+    from or_cdchomp_tpu_torch.chomp import cost_soa
+
+    _, x, vel, acc = cost_soa.sphere_kinematics(eng.spec, eng.fk, probs)
+    m, S, B = x.shape[1:]
+    oargs = obstacle_args(eng, probs, x, vel, acc)
+    k1_launch(torch, sdf_lookup, oargs, label)
+    err = check_obstacle(torch, sdf_lookup, oargs, f"{label} obstacle")
+    t = time_obstacle(torch, sdf_lookup, oargs, f"{label} obstacle")
+    F, mx, my, mz = eng.fields.data.shape
+    tag = label.replace(" ", "_")
+    e1 = kernel_entry(
+        f"obstacle_{tag}", "or_cdchomp_tpu_torch/csrc/obstacle.cu",
+        "or_cdchomp_tpu/ops/pallas_sdf.py:86", err, t,
+        k1_bytes(sdf_lookup, oargs),
+        sdf_lookup.obstacle_flops(m, S, B, F))
+    if not k2:
+        print(f"{e1['name']}: device {e1['ms']} ms, bound {e1['bound_ms']} "
+              f"ms ({e1['bound_by']}), share {e1['bound_share']:.4f} on "
+              f"{card}")
+        return [e1]
+    xo = probs.inactive_pos.permute(2, 1, 0).contiguous()
+    sargs = (x, vel, xo, *eng.pairs, probs.epsilon_self,
+             probs.obs_factor_self)
+    P, SI = eng.pairs[0].shape[0], xo.shape[1]
+    *_, reach = selfcol.vote_stats(x, xo, *eng.pairs, probs.epsilon_self)
+    net_k, c_k = selfcol.selfcol_pairs(*sargs)
+    net_r, c_r = selfcol.selfcol_pairs_ref(*sargs)
+    err = max(compare(torch, f"{label} selfcol net", net_k, net_r),
+              compare(torch, f"{label} selfcol cost", c_k, c_r))
+    t = timings(torch, lambda: selfcol.selfcol_pairs(*sargs),
+                lambda: selfcol.selfcol_pairs_ref(*sargs))
+    print(f"{label} selfcol (grid {-(-B // selfcol.LANES)} x {m} blocks): "
+          f"max_abs_err {err}, per call {t[0]:.4f} ms vs plain {t[1]:.4f} "
+          f"ms, device {t[2]} ms vs plain {t[3]} ms")
+    e2 = kernel_entry(
+        f"selfcol_{tag}", "or_cdchomp_tpu_torch/csrc/selfcol.cu",
+        "or_cdchomp_tpu/ops/pallas_selfcol.py:197", err, t,
+        selfcol.traffic_bytes(m, S, SI, B, P), selfcol.flops(m, B, P, reach))
+    for e in (e1, e2):
+        print(f"{e['name']}: device {e['ms']} ms, bound {e['bound_ms']} ms "
+              f"({e['bound_by']}), share {e['bound_share']:.4f} on {card}")
+    return [e1, e2]
+
+
+def long_phase(torch, pt, card, dev):
+    """Long trajectories: config 1's world at n_points 1001 (m = 999, the
+    semiseparable metric, no m×m tensor), B = 256, K1 and K2 held against
+    their plain versions and timed, iterate(100) with its launches, step
+    profile and warm walls; runchomp at n_points 258 (the first
+    semiseparable shape); then the first 8 problems and the runchomp on
+    the CPU in float64.  Returns the kernel entries."""
+    import numpy as np
+
+    from or_cdchomp_tpu_torch.ops import sdf_lookup, selfcol
+    from or_cdchomp_tpu_torch.parallel.batch import (BatchSolver,
+                                                     problem_batch_from_grid)
+
+    f32, f64, cpu = torch.float32, torch.float64, "cpu"
+    kw = dict(run_kw(), n_points=LONG_POINTS)
+    t0 = time.perf_counter()
+    mod, _ = bench_module(pt, f32, dev)
+    run = mod.runs[mod.create(**kw)]
+    eng = run.engine
+    starts, goals = bench_endpoints(BATCH)
+    probs = problem_batch_from_grid(run.problem, starts, goals, eng)
+    torch.cuda.synchronize()
+    m = eng.spec.m
+    square = square_tensors(eng, m) + square_tensors(probs, m)
+    print(f"long batch setup (create n_points {LONG_POINTS}, batch): "
+          f"{time.perf_counter() - t0:.2f} s; m = {m}, metric "
+          f"{eng.metric_mode}, A {eng.A}, Ainv {eng.Ainv}, tensors with two "
+          f"axes of {m}: {square}")
+    check(m == LONG_POINTS - 2 and eng.metric_mode == "sep"
+          and eng.A is None and eng.Ainv is None and eng.metric_ops is None,
+          f"long batch: metric {eng.metric_mode}")
+    check(not square, f"long batch: m x m tensors {square}")
+    entries = kernels_at(torch, sdf_lookup, selfcol, eng, probs, "m999",
+                         card)
+
+    counts_zero(sdf_lookup, selfcol)
+    solver = BatchSolver(eng)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, costs = solver.iterate(probs, N_ITER)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts(sdf_lookup, selfcol)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"long batch: iterate({N_ITER}) at B={BATCH}, m={m} in {wall:.3f} "
+          f"s (first call), launches {launches}, peak device memory {peak} "
+          f"B on {card}")
+    check_launches(launches, N_ITER, "long batch")
+    for e, k in zip(entries, ("obstacle", "selfcol")):
+        e["launches"] = launches[k]
+    check(tuple(out.traj.shape) == (BATCH, LONG_POINTS, 7)
+          and bool(torch.isfinite(costs).all())
+          and bool(torch.isfinite(out.traj).all()),
+          "long batch: shapes or non-finite values")
+    c0, c1 = float(costs[0, :, 0].mean()), float(costs[-1, :, 0].mean())
+    print(f"long batch mean total cost: first iteration {c0:.6f}, last "
+          f"{c1:.6f}")
+    check(c1 < c0, "long batch: the mean total cost did not fall")
+    step_profile(torch, eng, probs, "long batch (m = 999)", card)
+    wall, walls = warm_walls(torch, lambda: solver.iterate(probs, N_ITER), 3)
+    print(f"long batch iterate({N_ITER}) at B={BATCH}: median warm wall "
+          f"{wall} s of {walls}, {BATCH / wall} solves/s on {card}")
+
+    kw258 = dict(run_kw(), n_points=SEP_FIRST_POINTS)
+    h = mod.create(**kw258)
+    check(mod.runs[h].engine.metric_mode == "sep", "n_points 258: not sep")
+    mod.destroy(run=h)
+    t0 = time.perf_counter()
+    traj = mod.runchomp(n_iter=N_ITER, no_collision_exception=True, **kw258)
+    torch.cuda.synchronize()
+    print(f"runchomp n_points {SEP_FIRST_POINTS} (m = 256, sep): "
+          f"{time.perf_counter() - t0:.3f} s (first call), in collision "
+          f"{traj.in_collision}")
+
+    # -- the CPU float64 side -------------------------------------------------
+    t0 = time.perf_counter()
+    mod64, _ = bench_module(pt, f64, cpu)
+    run64 = mod64.runs[mod64.create(**kw)]
+    p64 = problem_batch_from_grid(run64.problem, starts[:N_CHECK],
+                                  goals[:N_CHECK], run64.engine)
+    out64, _ = BatchSolver(run64.engine).iterate(p64, N_ITER)
+    dtraj = max_dtraj(out, out64)
+    print(f"long batch CPU float64 re-solve of {N_CHECK} problems: max "
+          f"|Δtraj| {dtraj} (bar {TRAJ_BAR}), "
+          f"{time.perf_counter() - t0:.2f} s")
+    check(dtraj <= TRAJ_BAR, f"long batch: max |Δtraj| {dtraj}")
+    t0 = time.perf_counter()
+    traj64 = mod64.runchomp(n_iter=N_ITER, no_collision_exception=True,
+                            **kw258)
+    d = float(np.abs(traj.positions - traj64.positions).max())
+    print(f"runchomp n_points {SEP_FIRST_POINTS} against the CPU float64 "
+          f"runchomp: max |Δtraj| {d} (bar {TRAJ_BAR}), in collision "
+          f"{traj.in_collision} (CPU {traj64.in_collision}), "
+          f"{time.perf_counter() - t0:.2f} s")
+    check(d <= TRAJ_BAR, f"runchomp n_points 258 vs CPU: {d}")
+    check(traj.in_collision == traj64.in_collision,
+          "runchomp n_points 258: the collision verdicts differ")
+    return entries
+
+
+def mesh_world(pt, dtype, device, cube_extent=MESH_EXTENT):
+    """examples/wam7_mesh_demo.py:38-52's scene: the table top and leg as
+    box meshes, the mug as a 24-gon cylinder mesh, the WAM7 at START; the
+    table's field at ``cube_extent``.  Returns the module."""
+    import numpy as np
+
+    from or_cdchomp_tpu_torch.api import KinBody, Robot
+    from or_cdchomp_tpu_torch.ops.voxelize import (box_trimesh,
+                                                   cylinder_trimesh)
+
+    top_v, top_f = box_trimesh((0.25, 0.4, 0.02))
+    leg_v, leg_f = box_trimesh((0.08, 0.08, 0.25))
+    mug_v, mug_f = cylinder_trimesh(0.04, 0.06, n=24)
+    mod = pt.CHOMPModule(dtype=dtype, device=device)
+    mod.add_kinbody(KinBody("table", pt.Scene.build(
+        meshes=[((0.75, 0.0, 0.5, 0, 0, 0, 1), top_v, top_f),
+                ((0.75, 0.0, 0.25, 0, 0, 0, 1), leg_v, leg_f)])))
+    mod.add_kinbody(KinBody("mug", pt.Scene.build(
+        meshes=[((0.65, 0.15, 0.58, 0, 0, 0, 1), mug_v, mug_f)])))
+    robot = mod.add_robot(Robot("wam", pt.wam7(), q_active=np.array(START)))
+    robot.enabled = False
+    mod.computedistancefield(kinbody="table", cube_extent=cube_extent)
+    robot.enabled = True
+    return mod
+
+
+def shell_ties(torch, mod, cells, extent):
+    """Which of the field's ``cells`` (K, 3) are ties: cells whose cube,
+    in float64 on the CPU, meets a mesh with its half extent widened by
+    TIE_BAND but not with it narrowed by TIE_BAND."""
+    from or_cdchomp_tpu_torch.ops.quat import pose_apply
+    from or_cdchomp_tpu_torch.ops.voxelize import voxelize_scene
+    from or_cdchomp_tpu_torch.utils import np_pose
+
+    f64 = dict(dtype=torch.float64, device="cpu")
+    sdf = mod.sdfs[0]
+    sizes = torch.tensor(sdf.grid.data.shape, **f64)
+    lengths = sdf.grid.lengths.to(**f64)
+    pose = np_pose.compose(mod.bodies[sdf.kinbody_name].pose, sdf.pose)
+    c = pose_apply(torch.as_tensor(pose, **f64),
+                   (torch.as_tensor(cells, **f64) + 0.5) / sizes * lengths)
+    wide = torch.zeros(len(cells), dtype=torch.bool)
+    narrow = torch.zeros(len(cells), dtype=torch.bool)
+    for b in mod.bodies.values():
+        inv = torch.as_tensor(np_pose.invert(b.pose), **f64)
+        sc = b.scene.to(**f64)
+        wide |= voxelize_scene(sc, pose_apply(inv, c), extent + TIE_BAND)
+        narrow |= voxelize_scene(sc, pose_apply(inv, c), extent - TIE_BAND)
+    return (wide & ~narrow).numpy()
+
+
+def mesh_phase(torch, pt, card, dev):
+    """The mesh demo on the card: the field at 0.04 m against a CPU build
+    (ties listed), runchomp (n_points 101, 100 iterations, collision-free)
+    against the CPU float64 runchomp, a B = 256 batch with its launches
+    and gettraj_batch's verdicts against the CPU float64 check; then the
+    table at 0.0025 m (above 192³ cells): its build wall and peak memory,
+    its sign against sd_trimesh at 10,000 cells, and a B = 256 iterate
+    on it.  Returns the kernel entries."""
+    import numpy as np
+
+    from or_cdchomp_tpu_torch.ops import sdf_lookup, selfcol
+    from or_cdchomp_tpu_torch.ops.quat import pose_apply
+    from or_cdchomp_tpu_torch.ops.voxelize import scene_distance
+    from or_cdchomp_tpu_torch.parallel.batch import (BatchSolver,
+                                                     problem_batch_from_grid)
+    from or_cdchomp_tpu_torch.utils import np_pose
+
+    f32, f64, cpu = torch.float32, torch.float64, "cpu"
+    t0 = time.perf_counter()
+    mod = mesh_world(pt, f32, dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    mod64 = mesh_world(pt, f64, cpu)
+    t2 = time.perf_counter()
+    a = mod.sdfs[0].grid.data.cpu()
+    b = mod64.sdfs[0].grid.data
+    check(a.shape == b.shape, f"mesh field {tuple(a.shape)} vs "
+          f"{tuple(b.shape)}")
+    flips = torch.nonzero((a <= 0) != (b <= 0)).numpy()
+    ties = shell_ties(torch, mod64, flips, MESH_EXTENT) if len(flips) \
+        else np.zeros(0, bool)
+    same = (a <= 0) == (b <= 0)
+    print(f"mesh field at {MESH_EXTENT} m: {tuple(a.shape)} cells, built in "
+          f"{t1 - t0:.3f} s on the card ({t2 - t1:.3f} s on the CPU); "
+          f"occupancy differs from the CPU build on {len(flips)} cells "
+          f"{flips.tolist()}, of which ties (within {TIE_BAND} m) "
+          f"{int(ties.sum())}; max |Δfield| where the occupancy agrees "
+          f"{float((a - b)[same].abs().max())}")
+    check(bool(ties.all()), f"mesh field: cells {flips[~ties].tolist()} "
+          "differ from the CPU build and are not ties")
+    check(float(a.min()) < 0.0, "mesh field: no obstacle cell")
+    # the field built in chunks of a few hundred cells equals one piece,
+    # for the meshes and for config 1's box and cylinder
+    from or_cdchomp_tpu_torch import api as api_mod
+    whole = [mod.sdfs[0].grid.data,
+             bench_module(pt, f32, dev)[0].sdfs[0].grid.data]
+    saved = api_mod.VOXEL_CHUNK_BYTES
+    api_mod.VOXEL_CHUNK_BYTES = 2 ** 16
+    try:
+        parts = [mesh_world(pt, f32, dev).sdfs[0].grid.data,
+                 bench_module(pt, f32, dev)[0].sdfs[0].grid.data]
+    finally:
+        api_mod.VOXEL_CHUNK_BYTES = saved
+    for label, w, c in zip(("mesh", "config 1"), whole, parts):
+        compare(torch, f"{label} field built in chunks", c, w, exact=True)
+    print("mesh and config 1 fields built in chunks of 64 KiB: bit-equal to "
+          "one piece")
+
+    # -- runchomp on the mesh field -------------------------------------------
+    t0 = time.perf_counter()
+    traj = mod.runchomp(n_iter=N_ITER, no_collision_exception=True,
+                        **run_kw())
+    torch.cuda.synchronize()
+    print(f"mesh runchomp (n_points {N_POINTS}, {N_ITER} iterations): "
+          f"{time.perf_counter() - t0:.3f} s (first call), in collision "
+          f"{traj.in_collision}, check of {mod.last_check['triangles']} "
+          f"triangles in chunks of {mod.last_check['chunk']}")
+    check(not traj.in_collision, "mesh runchomp ends in collision")
+
+    # -- a B = 256 batch on the mesh field ------------------------------------
+    run = mod.runs[mod.create(**run_kw())]
+    eng = run.engine
+    starts, goals = bench_endpoints(BATCH)
+    probs = problem_batch_from_grid(run.problem, starts, goals, eng)
+    entries = kernels_at(torch, sdf_lookup, selfcol, eng, probs, "mesh",
+                         card, k2=False)
+    counts_zero(sdf_lookup, selfcol)
+    t0 = time.perf_counter()
+    out, costs = BatchSolver(eng).iterate(probs, N_ITER)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts(sdf_lookup, selfcol)
+    print(f"mesh batch: iterate({N_ITER}) at B={BATCH} in {wall:.3f} s "
+          f"(first call), launches {launches}")
+    check_launches(launches, N_ITER, "mesh batch")
+    entries[0]["launches"] = launches["obstacle"]
+    check(bool(torch.isfinite(costs).all()
+               and torch.isfinite(out.traj).all()),
+          "mesh batch: non-finite costs or trajectories")
+    hb = next(h for h, r in mod.runs.items() if r is run)
+    t0 = time.perf_counter()
+    _, flags = mod.gettraj_batch(run=hb, probs=out)
+    print(f"mesh gettraj_batch (B={BATCH}): {int(flags.sum())} in "
+          f"collision, {mod.last_check['samples']} samples, "
+          f"{mod.last_check['triangles']} triangles, chunk "
+          f"{mod.last_check['chunk']}, {time.perf_counter() - t0:.3f} s")
+
+    # -- the CPU float64 side -------------------------------------------------
+    t0 = time.perf_counter()
+    traj64 = mod64.runchomp(n_iter=N_ITER, no_collision_exception=True,
+                            **run_kw())
+    d = float(np.abs(traj.positions - traj64.positions).max())
+    h64 = mod64.create(**run_kw())
+    _, flags64 = mod64.gettraj_batch(run=h64, probs=head(out, N_CHECK))
+    print(f"mesh runchomp against the CPU float64 runchomp: max |Δtraj| {d} "
+          f"(bar {TRAJ_BAR}); gettraj_batch's first {N_CHECK} verdicts "
+          f"{flags[:N_CHECK].tolist()} (CPU float64 {flags64.tolist()}), "
+          f"{time.perf_counter() - t0:.2f} s")
+    check(d <= TRAJ_BAR, f"mesh runchomp vs CPU: {d}")
+    check_flags("mesh gettraj_batch", flags[:N_CHECK], flags64)
+    del mod, mod64, run, eng, probs, out, costs
+
+    # -- the large grid: above 192³ cells, built on the card ------------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    big = mesh_world(pt, f32, dev, LARGE_EXTENT)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    sdf = big.sdfs[0]
+    sizes = tuple(sdf.grid.data.shape)
+    cells = int(np.prod(sizes))
+    print(f"large mesh field at {LARGE_EXTENT} m: {sizes} = {cells} cells "
+          f"(192^3 = {192 ** 3}), built on the card in {wall:.3f} s (first "
+          f"call), peak device memory {peak} B ({peak / 2 ** 30:.3f} GiB) "
+          f"above the {base} B in use, on {card}")
+    check(cells > 192 ** 3, f"large grid has {cells} cells")
+    rng = np.random.default_rng(5)
+    idx = rng.integers(0, sizes, size=(N_SIGN, 3))
+    f64d = dict(dtype=torch.float64, device=dev)
+    centres = ((torch.as_tensor(idx, **f64d) + 0.5)
+               / torch.tensor(sizes, **f64d) * sdf.grid.lengths.to(**f64d))
+    world = pose_apply(torch.as_tensor(np_pose.compose(
+        big.bodies["table"].pose, sdf.pose), **f64d), centres)
+    sd = torch.stack([scene_distance(
+        body.scene.to(**f64d), pose_apply(torch.as_tensor(
+            np_pose.invert(body.pose), **f64d), world))
+        for body in big.bodies.values()]).amin(0)
+    field = sdf.grid.data[tuple(torch.as_tensor(idx, device=dev).T)]
+    far = sd.abs() > 2 * LARGE_EXTENT * math.sqrt(3.0)
+    wrong = far & ((field <= 0) != (sd <= 0))
+    print(f"large mesh field sign against sd_trimesh at {N_SIGN} sampled "
+          f"cells: {int(far.sum())} farther than a cell diagonal, "
+          f"{int(wrong.sum())} of them of the other sign, "
+          f"{int((sd[far] <= 0).sum())} inside")
+    check(int(wrong.sum()) == 0, "large mesh field: wrong signs")
+    check(int((sd[far] <= 0).sum()) > 0, "large mesh field: no inside cell")
+    runL = big.runs[big.create(**run_kw())]
+    probsL = problem_batch_from_grid(runL.problem, starts, goals,
+                                     runL.engine)
+    (eL,) = kernels_at(torch, sdf_lookup, selfcol, runL.engine, probsL,
+                       "large grid", card, k2=False)
+    counts_zero(sdf_lookup, selfcol)
+    t0 = time.perf_counter()
+    outL, costsL = BatchSolver(runL.engine).iterate(probsL, N_ITER)
+    torch.cuda.synchronize()
+    launches = counts(sdf_lookup, selfcol)
+    print(f"large grid batch: iterate({N_ITER}) at B={BATCH} in "
+          f"{time.perf_counter() - t0:.3f} s (first call), launches "
+          f"{launches}")
+    check_launches(launches, N_ITER, "large grid batch")
+    eL["launches"] = launches["obstacle"]
+    check(bool(torch.isfinite(costsL).all()
+               and torch.isfinite(outL.traj).all()),
+          "large grid batch: non-finite costs or trajectories")
+    return entries + [eL]
+
+
+def seeded_phase(torch, pt, card, dev):
+    """Config 3 (HMC, λ_resample 0.02) at B = 256 with seeds 7 + p: the
+    draw kernel against its plain version (words bit-equal, z and u within
+    DRAW_RTOL), 100 steps with one draw launch each, and rows 0-7 re-run
+    as a batch of 8 with the same seeds: their draws bit-equal at every
+    step and their trajectories within SEEDED_BAR.  Returns the draw
+    kernel's entry."""
+    import numpy as np
+
+    from or_cdchomp_tpu_torch.chomp.solver import RecordingDraw, SeededDraw
+    from or_cdchomp_tpu_torch.ops import draw, sdf_lookup, selfcol
+    from or_cdchomp_tpu_torch.parallel.batch import problem_batch_from_grid
+
+    f32 = torch.float32
+    run = config3_run(pt, f32, dev)
+    eng = run.engine
+    starts, goals = bench_endpoints(BATCH)
+    seeds = 7 + np.arange(BATCH)
+    probs = problem_batch_from_grid(run.problem, starts, goals, eng,
+                                    seeds=seeds)
+    m, n = eng.spec.m, eng.spec.n
+    err = 0.0
+    for step in (0, 37):
+        it = (probs.iteration + step).contiguous()
+        got = draw.hmc_draw(probs.hmc_seed, it, m, n, f32, want_words=True)
+        want = draw.hmc_draw_ref(probs.hmc_seed, it, m, n, f32,
+                                 want_words=True)
+        for g, w, name in zip(got[2:], want[2:], ("z words", "u words")):
+            compare(torch, f"draw {name} (iteration {step})", g, w,
+                    exact=True)
+        for g, w, name in zip(got[:2], want[:2], ("z", "u")):
+            e = float((g.double() - w.double()).abs().max())
+            scale = float(w.double().abs().max())
+            check(bool(torch.allclose(g.double(), w.double(), rtol=DRAW_RTOL,
+                                      atol=DRAW_RTOL * scale)),
+                  f"draw {name}: max |err| {e} beyond rtol {DRAW_RTOL}")
+            err = max(err, e)
+    seed, it0 = probs.hmc_seed, probs.iteration
+    t = timings(torch, lambda: draw.hmc_draw(seed, it0, m, n, f32),
+                lambda: draw.hmc_draw_ref(seed, it0, m, n, f32))
+    print(f"hmc_draw (B={BATCH}, m={m}, n={n}): words bit-equal to the "
+          f"plain version, z and u max |err| {err}; per call {t[0]:.4f} ms "
+          f"vs plain {t[1]:.4f} ms, device {t[2]} ms vs plain {t[3]} ms")
+    # bound: the seeds and iterations read, z and u written; torch.randn
+    # on one generator is not the same function, so no library call
+    entry = kernel_entry(
+        "hmc_draw", "or_cdchomp_tpu_torch/csrc/draw.cu",
+        "or_cdchomp_tpu/chomp/solver.py:263", err, t,
+        draw.traffic_bytes(BATCH, m, n, 4), 0)
+    print(f"hmc_draw: device {entry['ms']} ms, bound {entry['bound_ms']} ms "
+          f"({entry['bound_by']}), share {entry['bound_share']:.4f} on "
+          f"{card}")
+
+    rec = RecordingDraw(SeededDraw(), N_CHECK)
+    counts_zero(sdf_lookup, selfcol, draw)
+    t0 = time.perf_counter()
+    out, costs = eng.iterate_batched(probs, N_ITER, rec)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(counts(sdf_lookup, selfcol), hmc_draw=draw.LAUNCHES)
+    print(f"seeded HMC: iterate({N_ITER}) at B={BATCH} in {wall:.3f} s "
+          f"(first call), launches {launches} on {card}")
+    check_launches(launches, N_ITER, "seeded HMC")
+    entry["launches"] = launches["hmc_draw"]
+    check(bool(torch.isfinite(costs).all())
+          and bool(torch.isfinite(out.traj).all()),
+          "seeded HMC: non-finite costs or trajectories")
+    check(bool((out.resample_iter >= N_ITER).all()),
+          "seeded HMC: a resample iteration was passed over")
+    probs8 = problem_batch_from_grid(run.problem, starts[:N_CHECK],
+                                     goals[:N_CHECK], eng,
+                                     seeds=seeds[:N_CHECK])
+    rec8 = RecordingDraw(SeededDraw())
+    out8, _ = eng.iterate_batched(probs8, N_ITER, rec8)
+    same = all(torch.equal(a, b) for a, b in zip(rec.z + rec.u,
+                                                 rec8.z + rec8.u))
+    d = float((out.traj[:N_CHECK] - out8.traj).abs().max())
+    print(f"seeded HMC rows 0-{N_CHECK - 1} as a batch of {N_CHECK}: draws "
+          f"bit-equal at all {len(rec8.z)} steps {same}, same resample "
+          f"schedule "
+          f"{torch.equal(out.resample_iter[:N_CHECK], out8.resample_iter)}, "
+          f"max |Δtraj| {d} (bar {SEEDED_BAR})")
+    check(len(rec.z) == len(rec8.z) == N_ITER and same,
+          "seeded HMC: rows draw differently in a batch of 8")
+    check(d <= SEEDED_BAR, f"seeded HMC: rows moved {d} in a batch of 8")
+    return entry
 
 
 def main():
@@ -1451,7 +1978,7 @@ def main():
     results.append(kernel_entry(
         "obstacle", "or_cdchomp_tpu_torch/csrc/obstacle.cu",
         "or_cdchomp_tpu/ops/pallas_sdf.py:86", err, t,
-        sdf_lookup.obstacle_traffic_bytes(m, S, B, F, mx, my, mz),
+        k1_bytes(sdf_lookup, oargs),
         sdf_lookup.obstacle_flops(m, S, B, F)))
 
     xo = probs.inactive_pos.permute(2, 1, 0).contiguous()
@@ -1562,7 +2089,7 @@ def main():
     entry_f3 = kernel_entry(
         "obstacle_f3", "or_cdchomp_tpu_torch/csrc/obstacle.cu",
         "or_cdchomp_tpu/ops/pallas_sdf.py:86", err, t,
-        sdf_lookup.obstacle_traffic_bytes(m2, S2, B2, F2, mx2, my2, mz2),
+        k1_bytes(sdf_lookup, oargs2),
         sdf_lookup.obstacle_flops(m2, S2, B2, F2))
     print(f"obstacle F=3: device {entry_f3['ms']} ms, bound "
           f"{entry_f3['bound_ms']} ms ({entry_f3['bound_by']}), share "
@@ -1688,7 +2215,7 @@ def main():
     entry_b5 = kernel_entry(
         "obstacle_b10240", "or_cdchomp_tpu_torch/csrc/obstacle.cu",
         "or_cdchomp_tpu/ops/pallas_sdf.py:86", err_k1, t,
-        sdf_lookup.obstacle_traffic_bytes(m, S, BATCH_POD, F, mx, my, mz),
+        k1_bytes(sdf_lookup, oargs5),
         sdf_lookup.obstacle_flops(m, S, BATCH_POD, F))
     entry_b5["launches"] = launches5["obstacle"]
     print(f"config 5 obstacle: device {entry_b5['ms']} ms, bound "
@@ -1710,6 +2237,9 @@ def main():
     del out5
     entry_grab = grab_phase(torch, pt, card, dev)
     entries_front = front_door_phase(torch, pt, card, dev)
+    entries_long = long_phase(torch, pt, card, dev)
+    entries_mesh = mesh_phase(torch, pt, card, dev)
+    entry_draw = seeded_phase(torch, pt, card, dev)
 
     # -- the same solves on the CPU in float64 (plain versions) ---------------
     cpu, f64 = "cpu", torch.float64
@@ -1772,7 +2302,7 @@ def main():
     check(dtraj <= TRAJ_BAR, f"config 4: max |Δtraj| {dtraj} > {TRAJ_BAR}")
 
     results += [entry_f3, *entries4, entry_b5, entry_split, entry_grab,
-                *entries_front]
+                *entries_front, *entries_long, *entries_mesh, entry_draw]
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -56,9 +56,14 @@ _DEFAULTS = dict(  # orcdchomp_mod.cpp:1840-1875
     derivative=1,
 )
 
-# bytes of the (chunk, samples, S, S, 3) float64 sphere-pair tensor of
-# one chunk of the trajectory collision check (check_chunk)
+# bytes of the largest float64 tensor of one chunk of the trajectory
+# collision check: the (chunk, samples, S, S, 3) sphere-pair tensor, or
+# the (chunk, samples, S, T, 3) sphere-triangle tensor of a mesh body
+# (check_chunk)
 CHECK_PAIR_BYTES = 512 * 2 ** 20
+# bytes of the float64 (cells, primitives, 3, 3) tensor of one chunk of
+# cells in the field build's voxelization (_build_sdf_grid)
+VOXEL_CHUNK_BYTES = 2 ** 27
 
 
 def _quat_to_R_np(q):
@@ -123,6 +128,11 @@ class KinBody:
             ext = np.sqrt(cr[i] ** 2 + ch[i] ** 2)  # conservative
             lo = np.minimum(lo, cp[i, :3] - ext)
             hi = np.maximum(hi, cp[i, :3] + ext)
+        tv = sc.tri_verts.cpu().numpy()
+        if tv.shape[0]:
+            pts = tv.reshape(-1, 3)
+            lo = np.minimum(lo, pts.min(axis=0))
+            hi = np.maximum(hi, pts.max(axis=0))
         if not np.all(np.isfinite(lo)):
             lo = np.zeros(3)
             hi = np.zeros(3)
@@ -324,14 +334,42 @@ class CheckResult(NamedTuple):
     names: list
 
 
-def check_chunk(samples, spheres, device_chunk=None):
+def check_chunk(samples, spheres, device_chunk=None, triangles=0):
     """Problems per chunk of the trajectory collision check: as many as
-    keep the (chunk, samples, S, S, 3) float64 pair tensor within
-    CHECK_PAIR_BYTES, at least one, at most ``device_chunk`` if given."""
-    per_problem = samples * spheres * spheres * 3 * 8
+    keep both the (chunk, samples, S, S, 3) float64 pair tensor and the
+    (chunk, samples, S, T, 3) float64 tensor of a mesh body's
+    ``triangles`` (its largest) within CHECK_PAIR_BYTES, at least one, at
+    most ``device_chunk`` if given."""
+    per_problem = samples * spheres * max(spheres, triangles) * 3 * 8
     chunk = max(1, CHECK_PAIR_BYTES // max(per_problem, 1))
     return chunk if device_chunk is None else max(1, min(chunk,
                                                          device_chunk))
+
+
+def voxelize_chunked(placed, centers, cube_extent, centers64=None):
+    """Occupancy (N,) of the cell cubes at world ``centers`` (N, 3) against
+    every (scene, world pose of the scene) of ``placed``, in chunks of
+    cells that keep each scene's float64 (cells, primitives, 3, 3) tensor
+    within VOXEL_CHUNK_BYTES.  A mesh's triangles are tested in float64
+    on ``centers64`` (the same centres in float64) where given.  Each
+    cell's test is elementwise, so the result equals one piece's."""
+    occ = torch.zeros(centers.shape[0], dtype=torch.bool,
+                      device=centers.device)
+    for sc, pose in placed:
+        inv = np_pose.invert(pose)
+        local = pose_apply(torch.as_tensor(inv, dtype=centers.dtype,
+                                           device=centers.device), centers)
+        local64 = None
+        if centers64 is not None and sc.tri_verts.shape[0]:
+            local64 = pose_apply(torch.as_tensor(
+                inv, dtype=torch.float64, device=centers.device), centers64)
+        step = max(1, VOXEL_CHUNK_BYTES // (72 * max(sc.n_primitives, 1)))
+        for lo in range(0, centers.shape[0], step):
+            part = slice(lo, lo + step)
+            occ[part] |= voxelize_scene(
+                sc, local[part], cube_extent,
+                None if local64 is None else local64[part])
+    return occ
 
 
 def _retime(q, vmax):
@@ -508,23 +546,29 @@ class CHOMPModule:
 
     def _build_sdf_grid(self, body, grid_pose, sizes, lengths, cube_extent):
         """Voxelize → exterior flood fill → signed EDT, in float32 on the
-        module's device.  The grid's world frame takes the body's carried
-        pose if it is grabbed, as create and viewfields do."""
+        module's device, at any grid size (the JAX package sends grids
+        above 192³ cells to host C++; here every grid builds on the
+        device).  The grid's world frame takes the body's carried pose if
+        it is grabbed, as create and viewfields do."""
         f32 = dict(dtype=torch.float32, device=self.device)
         pose_world_gsdf = np_pose.compose(self._body_world_pose(body),
                                           grid_pose)
         grid = Grid3D.create(sizes, lengths, device=self.device)
         centers_w = pose_apply(torch.as_tensor(pose_world_gsdf, **f32),
-                               grid.all_centers())
-        occ = torch.zeros(tuple(int(s) for s in sizes), dtype=torch.bool,
-                          device=self.device)
+                               grid.all_centers()).reshape(-1, 3)
         scenes, poses = self._world_occupancy_scene()
-        for sc, p in zip(scenes, poses):
-            inv = torch.as_tensor(np_pose.invert(p), **f32)
-            occ = occ | voxelize_scene(sc.to(self.device),
-                                       pose_apply(inv, centers_w),
-                                       cube_extent)
-        occ = exterior_free_mask(occ)   # enclosed pockets → obstacle
+        scenes = [sc.to(self.device) for sc in scenes]
+        centers64 = None
+        if any(sc.tri_verts.shape[0] for sc in scenes):
+            g64 = Grid3D(data=grid.data, lengths=torch.as_tensor(
+                lengths, dtype=torch.float64, device=self.device))
+            centers64 = pose_apply(
+                torch.as_tensor(pose_world_gsdf, dtype=torch.float64,
+                                device=self.device),
+                g64.all_centers()).reshape(-1, 3)
+        occ = voxelize_chunked(list(zip(scenes, poses)), centers_w,
+                               cube_extent, centers64=centers64)
+        occ = exterior_free_mask(occ.reshape(tuple(int(s) for s in sizes)))
         return Grid3D(data=signed_edt(occ, grid.lengths), lengths=grid.lengths)
 
     def addfield_fromobsarray(self, kinbody=None, obsarray=None, sizes=None,
@@ -672,9 +716,13 @@ class CHOMPModule:
             for i in range(n_points):
                 traj[i, :7] = np_pose.normalize(traj[i, :7])
 
-        # chomp.c:239-428; under start_tsr the start point is free
-        ops = metric_mod.build_metric(m, spec.dt, D=D,
-                                      has_init0=start_tsr is None)
+        # chomp.c:239-428; under start_tsr the start point is free.  The
+        # semiseparable metric for long default-metric trajectories (JAX
+        # api.py:733-737) builds no m×m operator
+        use_sep = (metric_mod.sep_eligible(D, start_tsr is None)
+                   and m >= metric_mod.SEP_MIN_M)
+        ops = None if use_sep else metric_mod.build_metric(
+            m, spec.dt, D=D, has_init0=start_tsr is None)
         init0 = None if start_tsr is not None else traj[0]
         # joint limits (orcdchomp_mod.cpp:2638-2660); the base is free
         lo = np.asarray(r.model.dof_limits_lower, dtype=np.float64)
@@ -733,7 +781,8 @@ class CHOMPModule:
                 spec, r.model, pad_stack_grids([s.grid for s in self.sdfs],
                                                self.device, self.dtype),
                 dtype=self.dtype, device=self.device, metric_ops=ops,
-                seed=seed, cons=cons, extra_cost=start_cost)
+                seed=seed, cons=cons, extra_cost=start_cost,
+                metric_mode="sep" if use_sep else "dense")
         self._engine_cache[key] = engine   # at the back: most recent
         self._evict_engines()
         B, trC, Evels = engine.build_affine(init0, traj[-1], n)
@@ -953,8 +1002,10 @@ class CHOMPModule:
         pair_ok = ~torch.as_tensor(rn.robot.check_exclude_mask(), device=dev)
         rsum = rad[:, None] + rad[None, :]
         S = rad.shape[0]
-        chunk = check_chunk(T_s, S, device_chunk)
-        self.last_check = dict(samples=T_s, spheres=S, chunk=chunk)
+        tris = max([sc.tri_verts.shape[0] for sc in scenes], default=0)
+        chunk = check_chunk(T_s, S, device_chunk, tris)
+        self.last_check = dict(samples=T_s, spheres=S, triangles=tris,
+                               chunk=chunk)
         fixed_base = torch.as_tensor(rn.robot.pose, **f64)
 
         hits = np.zeros((len(scenes) + 1, B), dtype=bool)

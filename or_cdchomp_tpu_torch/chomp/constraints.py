@@ -291,17 +291,17 @@ class ProjectionOps(NamedTuple):
     beta: np.ndarray           # (C,)
 
     @classmethod
-    def build(cls, spec, cons: TSRConstraintSet, Ainv):
-        """Ainv: the engine's (m, m) tensor.  The points are the
-        constraint points for a uniform layout, one per enabled row for
-        a mixed one."""
+    def build(cls, spec, cons: TSRConstraintSet, engine):
+        """From the engine's ``ainv_block`` / ``ainv_cols`` (the dense
+        A⁻¹'s entries, or the semiseparable closed form's: no m×m tensor
+        is needed).  The points are the constraint points for a uniform
+        layout, one per enabled row for a mixed one."""
         pts = np.asarray(cons.point_idx)
         if len(set(cons.enabled)) != 1:
             pts = np.asarray([pts[c] for c, _ in cons.rows])
-        sel = Ainv[:, list(pts)]
         cp = np.asarray(cons.point_idx, dtype=np.float64)
-        return cls(ainv_block=sel[list(pts)].contiguous(),
-                   ainv_cols=sel.contiguous(),
+        return cls(ainv_block=engine.ainv_block(pts).contiguous(),
+                   ainv_cols=engine.ainv_cols(pts).contiguous(),
                    alpha=(spec.dt * spec.dt) * (cp + 1.0),
                    beta=float(spec.m) - cp)
 

@@ -1,4 +1,5 @@
-# Copied from or_cdchomp_tpu/chomp/metric.py, dense part only (host numpy; shared copy pending de-duplication).
+# Copied from or_cdchomp_tpu/chomp/metric.py (host numpy; shared copy pending de-duplication); the
+# semiseparable operators are its torch counterparts.
 """Smoothness metric construction: K/E stacks, A, A⁻¹, B, trC, Kvels.
 
 Mirrors cd_chomp's metric init exactly (chomp.c:239-340 add_KEs,
@@ -27,6 +28,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 
 class MetricOperators(NamedTuple):
@@ -146,6 +148,18 @@ def build_metric(
     )
 
 
+# ---------------------------------------------------------------------------
+# Semiseparable metric (D = 1, both endpoints fixed — the default).
+#
+# A = T/(dt²·M) with T = tridiag(−1, 2, −1) and M = m + 1, whose inverse
+# is known in closed form:
+#
+#     Ainv[p, q] = dt² · (p+1) · (m−q)   for p ≤ q (0-indexed), symmetric
+#
+# so A⁻¹·G is two cumulative sums, O(m·n), and no m×m matrix exists.
+# The torch operators below work on (..., m, n) tensors on any device.
+# ---------------------------------------------------------------------------
+
 SEP_MIN_M = 256   # auto-switch threshold of the semiseparable metric
 
 
@@ -153,6 +167,63 @@ def sep_eligible(D: int, has_init0: bool, has_final0: bool = True) -> bool:
     """The closed form holds for the default first-order metric with
     both endpoints present (w = [1], chomp.c:127-128)."""
     return D == 1 and has_init0 and has_final0
+
+
+def _weights(m, like):
+    """(j + 1, m − j) as (m, 1) columns in ``like``'s dtype and device."""
+    j = torch.arange(m, dtype=like.dtype, device=like.device)
+    return (j + 1.0)[:, None], (m - j)[:, None]
+
+
+def sep_solve(G, dt):
+    """A⁻¹ · G for the default metric via two cumsums.  G: (..., m, n)."""
+    up, down = _weights(G.shape[-2], G)
+    c1 = torch.cumsum(up * G, dim=-2)             # Σ_{j≤p} (j+1)·G_j
+    cb = torch.cumsum(down * G, dim=-2)
+    s_after = cb[..., -1:, :] - cb                # Σ_{j>p} (m−j)·G_j
+    return (dt * dt) * (down * c1 + up * s_after)
+
+
+def sep_apply_A(X, dt):
+    """A · X for the default metric: the tridiag(−1, 2, −1)/(dt²·M)
+    stencil with zero virtual endpoints.  X: (..., m, n)."""
+    m = X.shape[-2]
+    zero = torch.zeros_like(X[..., :1, :])
+    up = torch.cat([X[..., 1:, :], zero], dim=-2)
+    dn = torch.cat([zero, X[..., :-1, :]], dim=-2)
+    return (2.0 * X - up - dn) / (dt * dt * (m + 1))
+
+
+def sep_ainv_entries(p, q, m, dt):
+    """Analytic Ainv[p, q] (0-indexed, broadcastable integer tensors or
+    numpy arrays; float64 out, a tensor for tensors)."""
+    if isinstance(p, torch.Tensor) or isinstance(q, torch.Tensor):
+        lo, hi = torch.minimum(p, q), torch.maximum(p, q)
+        return (dt * dt) * (lo.double() + 1.0) * (m - hi).double()
+    lo, hi = np.minimum(p, q), np.maximum(p, q)
+    return (dt * dt) * (lo + 1.0) * (m - hi)
+
+
+def sep_B_trC(m, dt, init0, final0, n):
+    """Closed-form B and trC for the default metric (host numpy).
+
+    B has only its endpoint rows nonzero: B[0] = −init/(dt²·M),
+    B[m−1] += −final/(dt²·M) (chomp.c:319-323 specialized to D=1)."""
+    s = 1.0 / (dt * dt * (m + 1))
+    B = np.zeros((m, n))
+    B[0] += -s * np.asarray(init0, dtype=float)
+    B[m - 1] += -s * np.asarray(final0, dtype=float)
+    trC = 0.5 * s * (np.sum(np.square(init0)) + np.sum(np.square(final0)))
+    return B, float(trC)
+
+
+def sep_Evels(m, dt, init0, final0, n):
+    """Velocity-operator affine part (host numpy; the closed form of
+    build_Evels with both endpoints present)."""
+    E = np.zeros((m, n))
+    E[0] = -0.5 / dt * np.asarray(init0, dtype=float)
+    E[m - 1] = 0.5 / dt * np.asarray(final0, dtype=float)
+    return E
 
 
 def build_E_stack(ops: MetricOperators, init0, final0, n: int):

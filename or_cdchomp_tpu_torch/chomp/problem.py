@@ -9,13 +9,16 @@ state of the JAX package's ``HmcState`` is carried as two flat leaves,
 ``resample_iter`` and ``leapfrog_first``; its PRNG key has no
 counterpart here, since the random draws come from a draw source
 (chomp/solver.py ``HmcDraw``): a module run's own (``api.Run.draw``), or
-the engine's for a batch.
+the engine's for a batch.  A batch built with per-problem seeds
+(``problem_batch_from_grid(..., seeds=...)``) carries them in the
+optional leaf ``hmc_seed`` and draws with ``SeededDraw``; elsewhere the
+leaf is None and :meth:`ChompProblem.leaves` leaves it out.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -68,6 +71,7 @@ class ChompProblem:
     resample_iter: torch.Tensor    # () int32 next HMC resample iteration
     leapfrog_first: torch.Tensor   # () bool: next momentum step is a half step
     iteration: torch.Tensor        # () int32
+    hmc_seed: Optional[torch.Tensor] = None   # () int64 per-problem HMC seed
 
     def to(self, device=None, dtype=None):
         """Move every leaf to ``device``; floating leaves also to
@@ -77,16 +81,16 @@ class ChompProblem:
                 return t.to(device=device, dtype=dtype)
             return t.to(device=device)
 
-        return ChompProblem(**{f.name: conv(getattr(self, f.name))
-                               for f in dataclasses.fields(self)})
+        return ChompProblem(**{k: conv(v) for k, v in self.leaves().items()})
 
     def replace(self, **changes):
         return dataclasses.replace(self, **changes)
 
     def leaves(self):
-        """{name: tensor} of every leaf."""
+        """{name: tensor} of every leaf that is not None."""
         return {f.name: getattr(self, f.name)
-                for f in dataclasses.fields(self)}
+                for f in dataclasses.fields(self)
+                if getattr(self, f.name) is not None}
 
 
 def as_batch(problem: ChompProblem) -> ChompProblem:

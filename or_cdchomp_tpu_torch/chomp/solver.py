@@ -14,16 +14,19 @@ mod::iterate, orcdchomp_mod.cpp:2752-2768) on a (B,)-batched problem:
  7. smoothness cost on the updated trajectory            (chomp.c:660-677)
  8. floating base: renormalise each point's base quaternion
 
-The m×m A/A⁻¹ products are dense matmuls shared across the batch;
+The metric is dense (m×m A/A⁻¹ matmuls shared across the batch) or, for
+long trajectories, semiseparable (chomp/metric.py: a stencil and two
+cumsums, no m×m tensor), by the JAX engine's ``metric_mode`` rule;
 iterations are a Python loop.  The HMC resample is split into a random
-draw (``HmcDraw``, or any callable of the same contract) and a
-deterministic update (``hmc_resample``), so that a test can replay
-another implementation's random numbers.  Under start_tsr the start
+draw (``HmcDraw``, ``SeededDraw`` for a batch with per-problem seeds, or
+any callable of the same contract) and a deterministic update
+(``hmc_resample``), so that a test can replay another implementation's
+random numbers.  Under start_tsr the start
 point moves (the window of moving points begins at 0), and an
 ``extra_cost`` hook (create's start_cost) adds its cost and gradient to
 every problem through ``torch.func.vmap``.  The per-problem entry
 points ``step``, ``iterate`` and ``costs_only`` are this batch step at
-B = 1.  The semiseparable metric is not ported yet.
+B = 1.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from or_cdchomp_tpu_torch.chomp.constraints import (
     ProjectionOps, TSRConstraintSet, eval_tsr_all_soa, project_constraints)
 from or_cdchomp_tpu_torch.chomp.problem import as_batch, first
 from or_cdchomp_tpu_torch.models.robot import CompiledFK
+from or_cdchomp_tpu_torch.ops import draw as draw_ops
 from or_cdchomp_tpu_torch.ops.quat import pose_normalize
 from or_cdchomp_tpu_torch.ops.selfcol import pair_table
 
@@ -62,6 +66,22 @@ class HmcDraw:
         z = torch.randn(probs.AG.shape, **opts)
         u = torch.rand(probs.AG.shape[:1], **opts)
         return z, u * (1.0 - _HMC_U_MIN) + _HMC_U_MIN
+
+
+class SeededDraw:
+    """The draw source of a batch built with per-problem seeds
+    (``problem_batch_from_grid(..., seeds=...)``): problem p at its own
+    iteration i draws ``z`` and ``u`` from Philox4x32-10 keyed by
+    ``hmc_seed[p]`` at counters that hold i (ops/draw.py), one kernel
+    launch for the batch on the card.  So p's draws are the same whatever
+    batch it sits in and whatever the other rows do; they are not the
+    JAX package's ``jax.random`` numbers.  Stateless: the step chooses it
+    for any batch whose ``hmc_seed`` is set."""
+
+    def __call__(self, probs):
+        _, m, n = probs.AG.shape
+        return draw_ops.hmc_draw(probs.hmc_seed, probs.iteration, m, n,
+                                 probs.AG.dtype)
 
 
 class RecordingDraw:
@@ -96,6 +116,9 @@ class ReplayDraw:
         return z.to(**opts), u.to(**opts)
 
 
+SEEDED_DRAW = SeededDraw()
+
+
 def hmc_resample(probs, z, u):
     """The deterministic part of the HMC resample
     (orcdchomp_mod.cpp:2754-2768, JAX solver.py:253-274), per problem:
@@ -116,8 +139,9 @@ def hmc_resample(probs, z, u):
 
 
 class ChompEngine:
-    """Static solver context on one device: spec + robot + fields + dense
-    metric operators + constraint layout + the extra-cost hook.  One
+    """Static solver context on one device: spec + robot + fields + metric
+    (``metric_mode`` "dense" or "sep", chosen by "auto" as in JAX) +
+    constraint layout + the extra-cost hook.  One
     engine serves every problem that shares its static structure;
     problems are batched along a leading axis.
 
@@ -133,14 +157,22 @@ class ChompEngine:
 
     def __init__(self, spec, model, fields, dtype=torch.float32,
                  device="cuda", metric_ops=None, seed=0, cons=None,
-                 extra_cost=None):
-        # the JAX engine's metric choice (solver.py:70-75): start_tsr
-        # frees the start point, so it keeps the dense metric at any m
-        if (metric_mod.sep_eligible(spec.D, not spec.start_tsr)
-                and spec.m >= metric_mod.SEP_MIN_M):
-            raise NotImplementedError(
-                f"m={spec.m} >= {metric_mod.SEP_MIN_M} selects the "
-                "semiseparable metric, which is not ported yet")
+                 extra_cost=None, metric_mode="auto"):
+        # the JAX engine's metric choice (solver.py:74-95): "auto" takes
+        # the semiseparable metric from SEP_MIN_M moving points on where
+        # it holds (D = 1, both endpoints fixed; start_tsr frees the
+        # start point, so it keeps the dense metric at any m)
+        sep_ok = metric_mod.sep_eligible(spec.D, not spec.start_tsr)
+        if metric_mode == "auto":
+            metric_mode = ("sep" if sep_ok and spec.m >= metric_mod.SEP_MIN_M
+                           else "dense")
+        if metric_mode not in ("dense", "sep"):
+            raise ValueError(f"metric_mode must be auto, dense or sep, not "
+                             f"{metric_mode!r}")
+        if metric_mode == "sep" and not sep_ok:
+            raise ValueError("semiseparable metric requires D=1 with both "
+                             "endpoints fixed (no start_tsr)")
+        self.metric_mode = metric_mode
         self.spec = spec
         self.dtype = dtype
         self.device = torch.device(device)
@@ -152,17 +184,20 @@ class ChompEngine:
         # of given draws).  A module run carries its own (api.Run.draw),
         # so runs that share a cached engine share no random state.
         self.draw = HmcDraw(seed, device)
-        if metric_ops is None:
-            metric_ops = metric_mod.build_metric(
-                spec.m, spec.dt, D=spec.D, has_init0=not spec.start_tsr)
-        self.metric_ops = metric_ops
-        self.A = torch.as_tensor(metric_ops.A, dtype=dtype, device=device)
-        self.Ainv = torch.as_tensor(metric_ops.Ainv, dtype=dtype,
-                                    device=device)
+        # the semiseparable metric holds no m×m tensor (A, Ainv None)
+        self.metric_ops = self.A = self.Ainv = None
+        if metric_mode == "dense":
+            if metric_ops is None:
+                metric_ops = metric_mod.build_metric(
+                    spec.m, spec.dt, D=spec.D, has_init0=not spec.start_tsr)
+            self.metric_ops = metric_ops
+            self.A = torch.as_tensor(metric_ops.A, dtype=dtype, device=device)
+            self.Ainv = torch.as_tensor(metric_ops.Ainv, dtype=dtype,
+                                        device=device)
         self.cons = cons if cons is not None else TSRConstraintSet.build(())
         # A⁻¹ at the constraint points, on the device once
         # (solver.py:132-149)
-        self.proj_ops = (ProjectionOps.build(spec, self.cons, self.Ainv)
+        self.proj_ops = (ProjectionOps.build(spec, self.cons, self)
                          if self.cons.k_total else None)
 
         # active-block-first sphere order (orcdchomp_mod.cpp:2265-2299);
@@ -188,17 +223,48 @@ class ChompEngine:
     # -- metric ------------------------------------------------------------
 
     def apply_A_b(self, X):
-        """A · X for X (B, m, n)."""
+        """A · X for X (B, m, n): a matmul, or the tridiagonal stencil
+        under sep."""
+        if self.metric_mode == "sep":
+            return metric_mod.sep_apply_A(X, self.spec.dt)
         return torch.matmul(self.A, X)
 
     def solve_A_b(self, G):
-        """A⁻¹ · G for G (B, m, n)."""
+        """A⁻¹ · G for G (B, m, n): a matmul, or two cumsums under sep."""
+        if self.metric_mode == "sep":
+            return metric_mod.sep_solve(G, self.spec.dt)
         return torch.matmul(self.Ainv, G)
+
+    def _ainv_host(self, rows, cols):
+        """Ainv[rows][:, cols] as float64 numpy (integer index arrays)."""
+        if self.metric_mode == "sep":
+            return metric_mod.sep_ainv_entries(rows[:, None], cols[None, :],
+                                               self.spec.m, self.spec.dt)
+        return self.metric_ops.Ainv[np.ix_(rows, cols)]
+
+    def ainv_block(self, pts):
+        """Ainv[pts, pts] (K, K) on the device in the engine's dtype, for
+        the constraint-projection system (JAX solver.py:132-140)."""
+        pts = np.asarray(pts, dtype=np.int64)
+        return torch.as_tensor(self._ainv_host(pts, pts), dtype=self.dtype,
+                               device=self.device)
+
+    def ainv_cols(self, pts):
+        """Ainv[:, pts] (m, K) on the device in the engine's dtype, for
+        spreading constraint corrections (JAX solver.py:142-149)."""
+        pts = np.asarray(pts, dtype=np.int64)
+        return torch.as_tensor(
+            self._ainv_host(np.arange(self.spec.m), pts), dtype=self.dtype,
+            device=self.device)
 
     def build_affine(self, init0, final0, n):
         """(B, trC, Evels) of one problem's endpoint values
         (chomp.c:319-330, 348-386), float64 numpy; ``init0`` is None
-        under start_tsr."""
+        under start_tsr.  Closed forms under sep."""
+        m, dt = self.spec.m, self.spec.dt
+        if self.metric_mode == "sep":
+            B, trC = metric_mod.sep_B_trC(m, dt, init0, final0, n)
+            return B, trC, metric_mod.sep_Evels(m, dt, init0, final0, n)
         ops = self.metric_ops
         B, trC = metric_mod.build_B_trC(ops, init0, final0, n)
         Ev = metric_mod.build_Evels(ops, init0, final0, n)
@@ -207,14 +273,21 @@ class ChompEngine:
     def build_affine_batch(self, inits, finals, n):
         """Vectorised :meth:`build_affine` over (P, n) endpoints: the
         metric terms are linear in the endpoints
-        (metric.affine_generators).  Under start_tsr the start point
-        moves, so ``inits`` (which may be None) adds nothing.  Returns
-        float64 numpy (B (P, m, n), trC (P,), Evels (P, m, n))."""
+        (metric.affine_generators, or their closed form under sep).
+        Under start_tsr the start point moves, so ``inits`` (which may be
+        None) adds nothing.  Returns float64 numpy (B (P, m, n), trC (P,),
+        Evels (P, m, n))."""
         m, dt = self.spec.m, self.spec.dt
         finals = np.asarray(finals, dtype=np.float64)
         P = finals.shape[0]
-        binit, bfinal, c_ii, c_if, c_ff = metric_mod.affine_generators(
-            self.metric_ops)
+        if self.metric_mode == "sep":
+            s = 1.0 / (dt * dt * (m + 1))
+            binit, bfinal = np.zeros(m), np.zeros(m)
+            binit[0] = bfinal[m - 1] = -s
+            c_ii, c_if, c_ff = 0.5 * s, 0.0, 0.5 * s
+        else:
+            binit, bfinal, c_ii, c_if, c_ff = metric_mod.affine_generators(
+                self.metric_ops)
         B = bfinal[None, :, None] * finals[:, None, :]
         trC = c_ff * np.sum(finals * finals, axis=1)
         Ev = np.zeros((P, m, n))
@@ -279,7 +352,8 @@ class ChompEngine:
         (next_probs, costs (B, 3)) — [total, obstacle, smoothness], the
         obstacle cost measured on the incoming trajectory, smoothness on
         the updated one (chomp.c:475-491, 658-677).  ``draw`` is the HMC
-        draw source (default :attr:`draw`); a run passes its own."""
+        draw source: by default :class:`SeededDraw` for a batch with
+        per-problem seeds, :attr:`draw` otherwise; a run passes its own."""
         spec = self.spec
         lo, hi = self.mov_lo, self.mov_lo + spec.m
         lam = probs.lambda_                                 # (B,)
@@ -288,7 +362,8 @@ class ChompEngine:
         AG, resample_iter, leap = (probs.AG, probs.resample_iter,
                                    probs.leapfrog_first)
         if spec.use_hmc:
-            draw = self.draw if draw is None else draw
+            if draw is None:
+                draw = self.draw if probs.hmc_seed is None else SEEDED_DRAW
             AG, resample_iter, leap = hmc_resample(probs, *draw(probs))
 
         c_obs, G, fk_out = cost_soa.total_cost_grad_batched(

@@ -25,10 +25,12 @@ def problem_from_numpy(d, device="cuda", dtype=torch.float64) -> ChompProblem:
     The HMC state is read from the keys ``hmc.resample_iter`` and
     ``hmc.leapfrog_first`` (the JAX problem's ``hmc`` field flattened);
     its PRNG key ``hmc.key``, and any other key that is not a field of
-    the port's problem, is ignored.  Floating arrays are cast to
-    ``dtype``; integer and bool arrays keep theirs."""
+    the port's problem, is ignored; the optional ``hmc_seed`` is read
+    where ``d`` has it.  Floating arrays are cast to ``dtype``; integer
+    and bool arrays keep theirs."""
     src = {f.name: _HMC_KEYS.get(f.name, f.name)
-           for f in dataclasses.fields(ChompProblem)}
+           for f in dataclasses.fields(ChompProblem)
+           if f.name != "hmc_seed" or "hmc_seed" in d}
     missing = [k for k in src.values() if k not in d]
     if missing:
         raise KeyError(f"problem arrays missing: {missing}")

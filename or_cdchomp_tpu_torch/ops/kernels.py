@@ -22,7 +22,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "build"
-_SOURCES = ("obstacle.cu", "selfcol.cu")
+_SOURCES = ("obstacle.cu", "selfcol.cu", "draw.cu")
 # -fmad=false: the obstacle kernel must round every product and sum the
 # way the plain PyTorch version does, or a query sitting on a cell
 # centre picks the other one-sided neighbour (csrc/obstacle.cu).  The
@@ -51,6 +51,8 @@ _SIGNATURES = {
                     _P, _P, _P, _P),
     # Sa, SI, info (6 ints out)
     "cdx_selfcol_launch_info": (_I, _I, _P),
+    # seed, iteration, B, m*n, dtype code, z, u, words, stream
+    "cdx_hmc_draw": (_P, _P, _I, _I, _I, _P, _P, _P, _P),
 }
 
 _lib = None

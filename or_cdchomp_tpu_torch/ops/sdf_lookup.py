@@ -8,9 +8,10 @@ tensors to the hand-written kernel (or an error).  There is no fallback.
 
 ``LAUNCHES`` / ``LOOKUP_LAUNCHES`` count kernel launches of
 :func:`obstacle` (one per call unless it splits a call past MAX_QUERIES)
-/ :func:`sdf_cell_lookup`.  :func:`obstacle_traffic_bytes`
-and :func:`obstacle_flops` count the work of one :func:`obstacle` call
-for its bound on the card; :func:`launch_geometry` sizes its launch.
+/ :func:`sdf_cell_lookup`.  :func:`obstacle_traffic_bytes` (with
+:func:`obstacle_cells`) and :func:`obstacle_flops` count the work of one
+:func:`obstacle` call for its bound on the card; :func:`launch_geometry`
+sizes its launch.
 """
 
 from __future__ import annotations
@@ -87,6 +88,32 @@ def sdf_cell_lookup(data, sub, nbr):
 
 # ---- fused obstacle cost ---------------------------------------------------
 
+def _field_subs(p, ln, size, dtype):
+    """One field's lookup geometry for grid-frame points p (3 of (m, S,
+    B)): in-box mask, per axis the cell subscript (int32), its centre,
+    the one-sided neighbour choice and the size as a tensor (libcd
+    grid.c:331-454; the expressions obstacle.cu rounds alike)."""
+    in_b = None
+    sub, center, use_next, szf = [], [], [], []
+    for i in range(3):
+        sz = size[i]
+        szf_i = torch.tensor(float(sz), dtype=dtype, device=p[i].device)
+        xi = p[i] / ln[i]
+        ok = (xi >= 0.0) & (xi <= 1.0)
+        in_b = ok if in_b is None else (in_b & ok)
+        si = torch.clamp(torch.floor(xi * szf_i), 0, sz - 1)
+        si = si.to(torch.int32)
+        ci = (si.to(dtype) + 0.5) / szf_i * ln[i]
+        un = p[i] >= ci
+        un = torch.where(si == 0, True, un)
+        un = torch.where(si == sz - 1, False, un)
+        sub.append(si)
+        center.append(ci)
+        use_next.append(un)
+        szf.append(szf_i)
+    return in_b, sub, center, use_next, szf
+
+
 def obstacle_ref(x, vel, acc, data, sizes, lengths, pose_gsdf_world,
                  pose_world_gsdf, field_enabled, radii, epsilon, obs_factor,
                  want_dirs=False):
@@ -109,24 +136,8 @@ def obstacle_ref(x, vel, acc, data, sizes, lengths, pose_gsdf_world,
         pg = comps(pose_gsdf_world[:, f])
         p = soa.add(soa.qrot(pg[3:], xs), pg[:3])            # (m, S, B)
         ln = lengths[f]
-        in_b = None
-        sub, center, use_next, szf = [], [], [], []
-        for i in range(3):
-            sz = sizes_l[f][i]
-            szf_i = torch.tensor(float(sz), dtype=dtype, device=x.device)
-            xi = p[i] / ln[i]
-            ok = (xi >= 0.0) & (xi <= 1.0)
-            in_b = ok if in_b is None else (in_b & ok)
-            si = torch.clamp(torch.floor(xi * szf_i), 0, sz - 1)
-            si = si.to(torch.int32)
-            ci = (si.to(dtype) + 0.5) / szf_i * ln[i]
-            un = p[i] >= ci
-            un = torch.where(si == 0, True, un)
-            un = torch.where(si == sz - 1, False, un)
-            sub.append(si)
-            center.append(ci)
-            use_next.append(un)
-            szf.append(szf_i)
+        in_b, sub, center, use_next, szf = _field_subs(p, ln, sizes_l[f],
+                                                       dtype)
         if want_dirs:
             dirs.append(use_next[0].to(torch.int32)
                         | (use_next[1].to(torch.int32) << 1)
@@ -361,14 +372,41 @@ def obstacle_launch(geom, x, vel, acc, data, sizes, lengths,
     return cost, wgrad
 
 
-def obstacle_traffic_bytes(m, S, B, F, mx, my, mz):
+def obstacle_cells(x, data, sizes, lengths, pose_gsdf_world, field_enabled):
+    """Distinct field cells one :func:`obstacle` call needs on these
+    inputs: the centre cell and the three one-sided neighbours of every
+    query inside an enabled field's box (a query outside gives +inf
+    without a read)."""
+    F, mx, my, mz = data.shape
+    sizes_l = sizes.tolist()
+    xs = tuple(x)
+    total = 0
+    for f in range(F):
+        pg = tuple(pose_gsdf_world[:, f, i] for i in range(7))
+        p = soa.add(soa.qrot(pg[3:], xs), pg[:3])
+        in_b, sub, _, use_next, _ = _field_subs(p, lengths[f], sizes_l[f],
+                                                x.dtype)
+        take = in_b & field_enabled[None, None, :, f]
+        sub = [s_[take].long() for s_ in sub]
+        nb = [s_ + torch.where(u[take], 1, -1) for s_, u in zip(sub, use_next)]
+        cells = torch.cat([(sub[0] * my + sub[1]) * mz + sub[2],
+                           (nb[0] * my + sub[1]) * mz + sub[2],
+                           (sub[0] * my + nb[1]) * mz + sub[2],
+                           (sub[0] * my + sub[1]) * mz + nb[2]])
+        total += int(torch.unique(cells).numel())
+    return total
+
+
+def obstacle_traffic_bytes(m, S, B, F, mx, my, mz, cells=None):
     """Bytes one :func:`obstacle` call must move at the given shapes: each
-    input read once (x, vel, acc, the field stack with its sizes and
-    lengths, both per-problem poses, field_enabled, radii, epsilon,
-    obs_factor), each output written once (cost, wgrad); 4-byte floats
-    and ints, 1-byte bools."""
+    input read once (x, vel, acc, the field cells — ``cells`` of them, as
+    :func:`obstacle_cells` counts on a call's inputs, or the whole stack
+    — the sizes and lengths, both per-problem poses, field_enabled,
+    radii, epsilon, obs_factor), each output written once (cost, wgrad);
+    4-byte floats and ints, 1-byte bools."""
     q = m * S * B
-    reads = (4 * (3 * 3 * q + F * mx * my * mz + 2 * 3 * F + 2 * 7 * B * F
+    cells = F * mx * my * mz if cells is None else cells
+    reads = (4 * (3 * 3 * q + cells + 2 * 3 * F + 2 * 7 * B * F
                   + S + 2 * B)
              + B * F)
     writes = 4 * (q + 3 * q)

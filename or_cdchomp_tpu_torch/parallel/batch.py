@@ -31,13 +31,14 @@ def problem_batch_from_grid(problem: ChompProblem, starts, goals, engine,
 
     The JAX package's signature: ``metric_ops`` is accepted and unused
     there too (the engine's metric builds the affine terms).  ``seeds``
-    (a per-problem HMC key stream) is not ported: the batch draws from
-    the engine's draw source as one, so it raises NotImplementedError.
+    ((P,) integers) gives each problem its own HMC stream: they are kept
+    as the int64 leaf ``hmc_seed``, and the step then draws with
+    ``SeededDraw``, so a problem's draws do not depend on its batch.
+    With ``seeds=None`` (the JAX package then keys problem p with p,
+    ``arange(P)``) the leaf stays None and the batch draws from the
+    engine's draw source as one, as before; the JAX keys' numbers are
+    not reproduced either way.
     """
-    if seeds is not None:
-        raise NotImplementedError(
-            "seeds: per-problem HMC streams are not ported yet (the batch "
-            "draws from the engine's draw source)")
     starts = np.asarray(starts, dtype=np.float64)
     goals = np.asarray(goals, dtype=np.float64)
     P_, n = starts.shape
@@ -60,6 +61,13 @@ def problem_batch_from_grid(problem: ChompProblem, starts, goals, engine,
         resample_iter=torch.zeros(P_, dtype=torch.int32, device=dev),
         leapfrog_first=torch.ones(P_, dtype=torch.bool, device=dev),
         iteration=torch.zeros(P_, dtype=torch.int32, device=dev))
+    batched.pop("hmc_seed", None)      # a template's own seed is not kept
+    if seeds is not None:
+        seeds = np.asarray(seeds, dtype=np.int64).reshape(-1)
+        if seeds.shape != (P_,):
+            raise ValueError(f"seeds must have one entry per problem "
+                             f"({P_}), not {seeds.shape[0]}")
+        batched["hmc_seed"] = torch.as_tensor(seeds, device=dev)
     return ChompProblem(**batched)
 
 

@@ -767,3 +767,39 @@ def test_start_cost_batch_card_matches_cpu(cuda):
     err = float((out.traj.double().cpu() - out64.traj).abs().max())
     assert err <= 1e-5, err
     _close(costs, costs64.float())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B, m, n", [(5, 3, 7), (33, 99, 7), (2, 1, 1)])
+def test_hmc_draw_kernel_matches_plain(cuda, dtype, B, m, n):
+    """The draw kernel's words bit-equal to its plain version's; z and u
+    within 1e-6 relative (the float64 transcendentals of two libraries,
+    then one cast); one launch."""
+    from or_cdchomp_tpu_torch.ops import draw
+
+    seed = torch.as_tensor(np.array([7, -3, 2 ** 40 + 1] * 11)[:B])
+    it = torch.arange(B, dtype=torch.int32) * 7
+    want = draw.hmc_draw(seed, it, m, n, dtype, want_words=True)
+    n0 = draw.LAUNCHES
+    got = draw.hmc_draw(seed.to(cuda), it.to(cuda), m, n, dtype,
+                        want_words=True)
+    assert draw.LAUNCHES == n0 + 1
+    for g, w in zip(got[2:], want[2:]):
+        assert torch.equal(g.cpu(), w)
+    for g, w in zip(got[:2], want[:2]):
+        assert g.dtype == dtype
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=1e-6,
+                                   atol=1e-6 * float(w.abs().max()))
+    assert float(got[1].max()) < 1.0 and float(got[1].min()) >= 1e-12
+
+
+def test_hmc_draw_kernel_batch_independent(cuda):
+    """Rows 2..4 of a B = 40 launch bit-equal to the same rows alone."""
+    from or_cdchomp_tpu_torch.ops import draw
+
+    seed = (100 + torch.arange(40)).to(cuda)
+    it = (torch.arange(40, dtype=torch.int32) % 5).to(cuda)
+    z, u = draw.hmc_draw(seed, it, 99, 7, torch.float32)
+    zs, us = draw.hmc_draw(seed[2:5].contiguous(), it[2:5].contiguous(), 99,
+                           7, torch.float32)
+    assert torch.equal(z[2:5], zs) and torch.equal(u[2:5], us)

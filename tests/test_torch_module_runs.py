@@ -230,7 +230,8 @@ def test_clear_engine_cache():
 
 def test_batch_from_grid_takes_jax_signature(mods):
     """bench.py's call, problem_batch_from_grid(problem, starts, goals,
-    engine, ops), works and equals the call without ops; seeds raise."""
+    engine, ops), works and equals the call without ops; seeds become
+    the hmc_seed leaf and change nothing else."""
     tm, _ = mods
     run = tm.runs[tm.create(**KW)]
     rng = np.random.default_rng(3)
@@ -243,6 +244,10 @@ def test_batch_from_grid_takes_jax_signature(mods):
         assert torch.equal(v, b.leaves()[k]), k
     probs, _ = BatchSolver(run.engine).iterate(a, 2)
     assert bool(torch.isfinite(probs.traj).all())
-    with pytest.raises(NotImplementedError, match="seeds"):
-        problem_batch_from_grid(run.problem, starts, goals, run.engine,
-                                None, np.arange(3))
+    c = problem_batch_from_grid(run.problem, starts, goals, run.engine,
+                                None, 5 + np.arange(3))
+    assert torch.equal(c.hmc_seed, torch.tensor([5, 6, 7]))
+    assert a.hmc_seed is None and set(c.leaves()) == set(a.leaves()) | {
+        "hmc_seed"}
+    for k, v in a.leaves().items():
+        assert torch.equal(v, c.leaves()[k]), k

@@ -21,7 +21,8 @@ import or_cdchomp_tpu_torch as pt
 from or_cdchomp_tpu_torch.api import KinBody, Robot
 from or_cdchomp_tpu_torch.chomp import cost_soa
 from or_cdchomp_tpu_torch.convert import fields_from_numpy
-from or_cdchomp_tpu_torch.ops.sdf_lookup import (obstacle_traffic_bytes,
+from or_cdchomp_tpu_torch.ops.sdf_lookup import (obstacle_cells,
+                                                 obstacle_traffic_bytes,
                                                  sdf_cell_lookup_ref)
 
 RTOL = 1e-10   # float64; the sums differ only in association order
@@ -101,9 +102,18 @@ def test_duplicate_field_and_cache_file_raise(tmp_path):
 
 
 def test_mesh_scene_not_ported():
-    with pytest.raises(NotImplementedError, match="meshes"):
-        pt.Scene.build(meshes=[(np.eye(7)[6], np.zeros((3, 3)),
-                                np.array([[0, 1, 2]]))])
+    """Meshes are ported now: Scene.build(meshes=...) bakes the triangles
+    into the scene frame as the JAX package does."""
+    from or_cdchomp_tpu.ops.voxelize import Scene as JaxScene
+
+    pose = (0.1, -0.2, 0.3, 0.0, 0.0, 0.19866933, 0.98006658)
+    verts = np.array([[0.0, 0.0, 0.0], [0.2, 0.0, 0.1], [0.0, 0.3, -0.1]])
+    meshes = [(pose, verts, np.array([[0, 1, 2]]))]
+    got = pt.Scene.build(meshes=meshes, dtype=torch.float64).tri_verts
+    want = np.asarray(JaxScene.build(meshes=meshes,
+                                     dtype=jnp.float64).tri_verts)
+    assert tuple(got.shape) == want.shape == (1, 3, 3)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
 
 
 # ---- raw lookup: the Pallas kernel's contract -------------------------------
@@ -135,6 +145,48 @@ def test_obstacle_traffic_bytes_flagship():
     assert obstacle_traffic_bytes(99, 15, 256, 1, 12, 16, 12) == (
         13_685_760 + 9_216 + 24 + 14_336 + 256 + 60 + 2_048
         + 6_082_560) == 19_794_260
+
+
+def test_obstacle_cells_counts_the_cells_read():
+    """obstacle_cells: the distinct (field, cell) of the centre and the
+    three one-sided neighbours of each query inside an enabled field's
+    box, against a per-query count in plain Python (float64)."""
+    rng = np.random.default_rng(8)
+    F, m, S, B = 2, 5, 6, 10
+    data, sizes, lengths = (np.array(a) for a in _fields(rng, F))
+    x = rng.uniform(-0.15, 0.95, size=(3, m, S, B))
+    pg = np.zeros((B, F, 7))
+    pg[..., :3] = rng.normal(size=(B, F, 3)) * 0.05
+    q = rng.normal(size=(B, F, 4))
+    pg[..., 3:] = q / np.linalg.norm(q, axis=-1, keepdims=True)
+    enabled = np.ones((B, F), bool)
+    enabled[2, 1] = False
+    t = torch.as_tensor
+    got = obstacle_cells(t(x), t(data), t(sizes),
+                         t(lengths.astype(np.float64)), t(pg), t(enabled))
+    want = set()
+    for f in range(F):
+        sz, ln = sizes[f], lengths[f].astype(np.float64)
+        for k, s_, b in np.ndindex(m, S, B):
+            if not enabled[b, f]:
+                continue
+            p = oc.utils.np_pose.apply(pg[b, f], x[:, k, s_, b])
+            if not np.all((p / ln >= 0) & (p / ln <= 1)):
+                continue
+            sub = np.clip(np.floor(p / ln * sz), 0, sz - 1).astype(int)
+            cen = (sub + 0.5) / sz * ln
+            up = np.where(sub == 0, True,
+                          np.where(sub == sz - 1, False, p >= cen))
+            nb = sub + np.where(up, 1, -1)
+            want.add((f, *sub))
+            for i in range(3):
+                c = sub.copy()
+                c[i] = nb[i]
+                want.add((f, *c))
+    assert len(want) > 60 and got == len(want)
+    assert obstacle_traffic_bytes(m, S, B, F, *data.shape[1:], got) == \
+        obstacle_traffic_bytes(m, S, B, F, *data.shape[1:]) \
+        - 4 * (data.size - got)
 
 
 def _fields(rng, F, inf_cell=False, all_occupied=False):

@@ -182,8 +182,8 @@ def test_floating_base_error_matches_jax(mods):
 @pytest.mark.parametrize("start", [True, False])
 def test_metric_choice_at_long_trajectories(runs, start):
     """m = 256: with start_tsr both engines take the dense metric (the
-    semiseparable form needs a fixed start); without it JAX takes the
-    semiseparable metric, which the port does not have yet."""
+    semiseparable form needs a fixed start); without it both take the
+    semiseparable metric and hold no m×m tensor."""
     trun, jrun = runs["start_tsr"]
     n_points = 256 + 2 - start
     jspec = JaxSpec(n_points=n_points, n=7, m=256, start_tsr=start,
@@ -192,12 +192,11 @@ def test_metric_choice_at_long_trajectories(runs, start):
     jeng = JaxEngine(jspec, oc.wam7(), jrun.engine.fields,
                      dtype=jnp.float64)
     assert jeng.metric_mode == ("dense" if start else "sep")
-    if not start:
-        with pytest.raises(NotImplementedError, match="semiseparable"):
-            ChompEngine(spec, pt.wam7(), trun.engine.fields,
-                        dtype=torch.float64, device="cpu")
-        return
     eng = ChompEngine(spec, pt.wam7(), trun.engine.fields,
                       dtype=torch.float64, device="cpu")
+    assert eng.metric_mode == jeng.metric_mode
+    if not start:
+        assert eng.A is None and eng.Ainv is None and jeng.A is None
+        return
     assert not eng.metric_ops.has_init0
     close(eng.A, jeng.A, MATH_RTOL)
