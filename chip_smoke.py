@@ -55,12 +55,36 @@ Three phases of long trajectories, meshes and seeds follow:
   and rows 0-7 re-run as a batch of 8: draws bit-equal at every step,
   trajectories within 1e-5.
 
+Three phases of the multi-process layer, checkpoints and the phase
+ranges follow:
+
+- distributed: this process joins an NCCL world of one (a TCPStore on
+  127.0.0.1) and solves config 1's B = 256 batch with a mesh BatchSolver
+  (solve with tol, all_hosts_best), bit-equal to the plain solver, with
+  its collectives counted (none per step, one all-reduce per chunk) and
+  the two walls in turns; then two child processes of this script
+  (``--dist-child``) share the card over gloo, 128 rows each of config
+  3's HMC batch on seeds arange(256), held to this process's solve of
+  all 256 (same best index, best cost within 1e-6 relative, max
+  |Δtraj| ≤ 1e-5);
+- checkpoint: a config 3 module run resumed across save_problem /
+  load_problem with its HmcDraw, and the seeded batch from the problem
+  alone, each bit-equal to an uninterrupted run; save and load walls,
+  file sizes;
+- phase profile: configs 1 and 4 under torch.profiler, device and host
+  ms per step per phase, every K1 launch in ``obstacle`` and every K2
+  launch in ``selfcol``; config 1's warm iterate(100) with the ranges
+  and with ``phase`` swapped for a null context, in turns; the 0.0025 m
+  mesh field's build split into voxelize, flood and edt.
+
 Each is timed on the card first; then the first 8 problems of configs
 1, 2, 3 and 4 are re-solved on the CPU in float64 through the same API
 (config 3 fed the card's own HMC draws) and held to max |Δtraj| ≤ 1e-3.
 Any failed phase exits non-zero.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --split 4   # the seeded split alone, 4 ranks
+                                      # (NCCL, one per card, on 4 cards)
 
 Prints the card (nvidia-smi name, power limit), the obstacle kernel's
 launch per configuration and the self-collision kernel's (grid, threads,
@@ -76,6 +100,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -131,6 +156,14 @@ N_SIGN = 10_000      # sampled cells of the large grid's sign check
 TIE_BAND = 1e-5      # m: a cell whose verdict flips within it is a tie
 SEEDED_BAR = 1e-5    # seeded rows: B = 256 against B = 8 on the card
 DRAW_RTOL = 1e-6     # draw kernel against its plain version
+# the distributed phase: its convergence tolerance, the rendezvous and
+# collective timeout, a gloo child's time limit, and the bar of the two
+# ranks' best cost against one process's
+DIST_TOL = 1e-3
+DIST_TIMEOUT = 120
+DIST_CHILD_TIMEOUT = 300
+DIST_COST_RTOL = 1e-6
+CKPT_DIR = ROOT / "or_cdchomp_tpu_torch" / "build" / "ckpt"
 
 
 class PhaseFailed(Exception):
@@ -1888,6 +1921,539 @@ def seeded_phase(torch, pt, card, dev):
     return entry
 
 
+# ---- the multi-process layer, checkpoints, the phase profile ---------------
+
+def free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+class CollectiveCount:
+    """Counts calls of torch.distributed's collectives while entered."""
+
+    NAMES = ("all_reduce", "all_gather", "all_gather_into_tensor",
+             "broadcast", "reduce", "reduce_scatter", "reduce_scatter_tensor",
+             "all_to_all", "all_to_all_single", "gather", "scatter",
+             "barrier", "send", "recv")
+
+    def __init__(self):
+        self.calls = {}
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self._saved = {n: getattr(dist, n) for n in self.NAMES}
+        for name, fn in self._saved.items():
+            def wrap(*a, _fn=fn, _name=name, **kw):
+                self.calls[_name] = self.calls.get(_name, 0) + 1
+                return _fn(*a, **kw)
+            setattr(dist, name, wrap)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        for name, fn in self._saved.items():
+            setattr(dist, name, fn)
+        return False
+
+    def total(self):
+        return sum(self.calls.values())
+
+
+def seeded_hmc_batch(pt, dtype, device):
+    """Config 3's world (HMC, seed 7) and its B = 256 batch on per-row
+    seeds arange(256), the global row indices; returns (engine, batch)."""
+    import numpy as np
+
+    from or_cdchomp_tpu_torch.parallel.batch import problem_batch_from_grid
+
+    run = config3_run(pt, dtype, device)
+    starts, goals = bench_endpoints(BATCH)
+    return run.engine, problem_batch_from_grid(
+        run.problem, starts, goals, run.engine, seeds=np.arange(BATCH))
+
+
+def dist_child(rank, world, port, outdir):
+    """One rank of split_solve: its host_local_batch rows of config 3's
+    seeded B = 256 batch on its card (gloo where the ranks share one,
+    NCCL where each has its own: ``multihost.choose_backend``),
+    solve(100, tol=-inf) (the converged flag all-reduced every chunk,
+    never set), all_hosts_best; writes its rows and result to outdir."""
+    import datetime
+
+    import torch
+
+    torch.set_num_threads(2)
+    sys.path.insert(0, str(ROOT))
+    import or_cdchomp_tpu_torch as pt
+    import torch.distributed as dist
+    from or_cdchomp_tpu_torch.parallel import multihost as mh
+    from or_cdchomp_tpu_torch.parallel.batch import BatchSolver
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    mh.initialize(f"127.0.0.1:{port}", world, rank,
+                  timeout=datetime.timedelta(seconds=DIST_TIMEOUT))
+    want = mh.choose_backend(world, torch.cuda.device_count())
+    check(dist.get_backend() == want, f"rank {rank}: backend "
+          f"{dist.get_backend()}, expected {want}")
+    init_s = time.perf_counter() - t0
+    eng, probs = seeded_hmc_batch(pt, torch.float32, torch.device("cuda"))
+    # NCCL sets its communicator up at the first collective: time that
+    # apart from the solve
+    t0 = time.perf_counter()
+    dist.all_reduce(mh.comm_tensor(torch.ones(1, device=probs.traj.device)))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    mesh = mh.pod_mesh()
+    solver = BatchSolver(eng, mesh=mesh)
+    local = solver.shard(probs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, fin, done = solver.solve(local, N_ITER, tol=-math.inf)
+    best, idx = mh.all_hosts_best(out, fin)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    start, size = mh.host_local_batch(BATCH)
+    torch.save({"traj": out.traj.cpu(), "finals": fin.cpu(),
+                "best_traj": best.traj.cpu(), "rows": [start, size]},
+               str(Path(outdir) / f"rank{rank}.pt"))
+    print("RESULT " + json.dumps({
+        "rank": rank, "rows": [start, size], "done": done,
+        "best_idx": int(idx), "local_min": float(fin[:, 0].min()),
+        "backend": dist.get_backend(),
+        "device": torch.cuda.current_device(),
+        "init_s": init_s, "first_s": first_s, "wall_s": wall}), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def distributed_phase(torch, pt, card, dev):
+    """(a) This process joins an NCCL world of one: config 1's B = 256
+    batch through BatchSolver(engine, mesh=pod_mesh()).solve(tol) and
+    all_hosts_best, bit-equal to the plain solver and best_of_batch in
+    the same process, with 0 collectives per step and 1 per chunk; walls
+    in turns.  (b) Two child processes share the card over gloo, 128 rows
+    each of config 3's seeded B = 256 HMC batch, against this process's
+    solve of all 256 rows."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from or_cdchomp_tpu_torch.ops import sdf_lookup, selfcol
+    from or_cdchomp_tpu_torch.parallel import multihost as mh
+    from or_cdchomp_tpu_torch.parallel.batch import (BatchSolver,
+                                                     best_of_batch,
+                                                     problem_batch_from_grid)
+
+    f32 = torch.float32
+    # -- (a) NCCL, world size 1 ---------------------------------------------
+    t0 = time.perf_counter()
+    mh.initialize(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl",
+                  timeout=datetime.timedelta(seconds=DIST_TIMEOUT))
+    init_s = time.perf_counter() - t0
+    check(dist.get_backend() == "nccl", "distributed: backend not nccl")
+    t0 = time.perf_counter()
+    flag = torch.ones((), dtype=torch.int32, device=dev)
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    print(f"distributed: NCCL world of 1: init_process_group {init_s:.3f} s, "
+          f"first all-reduce {first_s:.3f} s")
+    mesh = mh.pod_mesh()
+    _, run = bench_module(pt, f32, dev)
+    eng = run.engine
+    starts, goals = bench_endpoints(BATCH)
+    probs = problem_batch_from_grid(run.problem, starts, goals, eng)
+    dsolver, plain = BatchSolver(eng, mesh=mesh), BatchSolver(eng)
+    local = mh.make_global_problems(dsolver.shard(probs), mesh)
+    check(torch.equal(local.traj, probs.traj), "distributed: shard rows")
+
+    with CollectiveCount() as per_step:
+        dsolver.iterate(local, 10)
+    with CollectiveCount() as per_chunk:
+        dsolver.iterate_until(local, 10, 10, DIST_TOL)
+    print(f"distributed: collectives per 10 steps {per_step.calls}, per "
+          f"converged-checked chunk {per_chunk.calls}")
+    check(per_step.total() == 0, "distributed: a step exchanged data")
+    check(per_chunk.calls == {"all_reduce": 1},
+          f"distributed: chunk collectives {per_chunk.calls}")
+
+    counts_zero(sdf_lookup, selfcol)
+    with CollectiveCount() as solve_calls:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_d, fin_d, done_d = dsolver.solve(local, N_ITER, tol=DIST_TOL)
+        best_d, idx_d = mh.all_hosts_best(out_d, fin_d)
+        torch.cuda.synchronize()
+        wall_d = time.perf_counter() - t0
+    launches = counts(sdf_lookup, selfcol)
+    chunks = -(-done_d // 10)
+    check(solve_calls.calls == {"all_reduce": chunks, "all_gather": 1,
+                                "broadcast": 1},
+          f"distributed: solve collectives {solve_calls.calls}, "
+          f"{chunks} chunks")
+    check_launches(launches, done_d + 1, "distributed solve")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_p, fin_p, done_p = plain.solve(probs, N_ITER, tol=DIST_TOL)
+    best_p, idx_p = best_of_batch(out_p, fin_p)
+    torch.cuda.synchronize()
+    wall_p = time.perf_counter() - t0
+    same = (done_d == done_p and torch.equal(out_d.traj, out_p.traj)
+            and torch.equal(fin_d, fin_p) and int(idx_d) == int(idx_p)
+            and all(torch.equal(v, getattr(best_d, k))
+                    for k, v in best_p.leaves().items()))
+    print(f"distributed: solve(tol={DIST_TOL}) at B={BATCH}: {done_d} "
+          f"steps in {chunks} chunks, collectives {solve_calls.calls}, "
+          f"launches {launches}; wall {wall_d:.4f} s (mesh, with "
+          f"all_hosts_best) vs {wall_p:.4f} s (plain, with best_of_batch), "
+          f"first calls; bit-equal {same}; best index {int(idx_d)} on {card}")
+    check(same, "distributed: the NCCL world-of-one solve is not bit-equal "
+          "to the plain solver")
+    walls = {"mesh": [], "plain": []}
+    for arm in ("mesh", "plain", "plain", "mesh", "mesh", "plain"):
+        s = dsolver if arm == "mesh" else plain
+        walls[arm].append(warm_walls(
+            torch, lambda: s.solve(local, N_ITER, tol=DIST_TOL), 1)[0])
+    wm, wp = statistics.median(walls["mesh"]), statistics.median(walls["plain"])
+    print(f"distributed: warm solve(tol) walls in turns: mesh {walls['mesh']} "
+          f"(median {wm} s, {BATCH / wm} solves/s), plain {walls['plain']} "
+          f"(median {wp} s, {BATCH / wp} solves/s) on {card}")
+    dist.destroy_process_group()
+    check(not dist.is_initialized(), "distributed: group not destroyed")
+
+    # -- (b) two gloo ranks share the card ----------------------------------
+    split_solve(torch, pt, card, dev, 2)
+
+
+def split_solve(torch, pt, card, dev, nranks):
+    """Config 3's seeded B = 256 HMC batch (seeds arange(256)) split over
+    ``nranks`` child processes of this script (``--dist-child``), each
+    on card rank % cards, against this process's solve of all 256 rows:
+    the same best index on every rank, the best cost within
+    DIST_COST_RTOL, every rank's rows within SEEDED_BAR."""
+    from or_cdchomp_tpu_torch.parallel.batch import BatchSolver, best_of_batch
+
+    f32 = torch.float32
+    outdir = ROOT / "or_cdchomp_tpu_torch" / "build" / "dist"
+    outdir.mkdir(parents=True, exist_ok=True)
+    for old in outdir.glob("rank*.pt"):
+        old.unlink()
+    eng3, probs3 = seeded_hmc_batch(pt, f32, dev)
+    solver3 = BatchSolver(eng3)
+    t0 = time.perf_counter()
+    out3, fin3, done3 = solver3.solve(probs3, N_ITER, tol=-math.inf)
+    best3, idx3 = best_of_batch(out3, fin3)
+    torch.cuda.synchronize()
+    wall3 = time.perf_counter() - t0
+    port = free_port()
+    # the sockets on the loopback interface: the machine may have no other
+    env = dict(os.environ)
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    env.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--dist-child",
+         str(rank), str(nranks), str(port), str(outdir)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+        for rank in range(nranks)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DIST_CHILD_TIMEOUT)[0])
+    except subprocess.TimeoutExpired:
+        raise PhaseFailed(f"distributed: a child rank hung past "
+                          f"{DIST_CHILD_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    children_s = time.perf_counter() - t0
+    res = []
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        line = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
+        check(p.returncode == 0 and line,
+              f"distributed: child rank {rank} failed (rc {p.returncode}):"
+              f"\n{out[-3000:]}")
+        res.append(json.loads(line[-1][len("RESULT "):]))
+    best_cost3 = float(fin3[idx3, 0])
+    rank_best = min(r["local_min"] for r in res)
+    rel = abs(rank_best - best_cost3) / abs(best_cost3)
+    print(f"distributed: {nranks} {res[0]['backend']} ranks on cards "
+          f"{[r['device'] for r in res]}, ~{BATCH // nranks} rows each of "
+          f"config 3's seeded HMC batch (seeds arange({BATCH})): "
+          f"{children_s:.2f} s for the processes; rank walls (solve + "
+          f"all_hosts_best) {[r['wall_s'] for r in res]} s, init "
+          f"{[r['init_s'] for r in res]} s, first collective "
+          f"{[r['first_s'] for r in res]} s; one process {wall3:.4f} s "
+          f"(first call) on {card}")
+    for r in res:
+        d = torch.load(str(outdir / f"rank{r['rank']}.pt"), weights_only=True)
+        start, size = d["rows"]
+        ref = out3.traj[start:start + size].cpu()
+        dtraj = float((d["traj"] - ref).abs().max())
+        bit = torch.equal(d["traj"], ref)
+        base, rem = divmod(BATCH, nranks)
+        want = [r["rank"] * base + min(r["rank"], rem),
+                base + (r["rank"] < rem)]
+        print(f"distributed: rank {r['rank']} rows [{start}, {size}]: max "
+              f"|Δtraj| {dtraj} (bar {SEEDED_BAR}), bit-equal {bit}; best "
+              f"index {r['best_idx']} vs {int(idx3)}, "
+              f"{r['done']} steps vs {done3}")
+        check(r["rows"] == [start, size] == want,
+              f"distributed: rank {r['rank']} rows {r['rows']}")
+        check(dtraj <= SEEDED_BAR,
+              f"distributed: rank {r['rank']} moved {dtraj}")
+        check(r["best_idx"] == int(idx3),
+              f"distributed: best index {r['best_idx']} != {int(idx3)}")
+    print(f"distributed: best cost over the ranks {rank_best} vs one "
+          f"process {best_cost3} (relative {rel}, bar {DIST_COST_RTOL})")
+    check(rel <= DIST_COST_RTOL,
+          f"distributed: best cost {rank_best} vs {best_cost3}")
+    bests = [torch.load(str(outdir / f"rank{r}.pt"),
+                        weights_only=True)["best_traj"]
+             for r in range(nranks)]
+    check(all(torch.equal(b, bests[0]) for b in bests),
+          "distributed: the ranks' best differ")
+
+
+def checkpoint_phase(torch, pt, card, dev):
+    """A config 3 module run (HmcDraw, seed 7): 50 iterations, save with
+    its draw, load into a fresh module's run, 50 more — bit-equal to 100
+    straight; then config 3's seeded B = 256 batch from the problem
+    alone.  Prints the save and load walls and the file sizes."""
+    from or_cdchomp_tpu_torch.checkpoint import load_problem, save_problem
+    from or_cdchomp_tpu_torch.parallel.batch import BatchSolver
+
+    f32 = torch.float32
+    half = N_ITER // 2
+    kw = dict(run_kw(), use_hmc=True, hmc_resample_lambda=0.02)
+
+    def leaves_equal(a, b):
+        return all(torch.equal(v, getattr(b, k))
+                   for k, v in a.leaves().items())
+
+    CKPT_DIR.mkdir(parents=True, exist_ok=True)
+    mod, _ = bench_module(pt, f32, dev)
+    h = mod.create(**kw, seed=7)
+    mod.iterate(run=h, n_iter=half)
+    path = str(CKPT_DIR / "run_ckpt.pt")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_problem(path, mod.runs[h].problem, draw=mod.runs[h].draw)
+    save_s = time.perf_counter() - t0
+    size = Path(path).stat().st_size
+    fresh, _ = bench_module(pt, f32, dev)
+    h2 = fresh.create(**kw, seed=12345)
+    rn2 = fresh.runs[h2]
+    t0 = time.perf_counter()
+    rn2.problem = load_problem(path, template=rn2.problem, draw=rn2.draw)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    fresh.iterate(run=h2, n_iter=N_ITER - half)
+    h3 = mod.create(**kw, seed=7)
+    mod.iterate(run=h3, n_iter=N_ITER)
+    same = leaves_equal(rn2.problem, mod.runs[h3].problem)
+    print(f"checkpoint: config 3 module run (HmcDraw, seed 7) {half} + "
+          f"{N_ITER - half} iterations across save / load into a fresh "
+          f"module: bit-equal to {N_ITER} straight {same}; save {save_s:.4f} "
+          f"s, load {load_s:.4f} s, {size} B on {card}")
+    check(same, "checkpoint: the resumed module run differs")
+
+    eng, probs = seeded_hmc_batch(pt, f32, dev)
+    solver = BatchSolver(eng)
+    mid, _ = solver.iterate(probs, half)
+    bpath = str(CKPT_DIR / "batch_ckpt.pt")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_problem(bpath, mid)
+    save_s = time.perf_counter() - t0
+    bsize = Path(bpath).stat().st_size
+    t0 = time.perf_counter()
+    back = load_problem(bpath, template=probs)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    resumed, _ = solver.iterate(back, N_ITER - half)
+    straight, _ = solver.iterate(probs, N_ITER)
+    same = leaves_equal(resumed, straight)
+    print(f"checkpoint: config 3 seeded batch (B={BATCH}) {half} + "
+          f"{N_ITER - half} iterations across save / load: bit-equal to "
+          f"{N_ITER} straight {same}; save {save_s:.4f} s, load "
+          f"{load_s:.4f} s, {bsize} B on {card}")
+    check(same, "checkpoint: the resumed seeded batch differs")
+
+
+def phase_profile(torch, eng, probs, label, card, reps=5):
+    """torch.profiler over reps steps of a batch: device and host ms per
+    step per phase, and every K1 / K2 launch's phase.  Returns the two
+    reports."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from or_cdchomp_tpu_torch.utils.profiling import (format_phase_report,
+                                                      phase_host_report,
+                                                      phase_kernels)
+
+    state = [probs]
+    eng.step_batched(state[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            state[0], _ = eng.step_batched(state[0])
+        torch.cuda.synchronize()
+    kern = phase_kernels(prof)
+    dev_ms, host_ms = {}, {}
+    for _, ph, us in kern:
+        dev_ms[ph] = dev_ms.get(ph, 0.0) + us / 1e3 / reps
+    for ph, ms in phase_host_report(prof).items():
+        host_ms[ph] = ms / reps
+    k1 = [ph for name, ph, _ in kern if "obstacle_kernel" in name]
+    k2 = [ph for name, ph, _ in kern if "selfcol" in name]
+    print(f"{label} phase profile over {reps} steps, on {card}:")
+    print(format_phase_report(dev_ms, "device ms per step"))
+    print(format_phase_report(host_ms, "host ms per step"))
+    print(f"{label}: K1 launches recorded {len(k1)} (phases {set(k1)}), "
+          f"K2 {len(k2)} (phases {set(k2)}), of {reps} each")
+    check(k1 and set(k1) == {"obstacle"},
+          f"{label}: K1 launches charged to {set(k1)}")
+    check(k2 and set(k2) == {"selfcol"},
+          f"{label}: K2 launches charged to {set(k2)}")
+    return dev_ms, host_ms
+
+
+def range_cost_us(torch, n=20_000):
+    """Host µs per entered and left range: ``phase`` as shipped, a null
+    context, and an NVTX push / pop pair alone."""
+    import contextlib
+
+    from or_cdchomp_tpu_torch.utils.profiling import phase
+
+    out = {}
+    for name, cm in (("phase", phase),
+                     ("null", lambda n: contextlib.nullcontext())):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            with cm("fk"):
+                pass
+        out[name] = (time.perf_counter() - t0) / n * 1e6
+    t0 = time.perf_counter()
+    for _ in range(n):
+        torch.cuda.nvtx.range_push("fk")
+        torch.cuda.nvtx.range_pop()
+    out["nvtx"] = (time.perf_counter() - t0) / n * 1e6
+    return out
+
+
+def profile_phase(torch, pt, card, dev):
+    """The phase ranges on the card: configs 1 and 4 profiled 5 steps each
+    (device and host ms per phase, K1 in obstacle, K2 in selfcol); config
+    1's warm iterate(100) with the ranges as shipped and with ``phase``
+    swapped for a null context, in turns; the 0.0025 m mesh field's build
+    split into voxelize, flood and edt."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from or_cdchomp_tpu_torch.chomp import cost_soa, solver as solver_mod
+    from or_cdchomp_tpu_torch.parallel.batch import (BatchSolver,
+                                                     problem_batch_from_grid)
+    from or_cdchomp_tpu_torch.utils.profiling import (BUILD_PHASES,
+                                                      format_phase_report,
+                                                      phase_host_report,
+                                                      phase_kernels)
+
+    f32 = torch.float32
+    _, run = bench_module(pt, f32, dev)
+    eng = run.engine
+    starts, goals = bench_endpoints(BATCH)
+    probs = problem_batch_from_grid(run.problem, starts, goals, eng)
+    print(f"host µs per range before this phase's profiles: "
+          f"{range_cost_us(torch)}")
+    phase_profile(torch, eng, probs, "config 1", card)
+    run4 = config4_run(pt, f32, dev, require_cache=True)
+    s4, g4 = run_endpoints(run4, BATCH)
+    probs4 = problem_batch_from_grid(run4.problem, s4, g4, run4.engine)
+    phase_profile(torch, run4.engine, probs4, "config 4", card)
+
+    solver = BatchSolver(eng)
+    shipped = (cost_soa.phase, solver_mod.phase)
+
+    def null(name):
+        return contextlib.nullcontext()
+
+    walls = {"ranges": [], "null": []}
+    try:
+        for arm in ("ranges", "null", "null", "ranges") * 2 + ("ranges",
+                                                               "null"):
+            cost_soa.phase = solver_mod.phase = (
+                shipped[0] if arm == "ranges" else null)
+            walls[arm].append(warm_walls(
+                torch, lambda: solver.iterate(probs, N_ITER), 1)[0])
+    finally:
+        cost_soa.phase, solver_mod.phase = shipped
+    print(f"host µs per range after them: {range_cost_us(torch)}")
+    wr, wn = statistics.median(walls["ranges"]), statistics.median(walls["null"])
+    print(f"phase ranges' cost: config 1 warm iterate({N_ITER}) at "
+          f"B={BATCH}, in turns: ranges {walls['ranges']} (median {wr} s), "
+          f"null context {walls['null']} (median {wn} s): "
+          f"{(wr - wn) / wn:+.4f} of the wall on {card}")
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        big = mesh_world(pt, f32, dev, LARGE_EXTENT)
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sizes = tuple(big.sdfs[0].grid.data.shape)
+    dev_ms = {}
+    for _, ph, us in phase_kernels(prof, BUILD_PHASES):
+        dev_ms[ph] = dev_ms.get(ph, 0.0) + us / 1e3
+    host_ms = phase_host_report(prof, BUILD_PHASES)
+    build = {k: v for k, v in dev_ms.items() if k in BUILD_PHASES}
+    print(f"large mesh field build ({sizes}, {LARGE_EXTENT} m), profiled "
+          f"({t1 - t0:.2f} s under the profiler, {time.perf_counter() - t1:.2f}"
+          f" s to read its {len(prof.events())} events), on {card}:")
+    print(format_phase_report(build, "device ms"))
+    print(format_phase_report(
+        {k: v for k, v in host_ms.items() if k in BUILD_PHASES}, "host ms"))
+    print(big.sdf_timers.report())
+    check(set(build) == set(BUILD_PHASES),
+          f"large field build: phases {sorted(build)}")
+
+
+def split_main(nranks):
+    """``chip_smoke.py --split N``: split_solve alone over N ranks, one per
+    card where the machine has N cards (NCCL), else sharing them (gloo)."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(card)
+    import or_cdchomp_tpu_torch as pt
+    from or_cdchomp_tpu_torch.ops import kernels
+
+    kernels.library()              # built once here; the ranks only load
+    split_solve(torch, pt, card, torch.device("cuda"), nranks)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main():
     if not (ROOT / "or_cdchomp_tpu_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -2240,6 +2806,9 @@ def main():
     entries_long = long_phase(torch, pt, card, dev)
     entries_mesh = mesh_phase(torch, pt, card, dev)
     entry_draw = seeded_phase(torch, pt, card, dev)
+    distributed_phase(torch, pt, card, dev)
+    checkpoint_phase(torch, pt, card, dev)
+    profile_phase(torch, pt, card, dev)
 
     # -- the same solves on the CPU in float64 (plain versions) ---------------
     cpu, f64 = "cpu", torch.float64
@@ -2312,6 +2881,11 @@ def main():
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--dist-child"]:
+            sys.exit(dist_child(int(sys.argv[2]), int(sys.argv[3]),
+                                sys.argv[4], sys.argv[5]))
+        if sys.argv[1:2] == ["--split"]:
+            sys.exit(split_main(int(sys.argv[2])))
         sys.exit(main())
     except PhaseFailed as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)

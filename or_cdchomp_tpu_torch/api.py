@@ -49,6 +49,7 @@ from or_cdchomp_tpu_torch.ops.voxelize import (Scene, scene_distance,
                                                voxelize_scene)
 from or_cdchomp_tpu_torch.transport import send_command
 from or_cdchomp_tpu_torch.utils import np_pose
+from or_cdchomp_tpu_torch.utils.profiling import PhaseTimers, phase
 
 _DEFAULTS = dict(  # orcdchomp_mod.cpp:1840-1875
     n_points=101, lambda_=10.0, epsilon=0.1, epsilon_self=0.04,
@@ -409,6 +410,8 @@ class CHOMPModule:
         # the last trajectory check's sizes: samples per problem, spheres,
         # problems per chunk
         self.last_check = None
+        # the last computedistancefield's PhaseTimers
+        self.sdf_timers = None
 
     def _evict_engines(self):
         """Drop cached engines built against a superseded field registry
@@ -513,7 +516,14 @@ class CHOMPModule:
         whose size matches the grid is read instead of building the
         field; a missing file or one of another size is a miss, after
         which the field is built and written there.  ``require_cache``
-        makes a miss raise."""
+        makes a miss raise.
+
+        ``self.sdf_timers`` (a ``PhaseTimers``) holds this call's host
+        walls of ``cache_read``, ``sdf_build`` (which ends in a device
+        sync, so it holds the build's device time) and ``cache_write``
+        (the reference times the build, orcdchomp_mod.cpp:459-565);
+        inside the build, profiler ranges ``voxelize``, ``flood`` and
+        ``edt`` split it without a sync."""
         name, body = self._check_new_field(kinbody)
         lo, hi = body.aabb_at_origin()
         center = 0.5 * (lo + hi)
@@ -522,9 +532,11 @@ class CHOMPModule:
         lengths = sizes * 2.0 * cube_extent
         grid_pose = np_pose.POSE_ID.copy()
         grid_pose[:3] = center - 0.5 * lengths
+        timers = self.sdf_timers = PhaseTimers()
         grid = None
         if cache_filename:
-            data = _cache_read(cache_filename, sizes)
+            with timers.tic("cache_read"):
+                data = _cache_read(cache_filename, sizes)
             if data is not None:
                 grid = Grid3D(
                     data=torch.as_tensor(data, device=self.device),
@@ -534,11 +546,15 @@ class CHOMPModule:
             if require_cache:
                 raise RuntimeError(
                     "Field not found from cache, but require_cache flag set!")
-            grid = self._build_sdf_grid(body, grid_pose, sizes, lengths,
-                                        float(cube_extent))
+            with timers.tic("sdf_build"):
+                grid = self._build_sdf_grid(body, grid_pose, sizes, lengths,
+                                            float(cube_extent))
+                if grid.data.is_cuda:
+                    torch.cuda.synchronize(grid.data.device)
             if cache_filename:
-                grid.data.cpu().numpy().astype(np.float32).tofile(
-                    cache_filename)
+                with timers.tic("cache_write"):
+                    grid.data.cpu().numpy().astype(np.float32).tofile(
+                        cache_filename)
         self.sdfs.append(SdfEntry(kinbody_name=name, grid=grid,
                                   pose=grid_pose))
         self._fields_changed()
@@ -566,10 +582,15 @@ class CHOMPModule:
                 torch.as_tensor(pose_world_gsdf, dtype=torch.float64,
                                 device=self.device),
                 g64.all_centers()).reshape(-1, 3)
-        occ = voxelize_chunked(list(zip(scenes, poses)), centers_w,
-                               cube_extent, centers64=centers64)
-        occ = exterior_free_mask(occ.reshape(tuple(int(s) for s in sizes)))
-        return Grid3D(data=signed_edt(occ, grid.lengths), lengths=grid.lengths)
+        with phase("voxelize"):
+            occ = voxelize_chunked(list(zip(scenes, poses)), centers_w,
+                                   cube_extent, centers64=centers64)
+        with phase("flood"):
+            occ = exterior_free_mask(occ.reshape(tuple(int(s)
+                                                       for s in sizes)))
+        with phase("edt"):
+            data = signed_edt(occ, grid.lengths)
+        return Grid3D(data=data, lengths=grid.lengths)
 
     def addfield_fromobsarray(self, kinbody=None, obsarray=None, sizes=None,
                               lengths=None, pose=None, **_):

@@ -18,6 +18,7 @@ import torch
 
 from or_cdchomp_tpu_torch.ops.sdf_lookup import obstacle
 from or_cdchomp_tpu_torch.ops.selfcol import selfcol_pairs
+from or_cdchomp_tpu_torch.utils.profiling import phase
 
 # damping of the floating base's gradient block (chomp/cost.py:42)
 _BASE_JAC_DAMP = 0.01
@@ -68,25 +69,28 @@ def sphere_kinematics(spec, fk, probs):
     point 1's (chomp/cost.py:89-110).
 
     Returns (fk_out, x_mov, vel, acc), the last three (3, m, S, B).
+    Phases ``fk`` and ``pre_velsaccs`` (cost_soa.py:652-666).
     """
     dt = spec.dt
     Tt = probs.traj.permute(1, 2, 0)                    # (n_points, n, B)
-    if spec.floating_base:
-        fk_out = fk.fk_soa(Tt[:, 7:], tuple(Tt[:, i] for i in range(3)),
-                           tuple(Tt[:, i] for i in range(3, 7)))
-    else:
-        base = probs.robot_pose
-        fk_out = fk.fk_soa(Tt, tuple(base[:, i] for i in range(3)),
-                           tuple(base[:, i] for i in range(3, 7)))
-    X = torch.stack(fk_out.x)                           # (3, n_points, S, B)
-    vel = (X[:, 2:] - X[:, :-2]) / (2.0 * dt)
-    acc = (X[:, :-2] - 2.0 * X[:, 1:-1] + X[:, 2:]) / (dt * dt)
-    if spec.start_tsr:
-        x_mov = X[:, :-1].contiguous()
-        vel = torch.cat([(X[:, 1:2] - X[:, :1]) / dt, vel], dim=1)
-        acc = torch.cat([acc[:, :1], acc], dim=1)
-    else:
-        x_mov = X[:, 1:-1].contiguous()
+    with phase("fk"):
+        if spec.floating_base:
+            fk_out = fk.fk_soa(Tt[:, 7:], tuple(Tt[:, i] for i in range(3)),
+                               tuple(Tt[:, i] for i in range(3, 7)))
+        else:
+            base = probs.robot_pose
+            fk_out = fk.fk_soa(Tt, tuple(base[:, i] for i in range(3)),
+                               tuple(base[:, i] for i in range(3, 7)))
+    with phase("pre_velsaccs"):
+        X = torch.stack(fk_out.x)                       # (3, n_points, S, B)
+        vel = (X[:, 2:] - X[:, :-2]) / (2.0 * dt)
+        acc = (X[:, :-2] - 2.0 * X[:, 1:-1] + X[:, 2:]) / (dt * dt)
+        if spec.start_tsr:
+            x_mov = X[:, :-1].contiguous()
+            vel = torch.cat([(X[:, 1:2] - X[:, :1]) / dt, vel], dim=1)
+            acc = torch.cat([acc[:, :1], acc], dim=1)
+        else:
+            x_mov = X[:, 1:-1].contiguous()
     return fk_out, x_mov, vel, acc
 
 
@@ -109,21 +113,30 @@ def total_cost_grad_batched(spec, fk, fields, pairs, radii_act, probs,
     Returns (cost (B,), G (B, m, n), fk_out), averaged over the moving
     points (chomp.c:489-492); fk_out feeds the constraint evaluation.
     ``want_grad=False`` (the cost report) skips the Jᵀ map and returns
-    G None; the kernels run either way.
+    G None; the kernels run either way.  Phases as in JAX
+    (cost_soa.py:649-690): ``callback_pre`` (``fk``, ``pre_velsaccs``),
+    ``obstacle`` (K1's launch), ``selfcol`` (K2's), ``jtmap``.
     """
-    fk_out, x_mov, vel, acc = sphere_kinematics(spec, fk, probs)
-    c_obs, w_obs = _obstacle_soa(fields, radii_act, probs, x_mov, vel, acc)
-    c_self, w_self = _selfcol_soa(pairs, probs, x_mov, vel)
+    with phase("callback_pre"):
+        fk_out, x_mov, vel, acc = sphere_kinematics(spec, fk, probs)
+    with phase("obstacle"):
+        c_obs, w_obs = _obstacle_soa(fields, radii_act, probs, x_mov, vel,
+                                     acc)
+    with phase("selfcol"):
+        c_self, w_self = _selfcol_soa(pairs, probs, x_mov, vel)
     if not want_grad:
         return (c_obs + c_self) / spec.m, None, fk_out
 
-    w = w_obs + w_self
-    lo, m = mov_lo(spec), spec.m
-    anch_mov = tuple(c[lo:lo + m] for c in fk_out.anch_pos)
-    axw_mov = tuple(c[lo:lo + m] for c in fk_out.axis_w)
-    G = fk.apply_sphere_jacT_soa(anch_mov, axw_mov, tuple(x_mov), tuple(w))
-    G = G.permute(2, 0, 1)                              # (B, m, n_arm)
-    if spec.floating_base:
-        G = torch.cat([_base_jacT(fk, probs, lo, m, x_mov, w), G], dim=-1)
+    with phase("jtmap"):
+        w = w_obs + w_self
+        lo, m = mov_lo(spec), spec.m
+        anch_mov = tuple(c[lo:lo + m] for c in fk_out.anch_pos)
+        axw_mov = tuple(c[lo:lo + m] for c in fk_out.axis_w)
+        G = fk.apply_sphere_jacT_soa(anch_mov, axw_mov, tuple(x_mov),
+                                     tuple(w))
+        G = G.permute(2, 0, 1)                          # (B, m, n_arm)
+        if spec.floating_base:
+            G = torch.cat([_base_jacT(fk, probs, lo, m, x_mov, w), G],
+                          dim=-1)
     return (c_obs + c_self) / spec.m, G / spec.m, fk_out
 

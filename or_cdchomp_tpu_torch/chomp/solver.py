@@ -43,6 +43,7 @@ from or_cdchomp_tpu_torch.models.robot import CompiledFK
 from or_cdchomp_tpu_torch.ops import draw as draw_ops
 from or_cdchomp_tpu_torch.ops.quat import pose_normalize
 from or_cdchomp_tpu_torch.ops.selfcol import pair_table
+from or_cdchomp_tpu_torch.utils.profiling import phase
 
 _MAX_LIMIT_FIXES = 1000  # chomp.c:608
 _HMC_U_MIN = 1e-12       # lower end of the uniform draw (solver.py:270)
@@ -59,6 +60,24 @@ class HmcDraw:
     def __init__(self, seed=0, device="cuda"):
         self.generator = torch.Generator(device=device)
         self.generator.manual_seed(int(seed))
+
+    def state(self):
+        """The generator's state, for a checkpoint (checkpoint.py):
+        {"device": the generator's device type, "rng": a CPU uint8
+        tensor}.  :meth:`load_state` of a draw on the same device type
+        continues the same stream."""
+        return {"device": self.generator.device.type,
+                "rng": self.generator.get_state()}
+
+    def load_state(self, state):
+        """Set the generator to a :meth:`state`; raises ValueError if it
+        was taken on another device type (a CPU generator's state is not
+        a CUDA one's)."""
+        if state["device"] != self.generator.device.type:
+            raise ValueError(
+                f"HMC draw state of a {state['device']} generator cannot "
+                f"load into a {self.generator.device.type} one")
+        self.generator.set_state(state["rng"])
 
     def __call__(self, probs):
         opts = dict(dtype=probs.AG.dtype, device=probs.AG.device,
@@ -366,30 +385,39 @@ class ChompEngine:
                 draw = self.draw if probs.hmc_seed is None else SEEDED_DRAW
             AG, resample_iter, leap = hmc_resample(probs, *draw(probs))
 
-        c_obs, G, fk_out = cost_soa.total_cost_grad_batched(
-            spec, self.fk, self.fields, self.pairs, self.radii_act, probs)
-        if self.extra_cost is not None:
-            # after the 1/m scaling (chomp.c:495-501)
-            ce, Ge = self._extra(T_mov)
-            c_obs, G = c_obs + ce, G + Ge
-        G = G + self.apply_A_b(T_mov) + probs.B
-        if spec.use_momentum:
-            # leapfrog: a half step on first use (chomp.c:533-548)
-            scale = torch.where(leap, 0.5, 1.0).to(lam.dtype) / lam
-            AG = AG + scale[:, None, None] * self.solve_A_b(G)
-            leap = torch.zeros_like(leap)
-        else:
-            AG = self.solve_A_b(G)
+        # phase ranges mirror the reference's DEBUG_TIMING taxonomy
+        # (chomp.h:95-100, orcdchomp_mod.cpp:2835-2847) and the JAX
+        # step's scopes (solver.py:446-529); utils/profiling.py reads them
+        with phase("callbacks"):
+            c_obs, G, fk_out = cost_soa.total_cost_grad_batched(
+                spec, self.fk, self.fields, self.pairs, self.radii_act,
+                probs)
+            if self.extra_cost is not None:
+                # after the 1/m scaling (chomp.c:495-501)
+                ce, Ge = self._extra(T_mov)
+                c_obs, G = c_obs + ce, G + Ge
+        with phase("smoothgrad"):
+            G = G + self.apply_A_b(T_mov) + probs.B
+            if spec.use_momentum:
+                # leapfrog: a half step on first use (chomp.c:533-548)
+                scale = torch.where(leap, 0.5, 1.0).to(lam.dtype) / lam
+                AG = AG + scale[:, None, None] * self.solve_A_b(G)
+                leap = torch.zeros_like(leap)
+            else:
+                AG = self.solve_A_b(G)
         if self.cons.k_total:
-            val, jac = eval_tsr_all_soa(spec, self.fk, probs, probs.traj,
-                                        self.cons, fk_out)
-            T_mov = T_mov + project_constraints(
-                spec, self.cons, self.proj_ops, lam, AG, T_mov, val, jac)
+            with phase("constraint"):
+                val, jac = eval_tsr_all_soa(spec, self.fk, probs, probs.traj,
+                                            self.cons, fk_out)
+                T_mov = T_mov + project_constraints(
+                    spec, self.cons, self.proj_ops, lam, AG, T_mov, val, jac)
         T_mov = T_mov - AG / lam[:, None, None]
-        T_mov = self._limit_repair_batched(T_mov, probs.jlimit_lower,
-                                           probs.jlimit_upper)
-        # on the pre-renormalisation trajectory (chomp.c:660-677)
-        c_smooth = self._smooth_cost(probs, T_mov)
+        with phase("limits"):
+            T_mov = self._limit_repair_batched(T_mov, probs.jlimit_lower,
+                                               probs.jlimit_upper)
+        with phase("smoothcost"):
+            # on the pre-renormalisation trajectory (chomp.c:660-677)
+            c_smooth = self._smooth_cost(probs, T_mov)
 
         traj = torch.cat([probs.traj[:, :lo], T_mov, probs.traj[:, hi:]],
                          dim=1)
@@ -450,14 +478,17 @@ class ChompEngine:
         2830-2831; JAX ``vmap(costs_only)``): (total, obstacle,
         smoothness), each (B,).  Runs the SoA cost path, so K1 and K2
         launch once each; the extra-cost hook's cost is in the obstacle
-        term, as in the step."""
+        term, as in the step.  The step's phase ranges, ``callbacks``
+        (without ``jtmap``) and ``smoothcost``."""
         T_mov = probs.traj[:, self.mov_lo:self.mov_lo + self.spec.m]
-        c_obs, _, _ = cost_soa.total_cost_grad_batched(
-            self.spec, self.fk, self.fields, self.pairs, self.radii_act,
-            probs, want_grad=False)
-        if self.extra_cost is not None:
-            c_obs = c_obs + self._extra(T_mov)[0]
-        c_smooth = self._smooth_cost(probs, T_mov)
+        with phase("callbacks"):
+            c_obs, _, _ = cost_soa.total_cost_grad_batched(
+                self.spec, self.fk, self.fields, self.pairs, self.radii_act,
+                probs, want_grad=False)
+            if self.extra_cost is not None:
+                c_obs = c_obs + self._extra(T_mov)[0]
+        with phase("smoothcost"):
+            c_smooth = self._smooth_cost(probs, T_mov)
         return c_obs + c_smooth, c_obs, c_smooth
 
     def constraint_values(self, probs):

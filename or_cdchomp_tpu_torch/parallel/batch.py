@@ -1,12 +1,15 @@
-"""Batched CHOMP solves on one device (counterpart of
-or_cdchomp_tpu/parallel/batch.py).
+"""Batched CHOMP solves, on one device or split across ranks
+(counterpart of or_cdchomp_tpu/parallel/batch.py).
 
 ``problem_batch_from_grid`` broadcasts a template problem to a (P,)
 batch with per-problem straight-line trajectories and metric affine
-terms; ``BatchSolver`` runs the batch-native step on it: a fixed number
-of steps (``iterate``, ``iterate_masked``), a convergence-checked chunk
-(``iterate_until``) or a chunked solve (``solve``).  ``best_of_batch``
-picks the lowest-cost problem of a batch.
+terms (``stack_problems`` stacks given problems, ``pad_problems`` pads a
+batch to a multiple); ``BatchSolver`` runs the batch-native step on it:
+a fixed number of steps (``iterate``, ``iterate_masked``), a
+convergence-checked chunk (``iterate_until``) or a chunked solve
+(``solve``).  With a ``DeviceMesh`` it holds one rank's rows of a global
+batch (parallel/multihost.py).  ``best_of_batch`` picks the lowest-cost
+problem of a batch.
 """
 
 from __future__ import annotations
@@ -15,8 +18,31 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from or_cdchomp_tpu_torch.chomp.problem import ChompProblem
+from or_cdchomp_tpu_torch.parallel import multihost
+
+
+def stack_problems(problems) -> ChompProblem:
+    """Stack a list of problems (equal leaf sets and shapes) into one
+    batch along a new leading axis."""
+    leaves = [p.leaves() for p in problems]
+    return ChompProblem(**{k: torch.stack([d[k] for d in leaves])
+                           for k in leaves[0]})
+
+
+def pad_problems(probs: ChompProblem, multiple: int):
+    """Pad the problem axis to a multiple (repeating the last row) so a
+    ragged batch splits evenly; returns (padded, original P).  Slice
+    results back with ``v[:P]`` on each leaf."""
+    P_ = int(probs.traj.shape[0])
+    pad = (-P_) % multiple
+    if pad == 0:
+        return probs, P_
+    return ChompProblem(**{
+        k: torch.cat([v, v[-1:].expand((pad,) + tuple(v.shape[1:]))])
+        for k, v in probs.leaves().items()}), P_
 
 
 def problem_batch_from_grid(problem: ChompProblem, starts, goals, engine,
@@ -72,13 +98,34 @@ def problem_batch_from_grid(problem: ChompProblem, starts, goals, engine,
 
 
 class BatchSolver:
-    """Runs batched solves for one ChompEngine on one device.  The whole
-    batch runs as one SoA step: the TPU build's problem-axis chunking
-    (sized for its 128-lane vector tiles), its mesh sharding and its
-    padding to the mesh have no counterpart here."""
+    """Runs batched solves for one ChompEngine.  The whole batch runs as
+    one SoA step: the TPU build's problem-axis chunking (sized for its
+    128-lane vector tiles) has no counterpart here.
 
-    def __init__(self, engine):
+    ``mesh`` (a ``torch.distributed.device_mesh.DeviceMesh``, or None for
+    one process) splits a global batch across ranks along ``axis`` (a
+    name, or a tuple of every name of the mesh): this solver then holds
+    this rank's rows (:meth:`shard`, or ``multihost.make_global_problems``)
+    and steps them exchanging nothing, since each problem's step, its
+    joint-limit repair included, depends on its own row alone.  The only
+    collective is ``iterate_until``'s: one 4-byte all-reduce (MIN) of the
+    converged flag per chunk, so every rank stops at the same chunk."""
+
+    def __init__(self, engine, mesh=None, axis="dp"):
         self.engine = engine
+        self.mesh = mesh
+        self.group = None if mesh is None else _mesh_group(mesh, axis)
+
+    def shard(self, probs: ChompProblem) -> ChompProblem:
+        """The batch on the engine's device; with a mesh, this rank's
+        ``host_local_batch`` rows of the global batch ``probs``.  ``solve``
+        takes the rows it is given and does not call this."""
+        if self.mesh is not None:
+            start, size = multihost.host_local_batch(
+                int(probs.traj.shape[0]), self.group)
+            probs = ChompProblem(**{k: v[start:start + size]
+                                    for k, v in probs.leaves().items()})
+        return probs.to(self.engine.device)
 
     def iterate(self, probs: ChompProblem, n_iter: int):
         """n_iter batched steps.  Returns (problems, costs (n_iter, P, 3))."""
@@ -101,21 +148,28 @@ class BatchSolver:
                       tol=0.0):
         """One convergence-checked chunk: ``valid`` (≥ 1) of
         ``chunk_size`` steps.  Returns (problems, last costs (P, 3),
-        converged) where converged, a 0-d bool tensor left on the
-        device, says every problem's total cost fell by less than
-        ``tol`` from the chunk's first step to its last."""
+        converged) where converged, a 0-d bool tensor, says every problem's
+        total cost fell by less than ``tol`` from the chunk's first step
+        to its last; on one process it stays on the device, with a mesh it
+        is all-reduced over the mesh's ranks."""
         if int(valid) < 1:
             raise ValueError("iterate_until needs valid >= 1")
         probs, costs = self.iterate_masked(probs, valid, chunk_size)
         last = costs[min(int(valid), chunk_size) - 1]
         converged = torch.all(costs[0, :, 0] - last[:, 0] < tol)
+        if self.mesh is not None:
+            flag = multihost.comm_tensor(converged.to(torch.int32),
+                                         self.group)
+            dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=self.group)
+            converged = flag.to(converged.device) > 0
         return probs, last, converged
 
     def solve(self, probs: ChompProblem, n_iter: int, chunk: int = 10,
               tol: Optional[float] = None):
         """Up to n_iter steps in chunks of ``chunk``; with ``tol``, stops
         after the first chunk in which every problem converged (one host
-        sync per chunk for that test, none without ``tol``).  Returns
+        sync per chunk for that test, none without ``tol``; with a mesh,
+        every problem of every rank).  Returns
         (problems, final costs (P, 3) from :meth:`ChompEngine.
         final_costs_batch`, steps done)."""
         done = 0
@@ -131,6 +185,18 @@ class BatchSolver:
                 break
         finals = torch.stack(self.engine.final_costs_batch(probs), dim=-1)
         return probs, finals, done
+
+
+def _mesh_group(mesh, axis):
+    """The process group of ``mesh`` along ``axis``: one dimension's, or
+    for a tuple of every dimension's name a group of all its ranks."""
+    names = (axis,) if isinstance(axis, str) else tuple(axis)
+    if len(names) == 1:
+        return mesh.get_group(names[0])
+    if names != tuple(mesh.mesh_dim_names):
+        raise ValueError(f"axis {axis} must be one dimension of the mesh "
+                         f"or all of {mesh.mesh_dim_names} in order")
+    return dist.new_group(ranks=mesh.mesh.flatten().tolist())
 
 
 def best_of_batch(probs: ChompProblem, final_costs):

@@ -1,7 +1,7 @@
-"""The PyTorch port and its scripts (chip_smoke.py, ab_obstacle.py) import
-neither JAX nor the JAX package: the machine with the card has no JAX.
-An AST walk, because a subprocess check would see a JAX that this
-environment pre-imports."""
+"""The PyTorch port and its scripts (chip_smoke.py, ab_obstacle.py, the
+two-process test's child) import neither JAX nor the JAX package: the
+machine with the card has no JAX.  An AST walk, because a subprocess
+check would see a JAX that this environment pre-imports."""
 
 import ast
 import pathlib
@@ -27,8 +27,9 @@ def _forbidden(name):
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PKG.rglob("*.py")) + [PKG.parent / "chip_smoke.py",
-                                         PKG.parent / "ab_obstacle.py"],
+    "path", sorted(PKG.rglob("*.py")) + [
+        PKG.parent / "chip_smoke.py", PKG.parent / "ab_obstacle.py",
+        PKG.parent / "tests" / "torch_multiproc_child.py"],
     ids=lambda p: str(p.relative_to(PKG)) if PKG in p.parents else p.name)
 def test_no_jax_import(path):
     tree = ast.parse(path.read_text(), filename=str(path))
