@@ -26,6 +26,17 @@ and read just after:
   are held against their plain versions again on its inputs, and K1 is
   timed there.
 
+Then the libcd math library: every quat / spatial function of the
+pose-algebra API in float32 on 65,536 seeded inputs against the port's
+CPU float64; the per-problem FK (fk_spheres, apply_sphere_jacT) at
+config 1's 256 × 99 configurations against fk_soa /
+apply_sphere_jacT_soa; and multigrid_interp_grad at the batches' sphere
+centres on config 1's field and config 2's three (the latter also with
+the cloud moved into them), one launch of K1's raw lookup
+(sdf_cell_lookup_kernel) per call, its cells bit-equal to the plain
+version and the values against the CPU's float64, timed beside the
+plain version and one torch.gather.
+
 Then the module commands on config 1's world (runchomp, B = 1 create +
 iterate, gettraj, gettraj_batch, the field commands), a grabbed tray of
 110 spheres (K2's tiled path), and the front door: the WAM7 + hand
@@ -98,6 +109,7 @@ Imports nothing of JAX.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -117,6 +129,7 @@ WARM_REPS = 5        # warm walls of configs 2 and 3
 TRAJ_BAR = 1e-3      # BASELINE bar: max |Δtraj| float32 card vs float64
 KERNEL_RTOL = 1e-5   # kernel vs plain version, both float32 on the card
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet, 700 W)
+L2_BYTES = 50 * 2 ** 20     # H100 SXM L2 cache (data sheet)
 FP32_FLOPS_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
 START = [2.5, -1.8, 0.0, 2.0, 0.0, 0.2, 0.0]
 GOAL = [0.4, 0.6, 0.1, 1.3, 0.0, -0.5, 0.0]
@@ -164,6 +177,20 @@ DIST_TIMEOUT = 120
 DIST_CHILD_TIMEOUT = 300
 DIST_COST_RTOL = 1e-6
 CKPT_DIR = ROOT / "or_cdchomp_tpu_torch" / "build" / "ckpt"
+# the libcd math phase: seeded inputs per quat / spatial function; the
+# bar of the card's float32 against the CPU's float64, as max |Δ| /
+# max(1, |value|); fk_spheres against fk_soa (m) and apply_sphere_jacT
+# against its SoA form (relative to max |G|), both float32 on the card;
+# multigrid_interp_grad's value (m) and gradient against the CPU's
+# float64 where both read the same cells, and the share of (field,
+# query) that may read other ones (a query within an ulp of a cell
+# centre or face, in float32 and float64 apart)
+LIBCD_N = 65_536
+LIBCD_BAR = 1e-4
+FK_BAR = 1e-5
+JACT_RTOL = 1e-4
+GRID_BAR = 1e-5
+GRID_OTHER = 1e-3
 
 
 class PhaseFailed(Exception):
@@ -522,24 +549,31 @@ def device_ms(torch, fn, reps=20):
     kernel events (on an H100 with torch 2.11: 1 of 20 in most profiles,
     up to 12 of 20 late in this script's run), so a plain sum over reps
     reads low; the per-call count is ceil(recorded / reps), right while
-    fewer than reps launches of a kernel are lost.  A loss is printed.
-    None if the profiler records no device activity."""
+    fewer than reps launches of a kernel are lost.  A loss is printed.  A
+    profile that records no device activity at all (seen once late in
+    this script's run) is taken again; None if the second does not
+    either."""
     from collections import defaultdict
 
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
     us = defaultdict(list)
-    for e in prof.events():
-        if e.device_type == cuda:
-            us[e.name].append(e.device_time)
+    for attempt in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == cuda:
+                us[e.name].append(e.device_time)
+        if us:
+            break
+        print("device_ms: the profile recorded no device activity"
+              + ("; taking it again" if attempt == 0 else ""))
     lost = {n: len(v) for n, v in us.items() if len(v) % reps}
     if lost:
         print(f"device_ms: {len(lost)} of {len(us)} kernels recorded a "
@@ -620,19 +654,50 @@ def host_syncs(torch, fn):
     return found
 
 
+def graph_ms(torch, fn, reps=20):
+    """Device time per call of fn from CUDA events around the replay of
+    one CUDA graph of reps calls, so no host work lies between its
+    kernels; None if fn cannot be captured."""
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                fn()
+    except RuntimeError as e:
+        print(f"graph_ms: capture failed: {e}")
+        return None
+    return time_ms(torch, g.replay, reps=5) / reps
+
+
 def timings(torch, kernel, plain):
     """(kernel ms, plain ms) per call from CUDA events, and the same pair
-    as device time from the profiler."""
-    return (time_ms(torch, kernel), time_ms(torch, plain),
-            device_ms(torch, kernel), device_ms(torch, plain))
+    as device time: from the profiler, or where it records no device
+    activity from a CUDA graph's replay (graph_ms)."""
+    out = [time_ms(torch, kernel), time_ms(torch, plain)]
+    for fn in (kernel, plain):
+        ms = device_ms(torch, fn)
+        if ms is None:
+            ms = graph_ms(torch, fn)
+            print(f"timings: device time from a CUDA graph's replay: {ms}")
+        out.append(ms)
+    return tuple(out)
 
 
 def kernel_entry(name, source, replaces, err, t, nbytes, nflops):
     """One kernel's entry of the JSON line.  ms / plain_ms: device time
-    per call (profiler; the CUDA-event time per call where the profiler
-    saw no device activity); call_ms / plain_call_ms: CUDA-event time per
-    call, host work of the wrapper included.  bound_ms: the larger of
+    per call (timings; the CUDA-event time per call only where neither
+    the profiler nor a graph capture gave one, which is printed);
+    call_ms / plain_call_ms: CUDA-event time per call, host work of the
+    wrapper included.  bound_ms: the larger of
     nbytes over the memory rate and nflops over the fp32 rate."""
+    if None in t[2:]:
+        print(f"{name}: no device time; the CUDA-event time per call "
+              f"stands in for it")
     ms = t[2] if t[2] is not None else t[0]
     plain_ms = t[3] if t[3] is not None else t[1]
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -2430,6 +2495,398 @@ def profile_phase(torch, pt, card, dev):
           f"large field build: phases {sorted(build)}")
 
 
+# ---- libcd math: pose / spatial algebra, per-problem FK, SDF lookups --------
+
+# the quat / spatial functions held on the card: (module, name, argument
+# names of libcd_inputs or constants, keyword arguments, one comparison
+# kind per output: "v" values, "ang" angles modulo 2π, "q" quaternions up
+# to sign (quat_from_R's candidate choice may flip in float32 at a tie),
+# "pose" values and such a quaternion, "xyzypr" values and angles)
+LIBCD_V = (0.3, -0.2, 0.7)
+LIBCD_K = (0.1, 0.2, -0.3, 0.927361849549570)
+LIBCD_SPRING = dict(Klin=10.0, Blin=2.0, Kang=5.0, Bang=0.5)
+LIBCD_CASES = [
+    ("quat", "quat_identity", (), {}, ("v",)),
+    ("quat", "pose_identity", (), {}, ("v",)),
+    ("quat", "quat_flip_closerto", ("q", "t"), {}, ("v",)),
+    ("quat", "pose_flip_closerto", ("pose", "pose_t"), {}, ("v",)),
+    ("quat", "quat_compose", ("q", "q2"), {}, ("v",)),
+    ("quat", "quat_rotate_const", ("q", LIBCD_V), {}, ("v",)),
+    ("quat", "quat_compose_const", ("q", LIBCD_K), {}, ("v",)),
+    ("quat", "pose_compose", ("pose", "pose2"), {}, ("v",)),
+    ("quat", "pose_rotate_vec", ("pose", "v"), {}, ("v",)),
+    ("quat", "quat_invert", ("q",), {}, ("v",)),
+    ("quat", "quat_from_R", ("R",), {}, ("q",)),
+    ("quat", "pose_to_H", ("pose",), {}, ("v",)),
+    ("quat", "pose_from_H", ("H",), {}, ("pose",)),
+    ("quat", "pose_from_dR", ("pos", "R"), {}, ("pose",)),
+    ("quat", "quat_from_axisangle", ("axis", "angle"), {}, ("v",)),
+    ("quat", "quat_to_axisangle", ("q",), {}, ("v", "v")),
+    ("quat", "quat_to_ypr", ("q",), {}, ("ang",)),
+    ("quat", "pose_to_xyzypr", ("pose",), {}, ("xyzypr",)),
+    ("quat", "quat_to_ypr_J", ("q",), {}, ("v",)),
+    ("quat", "pose_to_xyzypr_J", ("pose",), {}, ("v",)),
+    ("quat", "quat_from_ypr", ("ypr",), {}, ("v",)),
+    ("quat", "pose_from_xyzypr", ("xyzypr",), {}, ("v",)),
+    ("quat", "axisangle_rotate", ("axis", "angle", "v"), {}, ("v",)),
+    ("quat", "axisangle_to_R", ("axis", "angle"), {}, ("v",)),
+    ("quat", "pose_to_dR", ("pose",), {}, ("v", "v")),
+    ("quat", "pose_to_pos_quat", ("pose",), {}, ("v", "v")),
+    ("quat", "pose_from_pos_quat", ("pos", "q"), {}, ("v",)),
+    ("quat", "pose_from_op", ("pos", "to"), {}, ("pose", "v")),
+    ("quat", "pose_from_op_diff", ("pos", "d"), {}, ("pose", "v")),
+    ("spatial", "cross_mat", ("v",), {}, ("v",)),
+    ("spatial", "xm_from_pose", ("pose",), {}, ("v",)),
+    ("spatial", "xm_to_pose", ("xm",), {}, ("pose",)),
+    ("spatial", "xf_from_pose", ("pose",), {}, ("v",)),
+    ("spatial", "xf_to_pose", ("xf",), {}, ("pose",)),
+    ("spatial", "inertia_x", ("pose", "I6"), {}, ("v",)),
+    ("spatial", "pose_from_spavel_unittime", ("twist",), {}, ("v",)),
+    ("spatial", "H_from_spavel_unittime", ("twist",), {}, ("v",)),
+    ("spatial", "x_invert", ("m6",), {}, ("v",)),
+    ("spatial", "v_to_pos", ("six", "v"), {}, ("v",)),
+    ("spatial", "v_from_pos", ("six", "v"), {}, ("v",)),
+    ("spatial", "f_to_pos", ("six", "v"), {}, ("v",)),
+    ("spatial", "f_from_pos", ("six", "v"), {}, ("v",)),
+    ("spatial", "pose_jac", ("pose",), {}, ("v",)),
+    ("spatial", "pose_jac_inverse", ("pose",), {}, ("v",)),
+    ("spatial", "inertia_from_com", ("mass", "pos", "Icom"), {}, ("v",)),
+    ("spatial", "inertia_to_com", ("I6",), {}, ("v", "v", "v")),
+    ("spatial", "inertia_sphere_solid", ("pos", "mass", "radius"), {},
+     ("v",)),
+    ("spatial", "vxIv", ("six", "I6"), {}, ("v",)),
+    ("spatial", "spring_damper", ("pose", "six", "pose_r", "six2"),
+     LIBCD_SPRING, ("v",)),
+    ("spatial", "mat_crossf", ("six",), {}, ("v",)),
+    ("spatial", "mat_crossm", ("six",), {}, ("v",)),
+]
+
+
+def libcd_inputs(torch, np, n, seed=3):
+    """n seeded inputs of each kind, float64 numpy rounded through float32
+    (the card's float32 and the CPU's float64 read the same numbers).
+    Quaternions are unit, with |sin(pitch)| < 0.99 and |qw| < 0.99 (off
+    the gimbal lock, where the ypr Jacobian's 1/cos(pitch) grows, and off
+    the axis-angle map's small-angle end); a flip target is at
+    least 0.01 from the tie q·t = 0, a spring reference's error rotation
+    is not the identity (|q·rq| < 0.99), and pose_from_op's direction is
+    at least 0.01 from its branch |z_x| = 0.9."""
+    from or_cdchomp_tpu_torch.ops import quat as tq
+    from or_cdchomp_tpu_torch.ops import spatial as ts
+
+    rng = np.random.default_rng(seed)
+
+    def unit(a):
+        return a / np.linalg.norm(a, axis=-1, keepdims=True)
+
+    def quats():
+        q = unit(rng.normal(size=(4 * n, 4)))
+        s2 = 2.0 * (q[:, 3] * q[:, 1] - q[:, 2] * q[:, 0])
+        return q[(np.abs(s2) < 0.99) & (np.abs(q[:, 3]) < 0.99)][:n]
+
+    def t64(a):
+        return torch.as_tensor(a, dtype=torch.float64)
+
+    q, q2 = quats(), quats()
+    dot = np.abs(np.sum(q * q2, axis=-1))[:, None]
+    turn = tq.quat_compose_const(t64(q), [np.sin(np.pi / 4), 0.0, 0.0,
+                                          np.cos(np.pi / 4)]).numpy()
+    d = rng.normal(size=(n, 3))
+    zx = np.abs(d[:, 0]) / np.linalg.norm(d, axis=-1)
+    d[np.abs(zx - 0.9) < 0.01] = (0.0, 0.0, 1.0)
+    pos, pos2 = rng.normal(size=(n, 3)), rng.normal(size=(n, 3))
+    A = rng.normal(size=(n, 3, 3))
+    raw = dict(q=q, q2=q2, t=np.where(dot > 0.01, q2, -q),
+               rq=np.where(dot < 0.99, q2, turn), pos=pos, pos2=pos2,
+               v=rng.normal(size=(n, 3)), d=d, to=pos + d,
+               axis=unit(rng.normal(size=(n, 3))),
+               angle=rng.uniform(-np.pi, np.pi, size=n),
+               ypr=rng.uniform(-3.0, 3.0, size=(n, 3)),
+               six=rng.normal(size=(n, 6)), six2=rng.normal(size=(n, 6)),
+               twist=rng.normal(size=(n, 6)), m6=rng.normal(size=(n, 6, 6)),
+               mass=rng.uniform(0.5, 3.0, size=n),
+               radius=rng.uniform(0.1, 0.5, size=n),
+               Icom=A @ np.swapaxes(A, -1, -2) + 3.0 * np.eye(3))
+    raw["pose"] = np.concatenate([pos, q], axis=-1)
+    raw["pose2"] = np.concatenate([pos2, q2], axis=-1)
+    raw["pose_t"] = np.concatenate([pos2, raw["t"]], axis=-1)
+    raw["pose_r"] = np.concatenate([pos2, raw["rq"]], axis=-1)
+    raw["xyzypr"] = np.concatenate([pos, raw["ypr"]], axis=-1)
+    pose = t64(raw["pose"])
+    raw.update(R=tq.quat_to_R(t64(q)).numpy(), H=tq.pose_to_H(pose).numpy(),
+               xm=ts.xm_from_pose(pose).numpy(),
+               xf=ts.xf_from_pose(pose).numpy(),
+               I6=ts.inertia_from_com(t64(raw["mass"]), t64(pos),
+                                      t64(raw["Icom"])).numpy())
+    return {k: v.astype(np.float32).astype(np.float64) for k, v in raw.items()}
+
+
+def libcd_err(torch, got, want, kind):
+    """max |got − want| / max(1, |want|) over the comparison ``kind``."""
+    g, w = got.double().cpu(), want
+    check(g.shape == w.shape, f"shape {tuple(g.shape)} != {tuple(w.shape)}")
+    d = g - w
+    if kind in ("ang", "xyzypr"):
+        a = d[..., -3:] if kind == "xyzypr" else d
+        a = torch.remainder(a + math.pi, 2 * math.pi) - math.pi
+        d = torch.cat([d[..., :-3], a], dim=-1) if kind == "xyzypr" else a
+    if kind in ("q", "pose"):
+        qd = torch.minimum((g[..., -4:] - w[..., -4:]).abs().amax(-1),
+                           (g[..., -4:] + w[..., -4:]).abs().amax(-1))
+        rest = (d[..., :-4].abs() / w[..., :-4].abs().clamp(min=1.0))
+        return max(float(qd.max()),
+                   float(rest.max()) if rest.numel() else 0.0)
+    return float((d.abs() / w.abs().clamp(min=1.0)).max())
+
+
+def libcd_math(torch, np, device, n=LIBCD_N):
+    """Every function of LIBCD_CASES on ``device`` in float32 against the
+    port's CPU float64 on the same n inputs: {name: worst error}."""
+    from or_cdchomp_tpu_torch.ops import quat as tq
+    from or_cdchomp_tpu_torch.ops import spatial as ts
+
+    inp = libcd_inputs(torch, np, n)
+    worst = {}
+    for mod, name, args, kw, kinds in LIBCD_CASES:
+        fn = getattr(tq if mod == "quat" else ts, name)
+        outs = []
+        for dev, dt in ((device, torch.float32), ("cpu", torch.float64)):
+            a = [torch.as_tensor(inp[k], dtype=dt, device=dev)
+                 if isinstance(k, str) else np.asarray(k) for k in args]
+            out = fn(*a, **kw) if a else fn(dtype=dt, device=dev)
+            outs.append(out if isinstance(out, tuple) else (out,))
+        check(len(outs[0]) == len(kinds), f"{name}: {len(outs[0])} outputs")
+        worst[name] = max(libcd_err(torch, g, w, k)
+                          for g, w, k in zip(*outs, kinds))
+    return worst
+
+
+def record_lookups(sdf_lookup):
+    """Swap ``sdf_lookup.sdf_cell_lookup`` for a recorder of its calls
+    (data, sub, nbr, cells); returns (calls, restore)."""
+    calls, inner = [], sdf_lookup.sdf_cell_lookup
+
+    def rec(data, sub, nbr):
+        out = inner(data, sub, nbr)
+        calls.append((data, sub, nbr, out))
+        return out
+
+    sdf_lookup.sdf_cell_lookup = rec
+
+    def restore():
+        sdf_lookup.sdf_cell_lookup = inner
+
+    return calls, restore
+
+
+def sphere_queries(torch, engine, probs, moved_in=False):
+    """The batch's moving sphere centres in each field's frame, (B, m, S,
+    F, 3): multigrid_interp_grad's queries on a path's own inputs; with
+    ``moved_in`` the cloud is centred at (0.2, 0.2, 0.8) as
+    moved_in_args centres it, inside config 2's three fields."""
+    from or_cdchomp_tpu_torch.chomp import cost_soa
+    from or_cdchomp_tpu_torch.ops.quat import pose_apply
+
+    _, x_mov, _, _ = cost_soa.sphere_kinematics(engine.spec, engine.fk,
+                                                probs)
+    xw = x_mov.permute(3, 1, 2, 0)                       # (B, m, S, 3)
+    if moved_in:
+        xw = xw - xw.mean(dim=(0, 1, 2)) + torch.tensor(
+            [0.2, 0.2, 0.8], device=xw.device)
+    pg = probs.pose_gsdf_world[:, None, None]            # (B, 1, 1, F, 7)
+    return pose_apply(pg, xw[..., None, :]).contiguous()
+
+
+def cold_ring(args):
+    """A callable that returns a copy of the tensors ``args`` per call,
+    in turn from a ring whose other copies hold more than twice
+    L2_BYTES, so each call finds its copy evicted from L2."""
+    size = sum(a.numel() * a.element_size() for a in args)
+    ring = [args] + [tuple(a.clone() for a in args)
+                     for _ in range(1 + 2 * L2_BYTES // size)]
+    it = itertools.cycle(ring)
+    return lambda: next(it)
+
+
+def multigrid_on_card(torch, grid, sdf_lookup, fields, p, label, card,
+                      timed=True):
+    """multigrid_interp_grad on the card at p (..., F, 3): one launch of
+    K1's raw lookup, its cells bit-equal to sdf_cell_lookup_ref, value
+    and gradient against the CPU float64 call where both read the same
+    cells; if ``timed``, the kernel, its plain version, the one-gather
+    library call and the whole call timed, and the kernel's entry of the
+    JSON line returned; the kernel, its plain version and the library
+    call read their inputs cold (cold_ring), as bound_ms counts them."""
+    args = (fields.data, fields.sizes, fields.lengths)
+    calls, restore = record_lookups(sdf_lookup)
+    try:
+        sdf_lookup.LOOKUP_LAUNCHES = 0
+        v, g, inb = grid.multigrid_interp_grad(*args, p)
+        launches = sdf_lookup.LOOKUP_LAUNCHES
+        cpu = [a.cpu() for a in args]
+        v64, g64, inb64 = grid.multigrid_interp_grad(
+            cpu[0].double(), cpu[1], cpu[2].double(), p.cpu().double())
+    finally:
+        restore()
+    check(launches == 1 and len(calls) == 2,
+          f"{label}: {launches} lookup launches, {len(calls)} lookups")
+    data, sub, nbr, cells = calls[0]
+    err = compare(torch, f"{label} cells", torch.stack(cells),
+                  torch.stack(sdf_lookup.sdf_cell_lookup_ref(data, sub, nbr)),
+                  exact=True)
+    F, Q = sub.shape[:2]
+
+    def fq(t):                                   # (..., F) → (F, Q)
+        return t.reshape(-1, F).T.cpu()
+
+    same = ((sub.cpu() == calls[1][1]).all(-1)
+            & (nbr.cpu() == calls[1][2]).all(-1) & (fq(inb) == fq(inb64)))
+    fin = torch.isfinite(fq(v64))
+    check(bool((torch.isfinite(fq(v)) == fin)[same].all()),
+          f"{label}: +inf reads differ from the CPU's")
+    def worst(t):                                # 0 for no element
+        return float(t.max()) if t.numel() else 0.0
+
+    dv = worst((fq(v).double() - fq(v64))[same & fin].abs())
+    dg = worst(fq((g.double().cpu() - g64).abs().amax(dim=-1))[same])
+    other = 1.0 - float(same.double().mean())
+    print(f"{label}: multigrid_interp_grad at {tuple(p.shape)}, {launches} "
+          f"launch of sdf_cell_lookup_kernel, cells bit-equal to the plain "
+          f"version; against CPU float64 on the {int(same.sum())} (field, "
+          f"query) reading the same cells: max |Δvalue| {dv}, max |Δgrad| "
+          f"{dg} (bar {GRID_BAR}); {other:.2e} of them read other cells "
+          f"(bar {GRID_OTHER}); {int(fq(inb).sum())} in a box, "
+          f"{int((~fin & fq(inb64)).sum())} of those read +inf")
+    check(dv <= GRID_BAR and dg <= GRID_BAR, f"{label}: value {dv}, "
+          f"gradient {dg} beyond {GRID_BAR}")
+    check(other <= GRID_OTHER, f"{label}: {other} read other cells")
+    if not timed:
+        return None
+
+    flat = data.reshape(F, -1)
+    _, mx, my, mz = data.shape
+
+    def idx(x, y, z):
+        return (x.long() * my + y) * mz + z
+
+    (sx, sy, sz), (nx, ny, nz) = sub.unbind(-1), nbr.unbind(-1)
+    gidx = torch.stack([idx(sx, sy, sz), idx(nx, sy, sz), idx(sx, ny, sz),
+                        idx(sx, sy, nz)], dim=1).reshape(F, 4 * Q)
+    lib = torch.gather(flat, 1, gidx).reshape(F, 4, Q).transpose(0, 1)
+    check(torch.equal(lib, torch.stack(cells)),
+          f"{label}: the one-gather library call reads other cells")
+    # timed cold, as bound_ms counts the bytes from device memory: each
+    # call reads its own copy of the inputs from a ring of copies
+    kin, lin = cold_ring((data, sub, nbr)), cold_ring((flat, gidx))
+
+    def library():
+        f, i = lin()
+        return torch.gather(f, 1, i)
+
+    t = timings(torch, lambda: sdf_lookup.sdf_cell_lookup(*kin()),
+                lambda: sdf_lookup.sdf_cell_lookup_ref(*kin()))
+    lib_ms = device_ms(torch, library)
+    if lib_ms is None:
+        lib_ms = graph_ms(torch, library)
+    lib_call = time_ms(torch, library, reps=5)
+    whole = time_ms(torch, lambda: grid.multigrid_interp_grad(*args, p),
+                    reps=5)
+    nbytes = 4 * (F * mx * my * mz + 2 * F * Q * 3 + 4 * F * Q)
+    e = kernel_entry(label, "or_cdchomp_tpu_torch/csrc/obstacle.cu",
+                     "or_cdchomp_tpu/ops/pallas_sdf.py:86", err, t, nbytes,
+                     0)
+    e["launches"] = launches
+    e["library_ms"] = lib_ms          # None where neither gave a device time
+    print(f"{label}: inputs cold; kernel device {e['ms']} ms (per call "
+          f"{t[0]:.4f} ms), "
+          f"plain {e['plain_ms']} ms, one torch.gather {e['library_ms']} ms "
+          f"(per call {lib_call:.4f} ms), bound {e['bound_ms']} ms (bytes), "
+          f"share {e['bound_share']:.4f}; the whole multigrid_interp_grad "
+          f"call {whole:.4f} ms per call, on {card}")
+    return e
+
+
+def libcd_phase(torch, pt, card, dev, engine, probs, eng2, probs2):
+    """The libcd math library on the card: every new quat / spatial
+    function in float32 on LIBCD_N seeded inputs against the CPU's
+    float64; the per-problem FK (fk_spheres, apply_sphere_jacT) at config
+    1's B × m configurations against fk_soa / apply_sphere_jacT_soa; and
+    multigrid_interp_grad on config 1's field and config 2's three at the
+    batches' sphere centres, with one launch of K1's raw lookup each
+    (counts zeroed just before, read just after).  Returns the lookup's
+    entries of the JSON line."""
+    import numpy as np
+
+    from or_cdchomp_tpu_torch.chomp import cost_soa
+    from or_cdchomp_tpu_torch.ops import grid, sdf_lookup, selfcol
+
+    t0 = time.perf_counter()
+    worst = libcd_math(torch, np, dev)
+    t_math = time.perf_counter() - t0
+    bad = {k: v for k, v in worst.items() if not v <= LIBCD_BAR}
+    print(f"libcd math: {len(worst)} functions on {LIBCD_N} inputs, card "
+          f"float32 against CPU float64, worst max |Δ| / max(1, |value|): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in sorted(worst.items())))
+    check(not bad, f"libcd math beyond {LIBCD_BAR}: {bad}")
+
+    fk = engine.fk
+    lo, m = engine.mov_lo, engine.spec.m
+    q = probs.traj[:, lo:lo + m]                          # (B, m, n)
+    base = probs.robot_pose[:, None]                      # (B, 1, 7)
+    x, jac, _ = fk.fk_spheres(q, base)
+    _, anchors = fk.red_poses(q, base)
+    fk_out, x_mov, _, _ = cost_soa.sphere_kinematics(engine.spec, fk, probs)
+    dx = float((x - x_mov.permute(3, 1, 2, 0)).abs().max())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    w = torch.randn(tuple(x.shape), generator=gen, device=dev)
+    g = fk.apply_sphere_jacT(anchors, x, w)               # (B, m, D)
+    g_soa = fk.apply_sphere_jacT_soa(
+        tuple(c[lo:lo + m] for c in fk_out.anch_pos),
+        tuple(c[lo:lo + m] for c in fk_out.axis_w), tuple(x_mov),
+        tuple(w.permute(3, 1, 2, 0))).permute(2, 0, 1)
+    scale = float(g_soa.abs().max())
+    dg = float((g - g_soa).abs().max()) / scale
+    dj = float((torch.einsum("bmsci,bmsc->bmi", jac, w) - g).abs().max()) \
+        / scale
+    print(f"per-problem FK at {tuple(q.shape)}: fk_spheres against fk_soa "
+          f"max |Δx| {dx} m (bar {FK_BAR}); apply_sphere_jacT against "
+          f"apply_sphere_jacT_soa {dg} and against the Jacobians' "
+          f"contraction {dj}, relative to max |G| {scale} (bar {JACT_RTOL})")
+    check(dx <= FK_BAR, f"fk_spheres vs fk_soa: {dx}")
+    check(dg <= JACT_RTOL and dj <= JACT_RTOL,
+          f"apply_sphere_jacT: {dg}, {dj}")
+    t_fk = time.perf_counter() - t0 - t_math
+
+    # config 2's arm stays outside its three field boxes (every query
+    # reads +inf), so its cloud is also moved into them; that call is timed
+    p1 = sphere_queries(torch, engine, probs)
+    p2 = sphere_queries(torch, eng2, probs2)
+    p2_in = sphere_queries(torch, eng2, probs2, moved_in=True)
+    counts_zero(sdf_lookup, selfcol)
+    entries = [multigrid_on_card(torch, grid, sdf_lookup, engine.fields, p1,
+                                 "sdf_cell_lookup", card)]
+    multigrid_on_card(torch, grid, sdf_lookup, eng2.fields, p2,
+                      "config 2 sphere centres", card, timed=False)
+    entries.append(multigrid_on_card(torch, grid, sdf_lookup, eng2.fields,
+                                     p2_in, "sdf_cell_lookup_f3", card))
+    check(counts(sdf_lookup, selfcol) == {"obstacle": 0, "selfcol": 0},
+          "multigrid_interp_grad launched K1's obstacle kernel or K2")
+    try:
+        grid.multigrid_interp_grad(engine.fields.data, engine.fields.sizes,
+                                   engine.fields.lengths, p1.double())
+        raised = ""
+    except ValueError as e:
+        raised = str(e)
+    check("float64" in raised, f"a float64 call on the card: {raised!r}")
+    print(f"a float64 multigrid_interp_grad on the card raises: {raised}")
+    wall = time.perf_counter() - t0
+    print(f"libcd math phase: {wall:.2f} s on {card} (functions "
+          f"{t_math:.2f} s, FK {t_fk:.2f} s, lookups "
+          f"{wall - t_math - t_fk:.2f} s)")
+    return entries
+
+
 def split_main(nranks):
     """``chip_smoke.py --split N``: split_solve alone over N ranks, one per
     card where the machine has N cards (NCCL), else sharing them (gloo)."""
@@ -2525,14 +2982,16 @@ def main():
     got = torch.stack(sdf_lookup.sdf_cell_lookup(*largs))
     want = torch.stack(sdf_lookup.sdf_cell_lookup_ref(*largs))
     err = compare(torch, "sdf_cell_lookup", got, want, exact=True)
-    t = timings(torch, lambda: sdf_lookup.sdf_cell_lookup(*largs),
-                lambda: sdf_lookup.sdf_cell_lookup_ref(*largs))
+    cold = cold_ring(largs)         # timed from device memory, as bound
+    t = timings(torch, lambda: sdf_lookup.sdf_cell_lookup(*cold()),
+                lambda: sdf_lookup.sdf_cell_lookup_ref(*cold()))
+    del cold
     # bytes: the field, sub and nbr read once, the 4 values written once
     bound = 4 * (F * mx * my * mz + 2 * F * Q * 3 + 4 * F * Q) \
         / HBM_BYTES_PER_S * 1e3
     print(f"sdf_cell_lookup (raw contract, Q={Q}, not on the main path): "
-          f"exact, max_abs_err {err}, per call {t[0]:.4f} ms vs plain "
-          f"{t[1]:.4f} ms, device {t[2]} ms vs plain {t[3]} ms, "
+          f"exact, max_abs_err {err}, inputs cold, per call {t[0]:.4f} "
+          f"ms vs plain {t[1]:.4f} ms, device {t[2]} ms vs plain {t[3]} ms, "
           f"bound {bound} ms (bytes)")
 
     oargs = obstacle_args(engine, probs, x_mov, vel, acc)
@@ -2798,6 +3257,10 @@ def main():
     del probs5, costs5, x5, v5, a5, oargs5, xo5, sargs5, t
     del net_k, c_k, net_r, c_r
 
+    # -- the libcd math library and K1's raw lookup on its path ---------------
+    entries_libcd = libcd_phase(torch, pt, card, dev, engine, probs, eng2,
+                                probs2)
+
     # -- the module commands, and a grabbed tray (K2 at S = 126) --------------
     entry_split = module_phase(torch, pt, card, dev, out, out5)
     del out5
@@ -2870,8 +3333,9 @@ def main():
           f"{time.perf_counter() - t0:.2f} s")
     check(dtraj <= TRAJ_BAR, f"config 4: max |Δtraj| {dtraj} > {TRAJ_BAR}")
 
-    results += [entry_f3, *entries4, entry_b5, entry_split, entry_grab,
-                *entries_front, *entries_long, *entries_mesh, entry_draw]
+    results += [entry_f3, *entries4, entry_b5, *entries_libcd, entry_split,
+                entry_grab, *entries_front, *entries_long, *entries_mesh,
+                entry_draw]
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -254,6 +254,16 @@ class ChompEngine:
             return metric_mod.sep_solve(G, self.spec.dt)
         return torch.matmul(self.Ainv, G)
 
+    def apply_A(self, X):
+        """A · X for one problem's X (m, n) (JAX solver.py:118): the
+        operator of :meth:`apply_A_b`, which also broadcasts over a
+        batch."""
+        return self.apply_A_b(X)
+
+    def solve_A(self, G):
+        """A⁻¹ · G for one problem's G (m, n) (JAX solver.py:125)."""
+        return self.solve_A_b(G)
+
     def _ainv_host(self, rows, cols):
         """Ainv[rows][:, cols] as float64 numpy (integer index arrays)."""
         if self.metric_mode == "sep":
@@ -318,6 +328,19 @@ class ChompEngine:
                    + c_if * np.sum(inits * finals, axis=1))
             Ev[:, 0] = -0.5 / dt * inits
         return B, trC, Ev
+
+    # -- trajectory rows (JAX solver.py:213-223) ------------------------------
+
+    def get_T_mov(self, traj):
+        """The moving points (m, n) of a trajectory (n_points, n): rows
+        from ``mov_lo`` (1, or 0 under start_tsr)."""
+        return traj[..., self.mov_lo:self.mov_lo + self.spec.m, :]
+
+    def set_T_mov(self, traj, T_mov):
+        """A copy of ``traj`` with its moving points replaced by T_mov."""
+        lo, hi = self.mov_lo, self.mov_lo + self.spec.m
+        return torch.cat([traj[..., :lo, :], T_mov, traj[..., hi:, :]],
+                         dim=-2)
 
     # -- joint limits --------------------------------------------------------
 
@@ -417,7 +440,7 @@ class ChompEngine:
                                                probs.jlimit_upper)
         with phase("smoothcost"):
             # on the pre-renormalisation trajectory (chomp.c:660-677)
-            c_smooth = self._smooth_cost(probs, T_mov)
+            c_smooth = self.smooth_cost(probs, T_mov)
 
         traj = torch.cat([probs.traj[:, :lo], T_mov, probs.traj[:, hi:]],
                          dim=1)
@@ -466,11 +489,12 @@ class ChompEngine:
 
     # -- final costs ---------------------------------------------------------
 
-    def _smooth_cost(self, probs, T_mov):
-        """tr(½TᵀAT + BᵀT) + trC per problem (chomp.c:660-677)."""
+    def smooth_cost(self, prob, T_mov):
+        """tr(½TᵀAT + BᵀT) + trC (chomp.c:660-677, JAX solver.py:238) of
+        one problem, T_mov (m, n), or per problem of a batch, (B, m, n)."""
         AT = self.apply_A_b(T_mov)
-        return (0.5 * torch.sum(T_mov * AT, dim=(1, 2))
-                + torch.sum(probs.B * T_mov, dim=(1, 2)) + probs.trC)
+        return (0.5 * torch.sum(T_mov * AT, dim=(-2, -1))
+                + torch.sum(prob.B * T_mov, dim=(-2, -1)) + prob.trC)
 
     def final_costs_batch(self, probs):
         """The cost report of the current trajectories without an update
@@ -488,7 +512,7 @@ class ChompEngine:
             if self.extra_cost is not None:
                 c_obs = c_obs + self._extra(T_mov)[0]
         with phase("smoothcost"):
-            c_smooth = self._smooth_cost(probs, T_mov)
+            c_smooth = self.smooth_cost(probs, T_mov)
         return c_obs + c_smooth, c_obs, c_smooth
 
     def constraint_values(self, probs):

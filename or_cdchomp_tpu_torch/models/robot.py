@@ -4,9 +4,11 @@
 ``RobotModel`` and its host-side float64 helpers are copied from the JAX
 package (shared copy pending de-duplication).  ``CompiledFK`` ports the
 structure-of-arrays FK (``fk_soa``) and Jᵀ map (``apply_sphere_jacT_soa``)
-of the batched cost path to tensors; the static chain analysis
-(``__init__`` / ``_reduced_chain``) is the same; ``sphere_positions_np``
-walks the same chain in float64 numpy for host-side callers.
+of the batched cost path, and the per-problem FK of the API surface
+(``red_poses`` … ``fk_spheres``, layout (..., n_dof), pose algebra from
+ops/quat.py) to tensors; the static chain analysis (``__init__`` /
+``_reduced_chain``) is the same; ``sphere_positions_np`` walks the same
+chain in float64 numpy for host-side callers.
 """
 
 from __future__ import annotations
@@ -17,10 +19,12 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from or_cdchomp_tpu_torch.ops import quat as qt
 from or_cdchomp_tpu_torch.ops import soa
 from or_cdchomp_tpu_torch.ops.spatial import SpatialMats
 
 FIXED, REVOLUTE, PRISMATIC = 0, 1, 2
+_POSE_ID = np.array([0, 0, 0, 0, 0, 0, 1.0])
 _JTYPES = {"fixed": FIXED, "revolute": REVOLUTE, "hinge": REVOLUTE,
            "prismatic": PRISMATIC, "slider": PRISMATIC}
 
@@ -439,16 +443,17 @@ class CompiledFK:
         # TSR path reads the end-effector link's
         self._red_slot = [int(r) for r in red_slot]
         self._off64 = off
+        self._off_id = [bool(np.allclose(o, _POSE_ID, atol=1e-14))
+                        for o in off]
         # the end effector's constant pose in its reduced slot,
         # off(ee) ∘ ee_origin folded into one (None if the identity)
-        ident = np.array([0, 0, 0, 0, 0, 0, 1.0])
         self._ee_offset_np = None
         if model.ee_link >= 0:
             eo = self._off64[model.ee_link]
             if model.ee_origin is not None:
                 eo = _pose_compose64(eo, np.asarray(model.ee_origin,
                                                     dtype=np.float64))
-            if not np.allclose(eo, ident, atol=1e-14):
+            if not np.allclose(eo, _POSE_ID, atol=1e-14):
                 self._ee_offset_np = eo
         self._to_device()
 
@@ -479,6 +484,153 @@ class CompiledFK:
         self.ee_dof_mask_np = self.model.ancestor_dof_mask()[
             self.model.ee_link]
         self.ee_dof_mask = torch.as_tensor(self.ee_dof_mask_np, device=dev)
+        # the per-problem FK's tables: per link its reduced slot and
+        # offset, per sphere its link, offset, reduced slot and folded
+        # offset, per DOF its joint axis (in the joint frame), revolute
+        # or not, and which spheres it moves
+        model, subset = self.model, self.sphere_subset
+        self._red_slot_links = torch.as_tensor(self._red_slot, device=dev)
+        self._off_p = torch.as_tensor(self._off64[:, :3], dtype=dt, device=dev)
+        self._off_q = torch.as_tensor(self._off64[:, 3:], dtype=dt, device=dev)
+        self._sphere_link = torch.as_tensor(model.sphere_link[subset],
+                                            dtype=torch.long, device=dev)
+        self._sphere_pos = torch.as_tensor(model.sphere_pos[subset],
+                                           dtype=dt, device=dev)
+        self._sphere_folded_pos = torch.as_tensor(self._sphere_folded_np,
+                                                  dtype=dt, device=dev)
+        self._dof_axis = torch.as_tensor(
+            model.axis[self._dof_link].reshape(-1, 3), dtype=dt, device=dev)
+        self._dof_rev = torch.as_tensor(self._jtype_per_dof_np == REVOLUTE,
+                                        dtype=torch.bool, device=dev)
+        self._sphere_dof_mask = torch.as_tensor(self._sphere_dof_mask_np,
+                                                device=dev)
+
+    # ----- per-problem FK (layout (..., n_dof); robot.py:444-738) ----------
+
+    def red_poses(self, q, base_pose=None):
+        """World poses of the reduced (active-joint) chain.  q: (...,
+        n_dof).  Returns (red (..., n_red, 7), anchors (..., n_dof, 7)):
+        red[..., 0, :] the base pose, then one per active joint; anchors
+        are the joint frames before the joint's motion."""
+        q = torch.as_tensor(q, dtype=self.dtype, device=self.device)
+        batch = q.shape[:-1]
+        if base_pose is None:
+            base_pose = qt.pose_identity(self.dtype, self.device)
+        base_pose = torch.as_tensor(base_pose, dtype=self.dtype,
+                                    device=self.device)
+        half = 0.5 * q
+        s, c = torch.sin(half), torch.cos(half)
+        red = [base_pose.expand(batch + (7,))]
+        anchors = [None] * self.n_dof
+        for e in self._chain:
+            parent = red[e["parent_slot"]]
+            pq, ppos = parent[..., 3:], parent[..., :3]
+            aq = pq if e["rot_id"] else qt.quat_compose_const(pq, e["K"][3:])
+            apos = ppos if e["pos_zero"] else \
+                ppos + qt.quat_rotate_const(pq, e["K"][:3])
+            d = e["dof"]
+            anchors[d] = torch.cat([apos, aq], dim=-1)
+            ax = e["axis"]
+            if e["jtype"] == REVOLUTE:
+                sd = s[..., d]
+                mq = torch.stack([sd * float(ax[0]), sd * float(ax[1]),
+                                  sd * float(ax[2]), c[..., d]], dim=-1)
+                pose = torch.cat([apos, qt.quat_compose(aq, mq)], dim=-1)
+            else:  # prismatic
+                step = qt.quat_rotate_const(aq, ax) * q[..., d, None]
+                pose = torch.cat([apos + step, aq], dim=-1)
+            red.append(pose)
+        anchors = (torch.stack(anchors, dim=-2) if self.n_dof
+                   else q.new_zeros(batch + (0, 7)))
+        return torch.stack(red, dim=-2), anchors
+
+    def link_pose_red(self, red, link):
+        """Pose of one link from the reduced poses: its slot's pose
+        composed with the link's constant offset."""
+        rp = red[..., self._red_slot[link], :]
+        if self._off_id[link]:
+            return rp
+        off = self._off64[link]
+        pq = rp[..., 3:]
+        pos = rp[..., :3] + qt.quat_rotate_const(pq, off[:3])
+        return torch.cat([pos, qt.quat_compose_const(pq, off[3:])], dim=-1)
+
+    def _reconstruct_links(self, red):
+        """All L link poses (..., L, 7) from the reduced chain."""
+        rp = red.index_select(-2, self._red_slot_links)
+        pq = rp[..., 3:]
+        q = qt.quat_compose(pq, self._off_q)
+        pos = rp[..., :3] + qt.quat_rotate(pq, self._off_p)
+        return torch.cat([pos, q], dim=-1)
+
+    def link_poses(self, q, base_pose=None):
+        """World poses of all links.  q: (..., n_dof); returns (poses
+        (..., L, 7), anchors (..., n_dof, 7))."""
+        red, anchors = self.red_poses(q, base_pose)
+        return self._reconstruct_links(red), anchors
+
+    def sphere_positions(self, link_poses):
+        """World sphere centres (..., S, 3) from link poses."""
+        lp = link_poses.index_select(-2, self._sphere_link)
+        return qt.pose_apply(lp, self._sphere_pos)
+
+    def sphere_positions_red(self, red):
+        """World sphere centres (..., S, 3) from the reduced poses (the
+        sphere offsets folded through the frozen subtrees)."""
+        rp = red.index_select(-2, self._sphere_slot)
+        return qt.pose_apply(rp, self._sphere_folded_pos)
+
+    def point_jacobian(self, anchors, x, link_mask):
+        """Position Jacobian (..., 3, n_dof) of world point(s) x (..., 3)
+        over the active DOFs: axis_w × (x − origin_w) for a revolute
+        joint, axis_w for a prismatic one, 0 where ``link_mask`` (...,
+        n_dof) says the DOF does not move the point's link.  anchors:
+        (..., n_dof, 7) joint world frames before motion."""
+        axis_w = qt.quat_rotate(anchors[..., 3:], self._dof_axis)
+        rel = x[..., None, :] - anchors[..., :3]
+        col = torch.where(self._dof_rev[:, None],
+                          torch.linalg.cross(axis_w, rel, dim=-1), axis_w)
+        col = torch.where(link_mask[..., None], col, 0.0)
+        return col.transpose(-1, -2)
+
+    def sphere_jacobians(self, anchors, sphere_x):
+        """Jacobians of all spheres (..., S, 3, n_dof); sphere_x: (..., S,
+        3) world sphere centres."""
+        return self.point_jacobian(anchors[..., None, :, :], sphere_x,
+                                   self._sphere_dof_mask)
+
+    def apply_sphere_jacT(self, anchors, sphere_x, w):
+        """G = Σ_s J(s)ᵀ w_s (..., n_dof) without a Jacobian: the leading
+        axes flattened into the batch axis of
+        :meth:`apply_sphere_jacT_soa`.  anchors: (..., n_dof, 7);
+        sphere_x, w: (..., S, 3)."""
+        lead = torch.broadcast_shapes(anchors.shape[:-2], sphere_x.shape[:-2],
+                                      w.shape[:-2])
+        axis_w = qt.quat_rotate(anchors[..., 3:], self._dof_axis)
+
+        def soa_cols(t):      # (..., K, 3) → 3 of (1, K, N), batch last
+            t = t.expand(lead + t.shape[-2:]).reshape(-1, *t.shape[-2:])
+            return tuple(t.permute(2, 1, 0)[:, None])
+
+        g = self.apply_sphere_jacT_soa(soa_cols(anchors[..., :3]),
+                                       soa_cols(axis_w), soa_cols(sphere_x),
+                                       soa_cols(w))             # (1, D, N)
+        return g[0].T.reshape(lead + (self.n_dof,))
+
+    def fk_spheres(self, q, base_pose=None):
+        """One call: (sphere_x (..., S, 3), jac (..., S, 3, n_dof),
+        link_poses (..., L, 7))."""
+        red, anchors = self.red_poses(q, base_pose)
+        x = self.sphere_positions_red(red)
+        return (x, self.sphere_jacobians(anchors, x),
+                self._reconstruct_links(red))
+
+    def sphere_positions_jit(self, q, base_pose):
+        """Sphere centres (..., S, 3) for host-side callers: the name of
+        the JAX package's jitted call, here a plain call (no
+        ``torch.compile``)."""
+        red, _ = self.red_poses(q, base_pose)
+        return self.sphere_positions_red(red)
 
     # ----- structure-of-arrays (batch-last) cost path ----------------------
 

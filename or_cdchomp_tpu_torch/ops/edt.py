@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from or_cdchomp_tpu_torch.ops.grid import Grid3D
+
 _CHUNK = 1024  # scan lines per broadcast minimum
 
 
@@ -49,3 +51,10 @@ def signed_edt(occupied, lengths):
     d_obs = edt_sq(torch.where(occupied, zero, inf), lengths)
     d_free = edt_sq(torch.where(occupied, inf, zero), lengths)
     return torch.sqrt(d_obs) - torch.sqrt(d_free)
+
+
+def sdf_grid_from_occupancy(occupied, lengths) -> Grid3D:
+    """Boolean occupancy grid → signed-distance Grid3D on its device."""
+    data = signed_edt(occupied, lengths)
+    return Grid3D(data=data, lengths=torch.as_tensor(
+        lengths, dtype=data.dtype, device=data.device))

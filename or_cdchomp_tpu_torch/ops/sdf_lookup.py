@@ -63,7 +63,8 @@ def sdf_cell_lookup(data, sub, nbr):
 
     data: (F, mx, my, mz); sub, nbr: (F, Q, 3) int32 in-range centre and
     neighbour subscripts.  Returns (v0, vnx, vny, vnz), each (F, Q), with
-    vnx = data[f, nbr_x, sub_y, sub_z] and so on.
+    vnx = data[f, nbr_x, sub_y, sub_z] and so on.  One launch on CUDA
+    tensors, which takes Q < 2**31 (ValueError past it).
     """
     global LOOKUP_LAUNCHES
     if data.device.type == "cpu":
@@ -72,6 +73,9 @@ def sdf_cell_lookup(data, sub, nbr):
         raise ValueError(f"sdf_cell_lookup: unsupported device {data.device}")
     F, mx, my, mz = data.shape
     Q = sub.shape[1]
+    if Q >= 2 ** 31:
+        raise ValueError(f"sdf_cell_lookup: {Q} queries per field; the "
+                         f"kernel takes fewer than 2**31")
     dev = data.device
     kernels.require(data, "data", torch.float32, (F, mx, my, mz), dev)
     kernels.require(sub, "sub", torch.int32, (F, Q, 3), dev)
@@ -88,30 +92,36 @@ def sdf_cell_lookup(data, sub, nbr):
 
 # ---- fused obstacle cost ---------------------------------------------------
 
-def _field_subs(p, ln, size, dtype):
-    """One field's lookup geometry for grid-frame points p (3 of (m, S,
-    B)): in-box mask, per axis the cell subscript (int32), its centre,
-    the one-sided neighbour choice and the size as a tensor (libcd
-    grid.c:331-454; the expressions obstacle.cu rounds alike)."""
-    in_b = None
-    sub, center, use_next, szf = [], [], [], []
-    for i in range(3):
-        sz = size[i]
-        szf_i = torch.tensor(float(sz), dtype=dtype, device=p[i].device)
-        xi = p[i] / ln[i]
-        ok = (xi >= 0.0) & (xi <= 1.0)
-        in_b = ok if in_b is None else (in_b & ok)
-        si = torch.clamp(torch.floor(xi * szf_i), 0, sz - 1)
-        si = si.to(torch.int32)
-        ci = (si.to(dtype) + 0.5) / szf_i * ln[i]
-        un = p[i] >= ci
-        un = torch.where(si == 0, True, un)
-        un = torch.where(si == sz - 1, False, un)
-        sub.append(si)
-        center.append(ci)
-        use_next.append(un)
-        szf.append(szf_i)
-    return in_b, sub, center, use_next, szf
+def lookup_geometry(p, sizes, lengths):
+    """libcd's one-sided lookup rule at grid-frame points p (..., 3) in
+    grids of integer ``sizes`` and side ``lengths`` (broadcast against
+    p): in-box mask, clamped centre subscripts (int32), centres, the
+    neighbour choice (the next cell where p is at or past the centre,
+    edge cells forced inward) and the sizes in p's dtype (grid.c:191-228,
+    331-454; the expressions obstacle.cu rounds alike).  The one copy of
+    the rule: :func:`obstacle_ref` and ``grid.multigrid_interp_grad``
+    both read it."""
+    sizes_f = sizes.to(p.dtype)
+    x = p / lengths
+    in_bounds = torch.all((x >= 0.0) & (x <= 1.0), dim=-1)
+    # clamped before the cast, so a far query never overflows int32
+    sub = torch.minimum(torch.clamp(torch.floor(x * sizes_f), min=0.0),
+                        sizes_f - 1.0).to(torch.int32)
+    center = (sub.to(p.dtype) + 0.5) / sizes_f * lengths
+    use_next = p >= center
+    use_next = torch.where(sub == 0, True, use_next)
+    use_next = torch.where(sub == sizes - 1, False, use_next)
+    return in_bounds, sub, center, use_next, sizes_f
+
+
+def _field_subs(p, ln, size):
+    """:func:`lookup_geometry` of one field for points given as 3
+    components p (each (m, S, B)), per axis as component lists."""
+    sizes = torch.tensor(size, dtype=torch.int32, device=p[0].device)
+    in_b, sub, center, use_next, szf = lookup_geometry(
+        torch.stack(p, dim=-1), sizes, ln)
+    return (in_b, sub.unbind(-1), center.unbind(-1), use_next.unbind(-1),
+            szf.unbind(-1))
 
 
 def obstacle_ref(x, vel, acc, data, sizes, lengths, pose_gsdf_world,
@@ -136,8 +146,7 @@ def obstacle_ref(x, vel, acc, data, sizes, lengths, pose_gsdf_world,
         pg = comps(pose_gsdf_world[:, f])
         p = soa.add(soa.qrot(pg[3:], xs), pg[:3])            # (m, S, B)
         ln = lengths[f]
-        in_b, sub, center, use_next, szf = _field_subs(p, ln, sizes_l[f],
-                                                       dtype)
+        in_b, sub, center, use_next, szf = _field_subs(p, ln, sizes_l[f])
         if want_dirs:
             dirs.append(use_next[0].to(torch.int32)
                         | (use_next[1].to(torch.int32) << 1)
@@ -384,8 +393,7 @@ def obstacle_cells(x, data, sizes, lengths, pose_gsdf_world, field_enabled):
     for f in range(F):
         pg = tuple(pose_gsdf_world[:, f, i] for i in range(7))
         p = soa.add(soa.qrot(pg[3:], xs), pg[:3])
-        in_b, sub, _, use_next, _ = _field_subs(p, lengths[f], sizes_l[f],
-                                                x.dtype)
+        in_b, sub, _, use_next, _ = _field_subs(p, lengths[f], sizes_l[f])
         take = in_b & field_enabled[None, None, :, f]
         sub = [s_[take].long() for s_ in sub]
         nb = [s_ + torch.where(u[take], 1, -1) for s_, u in zip(sub, use_next)]

@@ -1,16 +1,26 @@
-"""Small pose-algebra matrices stacked over a batch (counterpart of the
-parts of or_cdchomp_tpu/ops/spatial.py and ops/quat.py that the TSR
-chain and the floating base's Jᵀ block use).
+"""6-D spatial (motion / force) vector algebra on tensors (counterpart of
+or_cdchomp_tpu/ops/spatial.py, libcd's cd_spatial layer,
+spatial.c:33-669), and the small pose-algebra matrices of the TSR chain
+stacked over a batch.
 
-The JAX package writes these matrices entry by entry, one (C, B) array
-per entry (``constraints._mm_ll``), which suits TPU vector lanes.  In
-eager PyTorch every entry would be one or more kernel launches, so here
-each matrix is one tensor (..., r, c), built from a source vector
+The module-level functions are libcd's: motion / force transforms and
+their inverses, the spatial inertia transform, the se(3) exponential map,
+point shifts, the pose-velocity Jacobian and its inverse, inertia from /
+to the centre of mass, v × Iv, the spring-damper wrench and the cross
+matrices.  Spatial vectors are [angular(3); linear(3)]; every function
+broadcasts over leading axes, follows its inputs' device and dtype, and
+selects at singularities with ``torch.where`` as the JAX package does.
+
+:class:`SpatialMats` serves the TSR chain and the floating base's Jᵀ
+block.  The JAX package writes those matrices entry by entry, one (C, B)
+array per entry (``constraints._mm_ll``), which suits TPU vector lanes.
+In eager PyTorch every entry would be one or more kernel launches, so
+there each matrix is one tensor (..., r, c), built from a source vector
 (..., s) by one gather and one sign multiply, and matrices chain with
-``torch.matmul``.  The gather and sign tables live on the device
-(:class:`SpatialMats`), so building a matrix copies nothing from the
-host and never synchronises.  Entry formulas follow spatial.c and
-kin.c as the JAX package has them; sums may run in another order.
+``torch.matmul``.  The gather and sign tables live on the device, so
+building a matrix copies nothing from the host and never synchronises.
+Entry formulas follow spatial.c and kin.c as the JAX package has them;
+sums may run in another order.
 
 Quaternions are (x, y, z, w), poses [x, y, z, qx, qy, qz, qw].
 """
@@ -19,6 +29,10 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from or_cdchomp_tpu_torch.ops.quat import (
+    pose_invert, quat_compose, quat_from_axisangle, quat_from_R, quat_invert,
+    quat_rotate, quat_to_R)
 
 # Each table is a list of rows; an entry is a source name, optionally
 # with a leading '-', or "0" / "1".  The source vector of a table lists
@@ -230,3 +244,305 @@ class SpatialMats:
         (x y z roll pitch yaw), from d(yaw, pitch, roll)/dq (..., 3, 4)."""
         src = jq.flatten(-2)
         return self._build(self._yprj, self._with_zero(src, one=True))
+
+
+# ---- libcd's cd_spatial (spatial.c:33-669) ---------------------------------
+
+def _cross(a, b):
+    return torch.linalg.cross(a, b, dim=-1)
+
+
+def _t(m):
+    return m.transpose(-1, -2)
+
+
+def _blocks(tl, tr, bl, br):
+    """[[tl, tr], [bl, br]] from four (..., 3, 3) blocks."""
+    return torch.cat([torch.cat([tl, tr], dim=-1),
+                      torch.cat([bl, br], dim=-1)], dim=-2)
+
+
+def cross_mat(v):
+    """Skew-symmetric matrix [v]× (..., 3, 3) (spatial.c:610-637)."""
+    x, y, z = v.unbind(-1)
+    zero = torch.zeros_like(x)
+    m = torch.stack([zero, -z, y, z, zero, -x, -y, x, zero], dim=-1)
+    return m.unflatten(-1, (3, 3))
+
+
+def xm_from_pose(pose):
+    """Spatial motion transform [[R, 0], [[r]×R, R]] (..., 6, 6) of a
+    pose (spatial.c:71-102)."""
+    R = quat_to_R(pose[..., 3:])
+    rxR = cross_mat(pose[..., :3]) @ R
+    return _blocks(R, torch.zeros_like(R), rxR, R)
+
+
+def _unskew(m):
+    """v from [v]× (averaging the antisymmetric pair)."""
+    return 0.5 * torch.stack([m[..., 2, 1] - m[..., 1, 2],
+                              m[..., 0, 2] - m[..., 2, 0],
+                              m[..., 1, 0] - m[..., 0, 1]], dim=-1)
+
+
+def xm_to_pose(xm):
+    """Pose of a spatial motion transform: r from [r]× = BL·Rᵀ, the
+    quaternion from the top-left R (spatial.c:33-51)."""
+    R = xm[..., 0:3, 0:3]
+    r = _unskew(xm[..., 3:6, 0:3] @ _t(R))
+    return torch.cat([r, quat_from_R(R)], dim=-1)
+
+
+def xf_from_pose(pose):
+    """Spatial force transform [[R, [r]×R], [0, R]] (..., 6, 6) of a
+    pose (spatial.c:105-135)."""
+    R = quat_to_R(pose[..., 3:])
+    rxR = cross_mat(pose[..., :3]) @ R
+    return _blocks(R, rxR, torch.zeros_like(R), R)
+
+
+def xf_to_pose(xf):
+    """Pose of a spatial force transform (spatial.c:53-69)."""
+    R = xf[..., 0:3, 0:3]
+    r = _unskew(xf[..., 0:3, 3:6] @ _t(R))
+    return torch.cat([r, quat_from_R(R)], dim=-1)
+
+
+def inertia_x(pose_ab, inertia_b):
+    """A 6×6 spatial inertia from frame b to frame a:
+    I_a = Xm_baᵀ · I_b · Xm_ba (spatial.c:137-149)."""
+    xm_ba = xm_from_pose(pose_invert(pose_ab))
+    return _t(xm_ba) @ (inertia_b @ xm_ba)
+
+
+def _series(w2, coeffs):
+    """Σ_k coeffs[k] · w2^k (the small-angle Taylor series)."""
+    out = torch.full_like(w2, coeffs[0])
+    for k, c in enumerate(coeffs[1:], start=1):
+        out = out + c * w2 ** k
+    return out
+
+
+def pose_from_spavel_unittime(spavel):
+    """se(3) exponential map: twist → pose after unit time
+    (spatial.c:152-198); below ‖w‖² = 1e-7 by Taylor series."""
+    w, v = spavel[..., :3], spavel[..., 3:]
+    w2 = torch.sum(w * w, dim=-1)
+    wdotv = torch.sum(w * v, dim=-1)
+    small = w2 < 1e-7
+
+    c_cross_s = _series(w2, (0.5, -1 / 24.0, 1 / 720.0, -1 / 40320.0))
+    c_v_s = _series(w2, (1.0, -1 / 6.0, 1 / 120.0, -1 / 5040.0))
+    c_w_s = _series(w2, (1 / 6.0, -1 / 120.0, 1 / 5040.0,
+                         -1 / 362880.0)) * wdotv
+    qv_s = _series(w2, (0.5, -1 / 48.0, 1 / 3840.0, -1 / 645120.0))
+    qw_s = _series(w2, (1.0, -1 / 8.0, 1 / 384.0, -1 / 46080.0))
+    q_small = torch.cat([qv_s[..., None] * w, qw_s[..., None]], dim=-1)
+
+    w2_safe = torch.where(small, 1.0, w2)
+    th = torch.sqrt(w2_safe)
+    c_cross_e = (1.0 - torch.cos(th)) / w2_safe
+    c_v_e = torch.sin(th) / th
+    c_w_e = (1.0 - c_v_e) * wdotv / w2_safe
+    q_exact = quat_from_axisangle(w / th[..., None], th)
+
+    c_cross = torch.where(small, c_cross_s, c_cross_e)[..., None]
+    c_v = torch.where(small, c_v_s, c_v_e)[..., None]
+    c_w = torch.where(small, c_w_s, c_w_e)[..., None]
+    q = torch.where(small[..., None], q_small, q_exact)
+    pos = c_cross * _cross(w, v) + c_v * v + c_w * w
+    return torch.cat([pos, q], dim=-1)
+
+
+def H_from_spavel_unittime(spavel):
+    """se(3) exp map as a homogeneous matrix, H = I + S + s2·S² + s3·S³
+    with S the 4×4 screw matrix (spatial.c:200-248)."""
+    w = spavel[..., :3]
+    w2 = torch.sum(w * w, dim=-1)
+    small = w2 < 1e-7
+    w2_safe = torch.where(small, 1.0, w2)
+    th = torch.sqrt(w2_safe)
+    s2 = torch.where(small,
+                     _series(w2, (0.5, -1 / 24.0, 1 / 720.0, -1 / 40320.0)),
+                     (1.0 - torch.cos(th)) / w2_safe)
+    s3 = torch.where(small,
+                     _series(w2, (1 / 6.0, -1 / 120.0, 1 / 5040.0,
+                                  -1 / 362880.0)),
+                     (th - torch.sin(th)) / (th * w2_safe))
+    top = torch.cat([cross_mat(w), spavel[..., 3:, None]], dim=-1)
+    S = torch.cat([top, torch.zeros_like(top[..., :1, :])], dim=-2)
+    S2 = S @ S
+    eye = torch.eye(4, dtype=S.dtype, device=S.device)
+    return (eye + S + s2[..., None, None] * S2
+            + s3[..., None, None] * (S @ S2))
+
+
+def x_invert(x):
+    """Invert a spatial transform by transposing each 3×3 block
+    (spatial.c:251-268)."""
+    blocks = x.reshape(x.shape[:-2] + (2, 3, 2, 3))
+    return blocks.transpose(-1, -3).reshape(x.shape)
+
+
+def v_to_pos(vel, pos):
+    """A spatial velocity re-expressed at a point: lin += w × pos
+    (spatial.c:270-274)."""
+    w = vel[..., :3]
+    return torch.cat([w, vel[..., 3:] + _cross(w, pos)], dim=-1)
+
+
+def v_from_pos(vel, pos):
+    """The inverse point shift: lin += pos × w (spatial.c:276-280)."""
+    w = vel[..., :3]
+    return torch.cat([w, vel[..., 3:] + _cross(pos, w)], dim=-1)
+
+
+def f_to_pos(force, pos):
+    """Spatial force point shift: ang += f × pos (spatial.c:282-286)."""
+    f = force[..., 3:]
+    return torch.cat([force[..., :3] + _cross(f, pos), f], dim=-1)
+
+
+def f_from_pos(force, pos):
+    """The inverse force shift: ang += pos × f (spatial.c:288-292)."""
+    f = force[..., 3:]
+    return torch.cat([force[..., :3] + _cross(pos, f), f], dim=-1)
+
+
+def _rows(rows):
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
+def pose_jac(pose):
+    """World spatial velocity per pose7 derivative (..., 6, 7), rows 0-2
+    angular, 3-5 linear (spatial.c:295-337)."""
+    x, y, z = pose[..., 0], pose[..., 1], pose[..., 2]
+    qx, qy, qz, qw = (2.0 * pose[..., 3:]).unbind(-1)
+    zero, one = torch.zeros_like(x), torch.ones_like(x)
+    return _rows([
+        [zero, zero, zero, qw, -qz, qy, -qx],
+        [zero, zero, zero, qz, qw, -qx, -qy],
+        [zero, zero, zero, -qy, qx, qw, -qz],
+        [one, zero, zero, -z * qz - y * qy, -z * qw + y * qx,
+         z * qx + y * qw, z * qy - y * qz],
+        [zero, one, zero, z * qw + x * qy, -z * qz - x * qx,
+         z * qy - x * qw, -z * qx + x * qz],
+        [zero, zero, one, -y * qw + x * qz, y * qz + x * qw,
+         -y * qy - x * qx, y * qx - x * qy],
+    ])
+
+
+def pose_jac_inverse(pose):
+    """Pose7 rates per world spatial velocity (..., 7, 6)
+    (spatial.c:339-375)."""
+    x, y, z = pose[..., 0], pose[..., 1], pose[..., 2]
+    qx, qy, qz, qw = (0.5 * pose[..., 3:]).unbind(-1)
+    zero, one = torch.zeros_like(x), torch.ones_like(x)
+    return _rows([
+        [zero, z, -y, one, zero, zero],
+        [-z, zero, x, zero, one, zero],
+        [y, -x, zero, zero, zero, one],
+        [qw, qz, -qy, zero, zero, zero],
+        [-qz, qw, qx, zero, zero, zero],
+        [qy, -qx, qw, zero, zero, zero],
+        [-qx, -qy, -qz, zero, zero, zero],
+    ])
+
+
+def inertia_from_com(mass, com, Icom):
+    """6×6 spatial inertia from the mass, the COM offset and the
+    rotational inertia about the COM (spatial.c:377-423)::
+
+        [ Icom + m·[c]×[c]×ᵀ   m·[c]× ]
+        [ m·[c]×ᵀ              m·I    ]
+
+    ``mass`` and ``Icom`` may be numbers or arrays; they take ``com``'s
+    dtype and device."""
+    com = torch.as_tensor(com)
+    mass = torch.as_tensor(mass, dtype=com.dtype, device=com.device)
+    Icom = torch.as_tensor(Icom, dtype=com.dtype, device=com.device)
+    cx = cross_mat(com)
+    m_ = mass[..., None, None]
+    tl = Icom + m_ * (cx @ _t(cx))
+    eye = torch.eye(3, dtype=tl.dtype, device=tl.device)
+    return _blocks(tl, m_ * cx, m_ * _t(cx), (m_ * eye).expand(tl.shape))
+
+
+def inertia_to_com(inertia):
+    """(mass, com, Icom) of a 6×6 spatial inertia (spatial.c:425-461;
+    the reference's ``-+`` on Icom[0][0] parses as a subtraction, and so
+    it is here)."""
+    mass = (inertia[..., 3, 3] + inertia[..., 4, 4]
+            + inertia[..., 5, 5]) / 3.0
+    com = (_unskew(inertia[..., 0:3, 3:6])
+           + _unskew(_t(inertia[..., 3:6, 0:3]))) / (2.0 * mass[..., None])
+    cx = cross_mat(com)
+    Icom = inertia[..., 0:3, 0:3] - mass[..., None, None] * (cx @ _t(cx))
+    return mass, com, Icom
+
+
+def inertia_sphere_solid(pos, mass, radius):
+    """Spatial inertia of a solid sphere at ``pos`` (spatial.c:463-471);
+    ``mass`` and ``radius`` take ``pos``'s dtype and device."""
+    pos = torch.as_tensor(pos)
+    mass = torch.as_tensor(mass, dtype=pos.dtype, device=pos.device)
+    radius = torch.as_tensor(radius, dtype=pos.dtype, device=pos.device)
+    Ielem = 0.4 * mass * radius * radius
+    eye = torch.eye(3, dtype=pos.dtype, device=pos.device)
+    return inertia_from_com(mass, pos, Ielem[..., None, None] * eye)
+
+
+def vxIv(v, I):
+    """Velocity-product bias force v ×* (I·v) (spatial.c:473-482):
+    [w × (Iv)_ang + vlin × (Iv)_lin ; w × (Iv)_lin]."""
+    Iv = torch.einsum("...ij,...j->...i", I, v)
+    w, vlin = v[..., :3], v[..., 3:]
+    ang = _cross(w, Iv[..., :3]) + _cross(vlin, Iv[..., 3:])
+    return torch.cat([ang, _cross(w, Iv[..., 3:])], dim=-1)
+
+
+def spring_damper(pose, vel, pose_ref, vel_ref=None,
+                  Klin=0.0, Blin=0.0, Kang=0.0, Bang=0.0):
+    """Spatial PD spring-damper wrench [torque; force] at the world
+    origin pulling ``pose`` toward ``pose_ref`` (spatial.c:484-608).
+    ``vel`` / ``vel_ref`` are world spatial velocities at the origin;
+    the reference accumulates into its ``force`` argument, here the
+    increment is returned."""
+    p, q = pose[..., :3], pose[..., 3:]
+    w = vel[..., :3]
+    # the body point's linear velocity v + w × p (spatial.c:517-519)
+    v_at_body = vel[..., 3:] + _cross(w, p)
+    rp, rq = pose_ref[..., :3], pose_ref[..., 3:]
+    if vel_ref is None:
+        rw = torch.zeros_like(w)
+        rv_at_body = torch.zeros_like(v_at_body)
+    else:
+        rw = vel_ref[..., :3]
+        rv_at_body = vel_ref[..., 3:] + _cross(rw, rp)
+
+    # orientation error as a world-frame rotation vector
+    q_err = quat_compose(quat_invert(rq), q)
+    qw = torch.clamp(q_err[..., 3], -1.0, 1.0)
+    sin_half = torch.sqrt(torch.clamp(1.0 - qw * qw, min=0.0))
+    tiny = sin_half < 1e-12
+    scale = torch.where(tiny, 0.0, 2.0 * torch.arccos(qw)
+                        / torch.where(tiny, 1.0, sin_half))
+    aa_world = quat_rotate(rq, scale[..., None] * q_err[..., :3])
+
+    f = -Klin * (p - rp) - Blin * (v_at_body - rv_at_body)
+    n = -Kang * aa_world - Bang * (w - rw) + _cross(p, f)
+    return torch.cat([n, f], dim=-1)
+
+
+def mat_crossf(v):
+    """Spatial force cross matrix [v ×*] = [[[w]×, [v]×], [0, [w]×]]
+    (..., 6, 6) (spatial.c:643-669)."""
+    wx, vx = cross_mat(v[..., :3]), cross_mat(v[..., 3:])
+    return _blocks(wx, vx, torch.zeros_like(wx), wx)
+
+
+def mat_crossm(v):
+    """Spatial motion cross matrix [v ×] = [[[w]×, 0], [[v]×, [w]×]]
+    (..., 6, 6), the dual of :func:`mat_crossf` (crossf = −crossmᵀ)."""
+    wx, vx = cross_mat(v[..., :3]), cross_mat(v[..., 3:])
+    return _blocks(wx, torch.zeros_like(wx), vx, wx)

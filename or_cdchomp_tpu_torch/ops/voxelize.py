@@ -51,6 +51,15 @@ class Scene(NamedTuple):
     tri_verts: torch.Tensor      # (T, 3, 3) mesh triangles, scene frame
 
     @classmethod
+    def empty(cls, dtype=torch.float32, device="cuda"):
+        """A scene with no primitive."""
+        def z(*shape):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        return cls(z(0, 7), z(0, 3), z(0, 3), z(0), z(0, 7), z(0), z(0),
+                   z(0, 3, 3))
+
+    @classmethod
     def build(cls, boxes=(), spheres=(), cylinders=(), meshes=(),
               dtype=torch.float32):
         """boxes: [(pose7, half_extents)], spheres: [(center, radius)],

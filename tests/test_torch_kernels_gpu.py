@@ -803,3 +803,82 @@ def test_hmc_draw_kernel_batch_independent(cuda):
     zs, us = draw.hmc_draw(seed[2:5].contiguous(), it[2:5].contiguous(), 99,
                            7, torch.float32)
     assert torch.equal(z[2:5], zs) and torch.equal(u[2:5], us)
+
+
+def _ragged_stack(dev):
+    """Three fields of different sizes (+inf padding), a +inf interior
+    cell in the second, and queries spanning each box and its outside."""
+    from or_cdchomp_tpu_torch.ops import grid
+
+    rng = np.random.default_rng(31)
+    shapes = [(6, 9, 5), (8, 4, 7), (5, 6, 6)]
+    lens = [(0.6, 0.9, 0.5), (0.8, 0.4, 0.7), (0.5, 0.6, 0.55)]
+    grids = []
+    for i, (s, ln) in enumerate(zip(shapes, lens)):
+        d = rng.normal(size=s).astype(np.float32)
+        if i == 1:
+            d[2, 1, 3] = np.inf
+        grids.append(grid.Grid3D(data=torch.as_tensor(d),
+                                 lengths=torch.tensor(ln)))
+    stack = grid.pad_stack_grids(grids, device=dev)
+    p = rng.uniform(-0.1, 1.1, size=(50, 7, 3, 3)) * np.asarray(lens)
+    return stack, torch.as_tensor(p, dtype=torch.float32, device=dev)
+
+
+def test_multigrid_interp_grad_card_matches_cpu(cuda):
+    """multigrid_interp_grad on the card (K1's raw lookup, one launch)
+    against the same float32 call on the CPU, on a ragged 3-field stack;
+    a float64 call on the card raises."""
+    from or_cdchomp_tpu_torch.ops import grid
+
+    stack, p = _ragged_stack(cuda)
+    args = (stack.data, stack.sizes, stack.lengths)
+    n0 = sdf_lookup.LOOKUP_LAUNCHES
+    v, g, inb = grid.multigrid_interp_grad(*args, p)
+    assert sdf_lookup.LOOKUP_LAUNCHES == n0 + 1
+    vc, gc, inbc = grid.multigrid_interp_grad(*(a.cpu() for a in args),
+                                              p.cpu())
+    assert torch.equal(inb.cpu(), inbc)
+    assert torch.equal(torch.isposinf(v).cpu(), torch.isposinf(vc))
+    assert bool(inbc.any() and (~inbc).any() and torch.isposinf(vc[inbc]).any())
+    fin = torch.isfinite(vc)
+    _close(v.cpu()[fin], vc[fin])
+    _close(g.cpu(), gc)
+    with pytest.raises(ValueError, match="float64"):
+        grid.multigrid_interp_grad(stack.data, stack.sizes,
+                                   stack.lengths.double(), p.double())
+
+
+def test_sdf_cell_lookup_card_query_limit(cuda):
+    """The raw lookup takes fewer than 2**31 queries per field and raises
+    past that, before it launches (zero-stride views, nothing allocated)."""
+    data = torch.zeros((1, 2, 2, 2), device=cuda)
+    sub = torch.zeros((1, 1, 3), dtype=torch.int32,
+                      device=cuda).expand(1, 2 ** 31, 3)
+    n0 = sdf_lookup.LOOKUP_LAUNCHES
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        sdf_lookup.sdf_cell_lookup(data, sub, sub)
+    assert sdf_lookup.LOOKUP_LAUNCHES == n0
+
+
+def test_per_problem_fk_card_matches_cpu(cuda):
+    """fk_spheres and apply_sphere_jacT on the card in float32 against
+    the CPU in float64 (the WAM7, a batch of configurations)."""
+    from or_cdchomp_tpu_torch.models.robot import CompiledFK
+    from or_cdchomp_tpu_torch.models.wam7 import wam7
+
+    rng = np.random.default_rng(32)
+    q = rng.uniform(-2.0, 2.0, size=(6, 11, 7))
+    base = np.array([0.1, -0.2, 0.3, 0.0, 0.0, 0.38268343, 0.92387953])
+    w = rng.normal(size=(6, 11, 16, 3))
+    out = []
+    for dev, dt in ((cuda, torch.float32), ("cpu", torch.float64)):
+        fk = CompiledFK(wam7(), dtype=dt, device=dev)
+        x, jac, lp = fk.fk_spheres(q, base)
+        _, anchors = fk.red_poses(q, base)
+        g = fk.apply_sphere_jacT(anchors, x, torch.as_tensor(w, dtype=dt,
+                                                             device=dev))
+        out.append((x, jac, lp, g))
+    for a, b in zip(*out):
+        np.testing.assert_allclose(a.double().cpu().numpy(), b.numpy(),
+                                   rtol=1e-4, atol=1e-5)
