@@ -88,6 +88,16 @@ ranges follow:
   and with ``phase`` swapped for a null context, in turns; the 0.0025 m
   mesh field's build split into voxelize, flood and edt.
 
+Then float64 on the card: config 1's world through
+CHOMPModule(dtype=float64) on the card, which runs the float64 kernels
+(K1, K2 and the raw lookup, each launched and counted), runchomp at
+n_points 101, a B = 4 batch and multigrid_interp_grad held to the CPU's
+float64 on the same field within 1e-9 (1e-12 for the lookup); each
+float64 kernel against its plain version on the batch's inputs (K1 and
+the lookup bit-equal, K2 within 1e-12), timed.  And the port's scripts:
+drive_torch.py and examples/torch_*.py, each in a child process
+(``--script``) at its own defaults, exit code 0 and K1 and K2 launched.
+
 Each is timed on the card first; then the first 8 problems of configs
 1, 2, 3 and 4 are re-solved on the CPU in float64 through the same API
 (config 3 fed the card's own HMC draws) and held to max |Δtraj| ≤ 1e-3.
@@ -131,6 +141,7 @@ KERNEL_RTOL = 1e-5   # kernel vs plain version, both float32 on the card
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet, 700 W)
 L2_BYTES = 50 * 2 ** 20     # H100 SXM L2 cache (data sheet)
 FP32_FLOPS_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
+FP64_FLOPS_PER_S = 34e12    # H100 SXM fp64 outside the tensor cores
 START = [2.5, -1.8, 0.0, 2.0, 0.0, 0.2, 0.0]
 GOAL = [0.4, 0.6, 0.1, 1.3, 0.0, -0.5, 0.0]
 # config 2's robot base (benchmarks/configs.py:38-40)
@@ -191,6 +202,21 @@ FK_BAR = 1e-5
 JACT_RTOL = 1e-4
 GRID_BAR = 1e-5
 GRID_OTHER = 1e-3
+
+# float64 on the card: K1's, K2's and the raw lookup's float64 kernels,
+# held to the CPU's float64 on the same field
+F64_KERNEL_RTOL = 1e-12   # K2's float64 kernel vs its plain version
+F64_TRAJ_BAR = 1e-9     # max |Δtraj|, card against CPU
+F64_COST_RTOL = 1e-9
+F64_GRID_BAR = 1e-12    # multigrid_interp_grad, relative to max(1, |v|)
+F64_BATCH = 4
+
+# the port's scripts, each run in a child process at its own defaults
+SCRIPTS = ("drive_torch.py", "examples/torch_wam7_demo.py",
+           "examples/torch_batch_validate_demo.py",
+           "examples/torch_urdf_client_demo.py",
+           "examples/torch_wam7_mesh_demo.py")
+SCRIPT_TIMEOUT = 300
 
 
 class PhaseFailed(Exception):
@@ -551,8 +577,10 @@ def device_ms(torch, fn, reps=20):
     reads low; the per-call count is ceil(recorded / reps), right while
     fewer than reps launches of a kernel are lost.  A loss is printed.  A
     profile that records no device activity at all (seen once late in
-    this script's run) is taken again; None if the second does not
-    either."""
+    this script's run), or a kernel fewer than reps / 2 times (a loss
+    the rule cannot repair: a kernel launched k times a call and
+    recorded r < reps times counts ceil(r / reps) = 1, not k), is taken
+    again; None if the second is no better."""
     from collections import defaultdict
 
     from torch.profiler import ProfilerActivity, profile
@@ -560,8 +588,8 @@ def device_ms(torch, fn, reps=20):
     fn()
     torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    us = defaultdict(list)
     for attempt in range(2):
+        us = defaultdict(list)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -570,10 +598,15 @@ def device_ms(torch, fn, reps=20):
         for e in prof.events():
             if e.device_type == cuda:
                 us[e.name].append(e.device_time)
-        if us:
+        sparse = sorted(len(v) for v in us.values() if len(v) < reps / 2)
+        if us and not sparse:
             break
-        print("device_ms: the profile recorded no device activity"
+        print("device_ms: the profile recorded "
+              + (f"kernels fewer than {reps} / 2 times: {sparse}" if us
+                 else "no device activity")
               + ("; taking it again" if attempt == 0 else ""))
+    if sparse:
+        return None
     lost = {n: len(v) for n, v in us.items() if len(v) % reps}
     if lost:
         print(f"device_ms: {len(lost)} of {len(us)} kernels recorded a "
@@ -688,20 +721,22 @@ def timings(torch, kernel, plain):
     return tuple(out)
 
 
-def kernel_entry(name, source, replaces, err, t, nbytes, nflops):
+def kernel_entry(name, source, replaces, err, t, nbytes, nflops,
+                 flops_per_s=FP32_FLOPS_PER_S):
     """One kernel's entry of the JSON line.  ms / plain_ms: device time
     per call (timings; the CUDA-event time per call only where neither
     the profiler nor a graph capture gave one, which is printed);
     call_ms / plain_call_ms: CUDA-event time per call, host work of the
-    wrapper included.  bound_ms: the larger of
-    nbytes over the memory rate and nflops over the fp32 rate."""
+    wrapper included.  bound_ms: the larger of nbytes over the memory
+    rate and nflops over ``flops_per_s`` (the fp32 rate; FP64_FLOPS_PER_S
+    for a float64 kernel)."""
     if None in t[2:]:
         print(f"{name}: no device time; the CUDA-event time per call "
               f"stands in for it")
     ms = t[2] if t[2] is not None else t[0]
     plain_ms = t[3] if t[3] is not None else t[1]
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = nflops / FP32_FLOPS_PER_S * 1e3
+    by_ops = nflops / flops_per_s * 1e3
     bound = max(by_bytes, by_ops)
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -711,9 +746,9 @@ def kernel_entry(name, source, replaces, err, t, nbytes, nflops):
                 plain_call_ms=t[1], bytes=nbytes, flops=nflops)
 
 
-def compare(torch, name, got, want, exact=False):
+def compare(torch, name, got, want, exact=False, rtol=KERNEL_RTOL):
     """max |got − want|; raises unless equal (exact) or within
-    rtol KERNEL_RTOL, atol KERNEL_RTOL·max|want|."""
+    rtol, atol rtol·max|want|."""
     check(got.shape == want.shape, f"{name}: shape {tuple(got.shape)} != "
           f"{tuple(want.shape)}")
     check(bool(torch.isfinite(got).all()) == bool(torch.isfinite(want).all()),
@@ -723,10 +758,10 @@ def compare(torch, name, got, want, exact=False):
         check(torch.equal(got, want), f"{name}: not bit-equal (max {err})")
         return err
     scale = float(want.double().abs().max())
-    ok = torch.allclose(got.double(), want.double(), rtol=KERNEL_RTOL,
-                        atol=KERNEL_RTOL * scale)
-    check(bool(ok), f"{name}: max |err| {err} beyond rtol {KERNEL_RTOL}, "
-          f"atol {KERNEL_RTOL}·{scale}")
+    ok = torch.allclose(got.double(), want.double(), rtol=rtol,
+                        atol=rtol * scale)
+    check(bool(ok), f"{name}: max |err| {err} beyond rtol {rtol}, "
+          f"atol {rtol}·{scale}")
     return err
 
 
@@ -793,7 +828,8 @@ def k1_bytes(sdf_lookup, oargs):
     m, S, B = x.shape[1:]
     cells = sdf_lookup.obstacle_cells(x, data, oargs[4], oargs[5], oargs[6],
                                       oargs[8])
-    return sdf_lookup.obstacle_traffic_bytes(m, S, B, *data.shape, cells)
+    return sdf_lookup.obstacle_traffic_bytes(m, S, B, *data.shape, cells,
+                                             x.dtype.itemsize)
 
 
 def k1_launch(torch, sdf_lookup, oargs, label):
@@ -801,9 +837,10 @@ def k1_launch(torch, sdf_lookup, oargs, label):
     the path's registers, spills and resident blocks."""
     x, data = oargs[0], oargs[3]
     geom = sdf_lookup.device_geometry(*x.shape[1:], *data.shape,
-                                      x.device.index)
-    info = sdf_lookup.launch_info(geom.smem_bytes)
-    print(f"{label} K1 launch: stack {4 * data.numel()} B read through "
+                                      x.device.index, x.dtype)
+    info = sdf_lookup.launch_info(geom.smem_bytes, x.dtype)
+    print(f"{label} K1 launch: stack "
+          f"{data.element_size() * data.numel()} B read through "
           f"__ldg, {geom.grid} blocks of {geom.threads} "
           f"threads, {geom.per} (tile, row) units each of {geom.units}, "
           f"{geom.smem_bytes} B dynamic shared memory per block, "
@@ -1537,6 +1574,8 @@ def kernels_at(torch, sdf_lookup, selfcol, eng, probs, label, card,
 
     _, x, vel, acc = cost_soa.sphere_kinematics(eng.spec, eng.fk, probs)
     m, S, B = x.shape[1:]
+    f64 = x.dtype == torch.float64
+    rate = FP64_FLOPS_PER_S if f64 else FP32_FLOPS_PER_S
     oargs = obstacle_args(eng, probs, x, vel, acc)
     k1_launch(torch, sdf_lookup, oargs, label)
     err = check_obstacle(torch, sdf_lookup, oargs, f"{label} obstacle")
@@ -1547,7 +1586,7 @@ def kernels_at(torch, sdf_lookup, selfcol, eng, probs, label, card,
         f"obstacle_{tag}", "or_cdchomp_tpu_torch/csrc/obstacle.cu",
         "or_cdchomp_tpu/ops/pallas_sdf.py:86", err, t,
         k1_bytes(sdf_lookup, oargs),
-        sdf_lookup.obstacle_flops(m, S, B, F))
+        sdf_lookup.obstacle_flops(m, S, B, F), rate)
     if not k2:
         print(f"{e1['name']}: device {e1['ms']} ms, bound {e1['bound_ms']} "
               f"ms ({e1['bound_by']}), share {e1['bound_share']:.4f} on "
@@ -1560,17 +1599,23 @@ def kernels_at(torch, sdf_lookup, selfcol, eng, probs, label, card,
     *_, reach = selfcol.vote_stats(x, xo, *eng.pairs, probs.epsilon_self)
     net_k, c_k = selfcol.selfcol_pairs(*sargs)
     net_r, c_r = selfcol.selfcol_pairs_ref(*sargs)
-    err = max(compare(torch, f"{label} selfcol net", net_k, net_r),
-              compare(torch, f"{label} selfcol cost", c_k, c_r))
+    rtol = F64_KERNEL_RTOL if f64 else KERNEL_RTOL
+    err = max(compare(torch, f"{label} selfcol net", net_k, net_r,
+                      rtol=rtol),
+              compare(torch, f"{label} selfcol cost", c_k, c_r, rtol=rtol))
     t = timings(torch, lambda: selfcol.selfcol_pairs(*sargs),
                 lambda: selfcol.selfcol_pairs_ref(*sargs))
-    print(f"{label} selfcol (grid {-(-B // selfcol.LANES)} x {m} blocks): "
-          f"max_abs_err {err}, per call {t[0]:.4f} ms vs plain {t[1]:.4f} "
-          f"ms, device {t[2]} ms vs plain {t[3]} ms")
+    info = selfcol.launch_info(S, SI, x.dtype)
+    print(f"{label} selfcol ({info['path']} path, grid "
+          f"{-(-B // selfcol.LANES)} x {m} blocks, {info['registers']} "
+          f"registers, {info['local_bytes']} B local per thread): "
+          f"max_abs_err {err} (rtol {rtol}), per call {t[0]:.4f} ms vs "
+          f"plain {t[1]:.4f} ms, device {t[2]} ms vs plain {t[3]} ms")
     e2 = kernel_entry(
         f"selfcol_{tag}", "or_cdchomp_tpu_torch/csrc/selfcol.cu",
         "or_cdchomp_tpu/ops/pallas_selfcol.py:197", err, t,
-        selfcol.traffic_bytes(m, S, SI, B, P), selfcol.flops(m, B, P, reach))
+        selfcol.traffic_bytes(m, S, SI, B, P, x.dtype.itemsize),
+        selfcol.flops(m, B, P, reach), rate)
     for e in (e1, e2):
         print(f"{e['name']}: device {e['ms']} ms, bound {e['bound_ms']} ms "
               f"({e['bound_by']}), share {e['bound_share']:.4f} on {card}")
@@ -2791,7 +2836,8 @@ def multigrid_on_card(torch, grid, sdf_lookup, fields, p, label, card,
     lib_call = time_ms(torch, library, reps=5)
     whole = time_ms(torch, lambda: grid.multigrid_interp_grad(*args, p),
                     reps=5)
-    nbytes = 4 * (F * mx * my * mz + 2 * F * Q * 3 + 4 * F * Q)
+    nbytes = (data.element_size() * (F * mx * my * mz + 4 * F * Q)
+              + 4 * 2 * F * Q * 3)
     e = kernel_entry(label, "or_cdchomp_tpu_torch/csrc/obstacle.cu",
                      "or_cdchomp_tpu/ops/pallas_sdf.py:86", err, t, nbytes,
                      0)
@@ -2872,19 +2918,173 @@ def libcd_phase(torch, pt, card, dev, engine, probs, eng2, probs2):
                                      p2_in, "sdf_cell_lookup_f3", card))
     check(counts(sdf_lookup, selfcol) == {"obstacle": 0, "selfcol": 0},
           "multigrid_interp_grad launched K1's obstacle kernel or K2")
-    try:
-        grid.multigrid_interp_grad(engine.fields.data, engine.fields.sizes,
-                                   engine.fields.lengths, p1.double())
-        raised = ""
-    except ValueError as e:
-        raised = str(e)
-    check("float64" in raised, f"a float64 call on the card: {raised!r}")
-    print(f"a float64 multigrid_interp_grad on the card raises: {raised}")
     wall = time.perf_counter() - t0
     print(f"libcd math phase: {wall:.2f} s on {card} (functions "
           f"{t_math:.2f} s, FK {t_fk:.2f} s, lookups "
           f"{wall - t_math - t_fk:.2f} s)")
     return entries
+
+
+def float64_phase(torch, pt, card, dev):
+    """float64 on the card: config 1's world through
+    CHOMPModule(dtype=float64) on the card and on the CPU, one field
+    shared through a cache file; runchomp (n_points 101, 100 iterations),
+    a B = 4 BatchSolver batch and multigrid_interp_grad at the batch's
+    sphere centres, the card against the CPU within F64_TRAJ_BAR /
+    F64_COST_RTOL / F64_GRID_BAR.  On the card they run K1's, K2's and
+    the raw lookup's float64 kernels (counts zeroed just before the
+    card's calls, read just after: one K1 and one K2 launch per step,
+    one lookup launch); then each kernel is held to its plain version
+    on the batch's inputs and timed.  Returns the three kernel
+    entries."""
+    import numpy as np
+
+    from or_cdchomp_tpu_torch.ops import grid, sdf_lookup, selfcol
+    from or_cdchomp_tpu_torch.parallel.batch import (BatchSolver,
+                                                     problem_batch_from_grid)
+
+    f64 = torch.float64
+    CACHE_DIR.mkdir(parents=True, exist_ok=True)
+    cache = CACHE_DIR / "f64_table.dat"
+    cache.unlink(missing_ok=True)
+    starts, goals = bench_endpoints(F64_BATCH)
+    res = []
+    for where in (dev, torch.device("cpu")):        # the card first
+        mod, robot = config1_world(pt, f64, where)
+        robot.enabled = False
+        mod.computedistancefield(kinbody="table", cube_extent=0.04,
+                                 cache_filename=str(cache),
+                                 require_cache=bool(res))
+        robot.enabled = True
+        counts_zero(sdf_lookup, selfcol)
+        sdf_lookup.LOOKUP_LAUNCHES = 0
+        walls = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cost = [0.0]
+        traj = mod.runchomp(n_iter=N_ITER, cost=cost, **run_kw())
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        run = mod.runs[mod.create(**run_kw())]
+        check(run.problem.traj.dtype == f64
+              and run.problem.traj.device.type == where.type,
+              f"float64 run on {where}: {run.problem.traj.dtype}")
+        probs = problem_batch_from_grid(run.problem, starts, goals,
+                                        run.engine)
+        t0 = time.perf_counter()
+        out, costs = BatchSolver(run.engine).iterate(probs, N_ITER)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        fields = run.engine.fields
+        p = sphere_queries(torch, run.engine, out)
+        t0 = time.perf_counter()
+        v, g, inb = grid.multigrid_interp_grad(fields.data, fields.sizes,
+                                               fields.lengths, p)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        launches = dict(counts(sdf_lookup, selfcol),
+                        lookup=sdf_lookup.LOOKUP_LAUNCHES)
+        res.append((traj, cost[0], out, costs, (v, g, inb), walls,
+                    launches, (run.engine, p)))
+    (traj, cost, out, costs, grid_out, walls, launches, (eng, p)) = res[0]
+    (traj_c, cost_c, out_c, costs_c, grid_c, walls_c, _, _) = res[1]
+    steps = launches["obstacle"]
+    print(f"float64 on the card: launches {launches} (runchomp's and the "
+          f"batch's {2 * N_ITER} steps and checks, one lookup)")
+    check(steps >= 2 * N_ITER and launches["selfcol"] == steps
+          and launches["lookup"] == 1,
+          f"float64 on the card: launches {launches}")
+    d_run = float(np.abs(traj.positions - traj_c.positions).max())
+    d_cost = abs(cost - cost_c) / abs(cost_c)
+    check(traj.in_collision == traj_c.in_collision is False,
+          "float64 runchomp: collision verdicts")
+    d_batch = float((out.traj.cpu() - out_c.traj).abs().max())
+    # each cost kind (total, obstacle + self, smoothness) relative to its
+    # largest value, as the tests' close() holds costs
+    d_bcost = float(((costs.cpu() - costs_c).abs() / costs_c.abs().amax(
+        dim=(0, 1)).clamp(min=1e-300)).max())
+    v, gr, inb = (t.cpu() for t in grid_out)
+    vc, gc, inbc = grid_c
+    fin = torch.isfinite(vc)
+    check(torch.equal(inb, inbc) and torch.equal(fin, torch.isfinite(v))
+          and bool(fin.any()), "float64 multigrid: in-bounds / finite sets")
+    d_grid = max(float(((v - vc).abs() / vc.abs().clamp(min=1.0))[fin].max()),
+                 float((gr - gc).abs().max() / gc.abs().max().clamp(min=1.0)))
+    print(f"float64 runchomp (n_points {N_POINTS}, {N_ITER} iterations): "
+          f"card {walls[0]} s, CPU {walls_c[0]} s; max |Δtraj| {d_run} (bar "
+          f"{F64_TRAJ_BAR}), final cost {cost} vs {cost_c}, rel {d_cost} "
+          f"(bar {F64_COST_RTOL}) on {card}")
+    print(f"float64 BatchSolver.iterate({N_ITER}) at B={F64_BATCH}: card "
+          f"{walls[1]} s, CPU {walls_c[1]} s; max |Δtraj| {d_batch}, max "
+          f"relative |Δcost| {d_bcost} on {card}")
+    print(f"float64 multigrid_interp_grad at {int(fin.numel())} (query, "
+          f"field) sphere centres: card {walls[2]} s, CPU {walls_c[2]} s; "
+          f"max |Δ| / max(1, |v|) {d_grid} (bar {F64_GRID_BAR}) on {card}")
+    check(d_run <= F64_TRAJ_BAR and d_batch <= F64_TRAJ_BAR,
+          f"float64 card vs CPU: max |Δtraj| {d_run}, {d_batch}")
+    check(d_cost <= F64_COST_RTOL and d_bcost <= F64_COST_RTOL,
+          f"float64 card vs CPU: relative |Δcost| {d_cost}, {d_bcost}")
+    check(d_grid <= F64_GRID_BAR, f"float64 multigrid: {d_grid}")
+
+    # -- the float64 kernels against their plain versions ----------------------
+    entries = kernels_at(torch, sdf_lookup, selfcol, eng, out, "f64", card)
+    entries.append(multigrid_on_card(torch, grid, sdf_lookup, eng.fields, p,
+                                     "sdf_cell_lookup_f64", card))
+    for e, k in zip(entries, ("obstacle", "selfcol", "lookup")):
+        e["launches"] = launches[k]
+    return entries
+
+
+def script_child(path):
+    """``--script PATH``: run one of the port's scripts as __main__ with
+    its defaults, the kernel launch counts zeroed before it; print its
+    wall and the counts as a JSON line last."""
+    import runpy
+
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    from or_cdchomp_tpu_torch.ops import sdf_lookup, selfcol
+
+    counts_zero(sdf_lookup, selfcol)
+    sys.argv = [path]
+    t0 = time.perf_counter()
+    runpy.run_path(str(ROOT / path), run_name="__main__")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(json.dumps({"wall_s": wall, "launches": counts(sdf_lookup,
+                                                         selfcol)}))
+    return 0
+
+
+def scripts_phase(card):
+    """The port's five scripts (SCRIPTS), one child process each
+    (``--script``) on the card at the script's own default size: exit
+    code 0, the script's wall inside its process and its K1 and K2
+    launches, both > 0."""
+    for name in ("wam7_demo_sdf.npy", "demo_sdf_table.npy"):
+        (CACHE_DIR / name).unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t_all = time.perf_counter()
+    for path in SCRIPTS:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                               "--script", path], cwd=ROOT, env=env,
+                              capture_output=True, text=True,
+                              timeout=SCRIPT_TIMEOUT)
+        wall = time.perf_counter() - t0
+        lines = proc.stdout.strip().splitlines()
+        for line in lines[:-1]:
+            print(f"  {path}: {line}")
+        check(proc.returncode == 0,
+              f"{path} exited {proc.returncode}: {proc.stderr[-2000:]}")
+        got = json.loads(lines[-1])
+        print(f"script {path}: exit 0, {got['wall_s']} s inside its process "
+              f"({wall} s with the process start), launches "
+              f"{got['launches']} on {card}")
+        check(all(v > 0 for v in got["launches"].values()),
+              f"{path}: a kernel was not launched: {got['launches']}")
+    print(f"scripts phase: {time.perf_counter() - t_all} s")
 
 
 def split_main(nranks):
@@ -3272,6 +3472,8 @@ def main():
     distributed_phase(torch, pt, card, dev)
     checkpoint_phase(torch, pt, card, dev)
     profile_phase(torch, pt, card, dev)
+    entries_f64 = float64_phase(torch, pt, card, dev)
+    scripts_phase(card)
 
     # -- the same solves on the CPU in float64 (plain versions) ---------------
     cpu, f64 = "cpu", torch.float64
@@ -3335,7 +3537,7 @@ def main():
 
     results += [entry_f3, *entries4, entry_b5, *entries_libcd, entry_split,
                 entry_grab, *entries_front, *entries_long, *entries_mesh,
-                entry_draw]
+                entry_draw, *entries_f64]
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -3350,6 +3552,8 @@ if __name__ == "__main__":
                                 sys.argv[4], sys.argv[5]))
         if sys.argv[1:2] == ["--split"]:
             sys.exit(split_main(int(sys.argv[2])))
+        if sys.argv[1:2] == ["--script"]:
+            sys.exit(script_child(sys.argv[2]))
         sys.exit(main())
     except PhaseFailed as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)

@@ -250,12 +250,21 @@ class Robot:
                              np.asarray(self.pose, np.float64).copy())
         self._check_exclude = None
 
-    def sphere_world(self):
-        """World (positions (S, 3), radii (S,)) of every sphere at the
-        current configuration, float64 on the host
-        (``sphere_positions_np``, the JAX package's host FK)."""
-        return (sphere_positions_np(self.model, self.q_active, self.pose),
-                np.asarray(self.model.sphere_radius))
+    def sphere_world(self, fk: Optional[CompiledFK] = None):
+        """World (positions (S, 3), radii (S,)) as numpy at the current
+        configuration: with ``fk``, of its ``sphere_subset`` through its
+        FK in its dtype (JAX api.py:232-238); without, of every sphere
+        in float64 on the host (``sphere_positions_np``, the JAX
+        package's host FK)."""
+        if fk is None:
+            return (sphere_positions_np(self.model, self.q_active,
+                                        self.pose),
+                    np.asarray(self.model.sphere_radius))
+        opts = dict(dtype=fk.dtype, device=fk.device)
+        x = fk.sphere_positions_jit(torch.as_tensor(self.q_active, **opts),
+                                    torch.as_tensor(self.pose, **opts))
+        return (x.cpu().numpy(),
+                np.asarray(self.model.sphere_radius[fk.sphere_subset]))
 
     def aabb_at_origin(self, padding=0.0):
         """AABB of the sphere model with the base at the origin."""

@@ -168,15 +168,20 @@ class ChompEngine:
     one problem, ``hook(T_mov (m, n)) → (cost (), grad (m, n))`` on
     tensors, added after the 1/m scaling to the cost and the gradient
     of every step and to the final cost report; the batch applies it
-    with ``torch.func.vmap``."""
+    with ``torch.func.vmap``.
+
+    The parameters are the JAX engine's, in its order, then the port's
+    own: ``device`` and ``seed`` (of the batch drivers' HMC draws).  A
+    given ``A`` and ``Ainv`` replace the dense metric's matrices (JAX
+    solver.py:85-94); the semiseparable metric ignores them."""
 
     # steps a module run (api.CHOMPModule.iterate) takes between reads of
     # its costs to the host (solver.py:593)
     ITER_CHUNK = 16
 
-    def __init__(self, spec, model, fields, dtype=torch.float32,
-                 device="cuda", metric_ops=None, seed=0, cons=None,
-                 extra_cost=None, metric_mode="auto"):
+    def __init__(self, spec, model, fields, A=None, Ainv=None, cons=None,
+                 extra_cost=None, dtype=torch.float32, metric_ops=None,
+                 metric_mode="auto", device="cuda", seed=0):
         # the JAX engine's metric choice (solver.py:74-95): "auto" takes
         # the semiseparable metric from SEP_MIN_M moving points on where
         # it holds (D = 1, both endpoints fixed; start_tsr frees the
@@ -210,9 +215,15 @@ class ChompEngine:
                 metric_ops = metric_mod.build_metric(
                     spec.m, spec.dt, D=spec.D, has_init0=not spec.start_tsr)
             self.metric_ops = metric_ops
-            self.A = torch.as_tensor(metric_ops.A, dtype=dtype, device=device)
-            self.Ainv = torch.as_tensor(metric_ops.Ainv, dtype=dtype,
-                                        device=device)
+            # a given A and Ainv (both) replace the metric's, as in JAX
+            # (solver.py:85-94); build_affine still reads metric_ops
+            if A is None or Ainv is None:
+                A, Ainv = metric_ops.A, metric_ops.Ainv
+            self._ainv64 = (Ainv.detach().double().cpu().numpy()
+                            if isinstance(Ainv, torch.Tensor)
+                            else np.asarray(Ainv, dtype=np.float64))
+            self.A = torch.as_tensor(A, dtype=dtype, device=device)
+            self.Ainv = torch.as_tensor(Ainv, dtype=dtype, device=device)
         self.cons = cons if cons is not None else TSRConstraintSet.build(())
         # A⁻¹ at the constraint points, on the device once
         # (solver.py:132-149)
@@ -269,7 +280,7 @@ class ChompEngine:
         if self.metric_mode == "sep":
             return metric_mod.sep_ainv_entries(rows[:, None], cols[None, :],
                                                self.spec.m, self.spec.dt)
-        return self.metric_ops.Ainv[np.ix_(rows, cols)]
+        return self._ainv64[np.ix_(rows, cols)]
 
     def ainv_block(self, pts):
         """Ainv[pts, pts] (K, K) on the device in the engine's dtype, for

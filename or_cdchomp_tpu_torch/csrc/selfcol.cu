@@ -84,6 +84,13 @@
 // The arithmetic is the Pallas body's: difference form |x_i - x_j|^2 (not
 // the expanded form, which cancels in f32), rsqrt(max(d2, 1e-24)) for both
 // 1/d and d, the |v| > 1e-6 guard, and the hinge of pallas_selfcol.py.
+//
+// float64: the tiled path's kernels are templates on the scalar type T,
+// and the library exports a float64 entry point (cdx_selfcol_f64) that
+// always takes the tiled path, with the same pair math in double (1/sqrt
+// from the double rsqrt, not the float MUFU instruction).  The staged
+// path stays float32: its block keeps three resident blocks of up to 16
+// warps per SM, 40 registers a thread, which double values would spill.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -97,9 +104,35 @@ constexpr int kMinBlocks = 3;   // resident blocks per SM: <= 40 registers
 constexpr size_t kSmemBlockMax = 232448;   // shared memory a block may use
 constexpr int kTiledWarps = 8;  // warps (active spheres) per tiled block
 
-struct Vec3 {
-  float x, y, z;
+template <typename T>
+struct V3 {
+  T x, y, z;
 };
+using Vec3 = V3<float>;
+
+// The float intrinsics for float and the double ones for double.
+__device__ __forceinline__ float fma_rn(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+__device__ __forceinline__ double fma_rn(double a, double b, double c) {
+  return __fma_rn(a, b, c);
+}
+__device__ __forceinline__ float rcp_rn(float v) { return __frcp_rn(v); }
+__device__ __forceinline__ double rcp_rn(double v) { return __drcp_rn(v); }
+__device__ __forceinline__ float mfmin(float a, float b) {
+  return fminf(a, b);
+}
+__device__ __forceinline__ double mfmin(double a, double b) {
+  return fmin(a, b);
+}
+__device__ __forceinline__ float mfmax(float a, float b) {
+  return fmaxf(a, b);
+}
+__device__ __forceinline__ double mfmax(double a, double b) {
+  return fmax(a, b);
+}
+__device__ __forceinline__ float msqrt(float v) { return sqrtf(v); }
+__device__ __forceinline__ double msqrt(double v) { return sqrt(v); }
 
 // 1/sqrt(x) in one MUFU instruction.  x >= 1e-24 is a normal float, so
 // flushing denormals changes nothing; it only drops the denormal fixup
@@ -109,42 +142,45 @@ __device__ __forceinline__ float rsqrt_ftz(float x) {
   asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
   return r;
 }
+__device__ __forceinline__ double rsqrt_ftz(double x) { return rsqrt(x); }
 
 // The distance part of pair (a, b): diff = a - b and the rsqrt of |diff|^2.
-struct Dist {
-  Vec3 diff;
-  float inv_cd;   // 1 / max(|diff|, 1e-12)
-  float d;        // |diff| - rsum
+template <typename T>
+struct PairDist {
+  V3<T> diff;
+  T inv_cd;   // 1 / max(|diff|, 1e-12)
+  T d;        // |diff| - rsum
 };
+using Dist = PairDist<float>;
 
-__device__ __forceinline__ Dist distance(Vec3 a, Vec3 b, float rs) {
-  Dist r;
+template <typename T>
+__device__ __forceinline__ PairDist<T> distance(V3<T> a, V3<T> b, T rs) {
+  PairDist<T> r;
   r.diff = {a.x - b.x, a.y - b.y, a.z - b.z};
-  const float dd = __fmaf_rn(r.diff.z, r.diff.z,
-                             __fmaf_rn(r.diff.y, r.diff.y,
-                                       r.diff.x * r.diff.x));
-  r.inv_cd = rsqrt_ftz(fmaxf(dd, 1e-24f));
+  const T dd = fma_rn(r.diff.z, r.diff.z,
+                      fma_rn(r.diff.y, r.diff.y, r.diff.x * r.diff.x));
+  r.inv_cd = rsqrt_ftz(mfmax(dd, T(1e-24)));
   r.d = dd * r.inv_cd - rs;
   return r;
 }
 
 // The rest of the pair math for the sphere that owns velocity v:
 // the gradient g (net_a += g, net_b -= g) and the pair cost.
-__device__ __forceinline__ float pair_grad(const Dist& p, Vec3 v, float ofv,
-                                           float iv2, bool safe, float e,
-                                           float inv_e, Vec3* g) {
+template <typename T>
+__device__ __forceinline__ T pair_grad(const PairDist<T>& p, V3<T> v, T ofv,
+                                       T iv2, bool safe, T e, T inv_e,
+                                       V3<T>* g) {
   const bool ok = p.d <= e;
-  const float de = p.d - e;
-  const float c_h = p.d < 0.0f ? 0.5f * e - p.d : 0.5f * de * de * inv_e;
-  const float slope = p.d < 0.0f ? -1.0f : __fmaf_rn(p.d, inv_e, -1.0f);
-  const float w1 = ok ? slope * ofv * p.inv_cd : 0.0f;
-  const float bv = __fmaf_rn(v.z, p.diff.z,
-                             __fmaf_rn(v.y, p.diff.y, v.x * p.diff.x));
-  const float w2 = safe ? w1 * bv * iv2 : 0.0f;
-  g->x = __fmaf_rn(w1, p.diff.x, -(w2 * v.x));
-  g->y = __fmaf_rn(w1, p.diff.y, -(w2 * v.y));
-  g->z = __fmaf_rn(w1, p.diff.z, -(w2 * v.z));
-  return (ok ? c_h : 0.0f) * ofv;
+  const T de = p.d - e;
+  const T c_h = p.d < T(0) ? T(0.5) * e - p.d : T(0.5) * de * de * inv_e;
+  const T slope = p.d < T(0) ? T(-1) : fma_rn(p.d, inv_e, T(-1));
+  const T w1 = ok ? slope * ofv * p.inv_cd : T(0);
+  const T bv = fma_rn(v.z, p.diff.z, fma_rn(v.y, p.diff.y, v.x * p.diff.x));
+  const T w2 = safe ? w1 * bv * iv2 : T(0);
+  g->x = fma_rn(w1, p.diff.x, -(w2 * v.x));
+  g->y = fma_rn(w1, p.diff.y, -(w2 * v.y));
+  g->z = fma_rn(w1, p.diff.z, -(w2 * v.z));
+  return (ok ? c_h : T(0)) * ofv;
 }
 
 // Shared memory of one block of nw warps, in 4-byte words: positions
@@ -160,13 +196,14 @@ __host__ __device__ inline size_t smem_words(int Sa, int So, int nw) {
 
 // Component c of sphere s's bounding box: the warp-wide min and max of v
 // over the live lanes, written to sbox by lane 0.
-__device__ __forceinline__ void stage_box(float* sbox, int So, int s, int c,
-                                          float v, bool live, int lane) {
-  float lo = live ? v : INFINITY;
-  float hi = live ? v : -INFINITY;
+template <typename T>
+__device__ __forceinline__ void stage_box(T* sbox, int So, int s, int c, T v,
+                                          bool live, int lane) {
+  T lo = live ? v : T(INFINITY);
+  T hi = live ? v : T(-INFINITY);
   for (int off = kLanes / 2; off > 0; off /= 2) {
-    lo = fminf(lo, __shfl_xor_sync(kFull, lo, off));
-    hi = fmaxf(hi, __shfl_xor_sync(kFull, hi, off));
+    lo = mfmin(lo, __shfl_xor_sync(kFull, lo, off));
+    hi = mfmax(hi, __shfl_xor_sync(kFull, hi, off));
   }
   if (lane == 0) {
     sbox[c * So + s] = lo;
@@ -175,10 +212,11 @@ __device__ __forceinline__ void stage_box(float* sbox, int So, int s, int c,
 }
 
 // Warp-wide max of v over the live lanes.
-__device__ __forceinline__ float warp_max(float v, bool live) {
-  float z = live ? v : -INFINITY;
+template <typename T>
+__device__ __forceinline__ T warp_max(T v, bool live) {
+  T z = live ? v : T(-INFINITY);
   for (int off = kLanes / 2; off > 0; off /= 2)
-    z = fmaxf(z, __shfl_xor_sync(kFull, z, off));
+    z = mfmax(z, __shfl_xor_sync(kFull, z, off));
   return z;
 }
 
@@ -373,18 +411,20 @@ selfcol_kernel(const float* __restrict__ xi, const float* __restrict__ vel,
 
 // Component c of sphere s's position at (point k, problem b): an active
 // sphere from xi, an inactive one from xo.
-__device__ __forceinline__ float pos_at(const float* __restrict__ xi,
-                                        const float* __restrict__ xo, int c,
-                                        long long n, long long no, int Sa,
-                                        int k, int s, int B, int b) {
+template <typename T>
+__device__ __forceinline__ T pos_at(const T* __restrict__ xi,
+                                    const T* __restrict__ xo, int c,
+                                    long long n, long long no, int Sa, int k,
+                                    int s, int B, int b) {
   return s < Sa ? __ldg(xi + c * n + ((long long)k * Sa + s) * B + b)
                 : __ldg(xo + c * no + (long long)(s - Sa) * B + b);
 }
 
-__device__ __forceinline__ Vec3 pos3(const float* __restrict__ xi,
-                                     const float* __restrict__ xo, long long n,
-                                     long long no, int Sa, int k, int s,
-                                     int B, int b) {
+template <typename T>
+__device__ __forceinline__ V3<T> pos3(const T* __restrict__ xi,
+                                      const T* __restrict__ xo, long long n,
+                                      long long no, int Sa, int k, int s,
+                                      int B, int b) {
   return {pos_at(xi, xo, 0, n, no, Sa, k, s, B, b),
           pos_at(xi, xo, 1, n, no, Sa, k, s, B, b),
           pos_at(xi, xo, 2, n, no, Sa, k, s, B, b)};
@@ -395,11 +435,12 @@ __device__ __forceinline__ Vec3 pos3(const float* __restrict__ xi,
 // So) matrices pidx (indices, set to -1 before) and prs (radius sums), and
 // the block writes the bounding box of every sphere over its tile's
 // problems at its point to box[k][tile][6][So] (low corner, high corner).
+template <typename T>
 __global__ void selfcol_prep_kernel(
-    const float* __restrict__ xi, const float* __restrict__ xo, int m, int Sa,
-    int SI, int B, const int* __restrict__ pair_i,
-    const int* __restrict__ pair_j, const float* __restrict__ rsum, int P,
-    int* __restrict__ pidx, float* __restrict__ prs, float* __restrict__ box) {
+    const T* __restrict__ xi, const T* __restrict__ xo, int m, int Sa, int SI,
+    int B, const int* __restrict__ pair_i, const int* __restrict__ pair_j,
+    const T* __restrict__ rsum, int P, int* __restrict__ pidx,
+    T* __restrict__ prs, T* __restrict__ box) {
   const int So = Sa + SI;
   const int lane = threadIdx.x;
   const int nw = blockDim.y;
@@ -420,11 +461,11 @@ __global__ void selfcol_prep_kernel(
   const bool live = b < B;
   const long long n = (long long)m * Sa * B;
   const long long no = (long long)SI * B;
-  float* bx = box + ((long long)k * gridDim.x + blockIdx.x) * 6 * So;
+  T* bx = box + ((long long)k * gridDim.x + blockIdx.x) * 6 * So;
   for (int s = threadIdx.y; s < So; s += nw)
     for (int c = 0; c < 3; ++c)
       stage_box(bx, So, s, c,
-                live ? pos_at(xi, xo, c, n, no, Sa, k, s, B, b) : 0.f, live,
+                live ? pos_at(xi, xo, c, n, no, Sa, k, s, B, b) : T(0), live,
                 lane);
 }
 
@@ -432,16 +473,15 @@ __global__ void selfcol_prep_kernel(
 // 32 x 8 threads: thread (lane, w) owns (point k, active sphere i =
 // 8*blockIdx.z + w, problem b = 32*tile + lane).  Same pair math, skip tests
 // and contract as selfcol_kernel.
+template <typename T>
 __global__ void __launch_bounds__(kTiledWarps * kLanes)
-selfcol_tiled_kernel(const float* __restrict__ xi,
-                     const float* __restrict__ vel,
-                     const float* __restrict__ xo, int m, int Sa, int SI,
-                     int B, const int* __restrict__ pidx,
-                     const float* __restrict__ prs,
-                     const float* __restrict__ box,
-                     const float* __restrict__ eps_self,
-                     const float* __restrict__ obs_self,
-                     float* __restrict__ net, float* __restrict__ cost) {
+selfcol_tiled_kernel(const T* __restrict__ xi, const T* __restrict__ vel,
+                     const T* __restrict__ xo, int m, int Sa, int SI, int B,
+                     const int* __restrict__ pidx, const T* __restrict__ prs,
+                     const T* __restrict__ box,
+                     const T* __restrict__ eps_self,
+                     const T* __restrict__ obs_self, T* __restrict__ net,
+                     T* __restrict__ cost) {
   const int So = Sa + SI;
   const int lane = threadIdx.x;
   const int i = blockIdx.z * blockDim.y + threadIdx.y;
@@ -453,56 +493,55 @@ selfcol_tiled_kernel(const float* __restrict__ xi,
   const long long no = (long long)SI * B;
   const long long at = ((long long)k * Sa + i) * B + b;
 
-  Vec3 xs = {0.f, 0.f, 0.f}, vs = {0.f, 0.f, 0.f};
+  V3<T> xs = {0, 0, 0}, vs = {0, 0, 0};
   if (live) {
     xs = {__ldg(xi + at), __ldg(xi + n + at), __ldg(xi + 2 * n + at)};
     vs = {__ldg(vel + at), __ldg(vel + n + at), __ldg(vel + 2 * n + at)};
   }
-  const float vv = __fmaf_rn(vs.z, vs.z, __fmaf_rn(vs.y, vs.y, vs.x * vs.x));
-  const float vn = sqrtf(vv);
-  const bool safe = vn > 1e-6f;
-  const float iv2 = safe ? __frcp_rn(vv) : 0.0f;
-  const float e = live ? eps_self[b] : 1.0f;
-  const float inv_e = __frcp_rn(e);
-  const float ofs = live ? obs_self[b] : 0.0f;
-  const float ofv = ofs * vn;
-  const float emax = warp_max(e, live);   // the largest eps of the warp
+  const T vv = fma_rn(vs.z, vs.z, fma_rn(vs.y, vs.y, vs.x * vs.x));
+  const T vn = msqrt(vv);
+  const bool safe = vn > T(1e-6);
+  const T iv2 = safe ? rcp_rn(vv) : T(0);
+  const T e = live ? eps_self[b] : T(1);
+  const T inv_e = rcp_rn(e);
+  const T ofs = live ? obs_self[b] : T(0);
+  const T ofv = ofs * vn;
+  const T emax = warp_max(e, live);   // the largest eps of the warp
 
-  const float* bx = box + ((long long)k * gridDim.x + blockIdx.x) * 6 * So;
-  float lo_i[3], hi_i[3];
+  const T* bx = box + ((long long)k * gridDim.x + blockIdx.x) * 6 * So;
+  T lo_i[3], hi_i[3];
   for (int c = 0; c < 3; ++c) {
     lo_i[c] = __ldg(bx + c * So + i);
     hi_i[c] = __ldg(bx + (3 + c) * So + i);
   }
   const int* prow = pidx + (long long)i * So;
-  const float* rrow = prs + (long long)i * So;
+  const T* rrow = prs + (long long)i * So;
 
-  Vec3 acc_out = {0.f, 0.f, 0.f}, acc_in = {0.f, 0.f, 0.f};
-  float c_acc = 0.f;
+  V3<T> acc_out = {0, 0, 0}, acc_in = {0, 0, 0};
+  T c_acc = 0;
   for (int base = 0; base < So; base += kLanes) {
     const int j = base + lane;
     // pair (i, j) outgoing, pair (j, i) incoming with j active; a mirror
     // (both, same radius sum) has a bit-equal d, so one vote serves both
     const bool out = j < So && __ldg(prow + j) >= 0;
-    const float rs_out = out ? __ldg(rrow + j) : 0.f;
+    const T rs_out = out ? __ldg(rrow + j) : T(0);
     const long long ji = (long long)j * So + i;
     const bool in = j < Sa && __ldg(pidx + ji) >= 0;
-    const float rs_in = in ? __ldg(prs + ji) : 0.f;
+    const T rs_in = in ? __ldg(prs + ji) : T(0);
     const bool mirror = out && in && rs_in == rs_out;
     const unsigned mirrors = __ballot_sync(kFull, mirror);
     bool near_out = false, near_in = false;
     if (out || (in && !mirror)) {
       // boxes_near on the global boxes: the gap is symmetric in (i, j)
-      float g2 = 0.f;
+      T g2 = 0;
       for (int c = 0; c < 3; ++c) {
-        const float lo_j = __ldg(bx + c * So + j);
-        const float hi_j = __ldg(bx + (3 + c) * So + j);
-        const float gap =
-            fmaxf(0.f, fmaxf(lo_j - hi_i[c], lo_i[c] - hi_j));
-        g2 = __fmaf_rn(gap, gap, g2);
+        const T lo_j = __ldg(bx + c * So + j);
+        const T hi_j = __ldg(bx + (3 + c) * So + j);
+        const T gap = mfmax(T(0), mfmax(lo_j - hi_i[c], lo_i[c] - hi_j));
+        g2 = fma_rn(gap, gap, g2);
       }
-      const float r_out = (emax + rs_out) * (1.0f + 1e-4f) + 1e-6f;
-      const float r_in = (emax + rs_in) * (1.0f + 1e-4f) + 1e-6f;
+      const T r_out = (emax + rs_out) * (T(1) + T(1e-4)) + T(1e-6);
+      const T r_in = (emax + rs_in) * (T(1) + T(1e-4)) + T(1e-6);
       near_out = out && g2 <= r_out * r_out;
       near_in = in && !mirror && g2 <= r_in * r_in;
     }
@@ -511,13 +550,13 @@ selfcol_tiled_kernel(const float* __restrict__ xi,
     for (unsigned bits = __ballot_sync(kFull, near_out); bits;
          bits &= bits - 1u) {
       const int c = __ffs(bits) - 1;
-      const float rs = __shfl_sync(kFull, rs_out, c);
-      const Vec3 xj = live ? pos3(xi, xo, n, no, Sa, k, base + c, B, b)
-                           : Vec3{0.f, 0.f, 0.f};
-      const Dist p = distance(xs, xj, rs);
+      const T rs = __shfl_sync(kFull, rs_out, c);
+      const V3<T> xj = live ? pos3(xi, xo, n, no, Sa, k, base + c, B, b)
+                            : V3<T>{0, 0, 0};
+      const PairDist<T> p = distance(xs, xj, rs);
       if (!__any_sync(kFull, live && p.d <= e)) continue;
       taken |= 1u << c;
-      Vec3 g;
+      V3<T> g;
       c_acc += pair_grad(p, vs, ofv, iv2, safe, e, inv_e, &g);
       acc_out.x += g.x;
       acc_out.y += g.y;
@@ -527,29 +566,28 @@ selfcol_tiled_kernel(const float* __restrict__ xi,
     for (unsigned bits = __ballot_sync(kFull, near_in); bits;
          bits &= bits - 1u) {
       const int c = __ffs(bits) - 1;
-      const float rs = __shfl_sync(kFull, rs_in, c);
-      const Vec3 xj = live ? pos3(xi, xo, n, no, Sa, k, base + c, B, b)
-                           : Vec3{0.f, 0.f, 0.f};
-      const Dist p = distance(xj, xs, rs);
+      const T rs = __shfl_sync(kFull, rs_in, c);
+      const V3<T> xj = live ? pos3(xi, xo, n, no, Sa, k, base + c, B, b)
+                            : V3<T>{0, 0, 0};
+      const PairDist<T> p = distance(xj, xs, rs);
       taken |= (unsigned)(__any_sync(kFull, live && p.d <= e) != 0) << c;
     }
     for (; taken; taken &= taken - 1u) {
       const int c = __ffs(taken) - 1;
       const int jj = base + c;
-      const float rs = __shfl_sync(kFull, rs_in, c);
-      Vec3 xj = {0.f, 0.f, 0.f}, vj = {0.f, 0.f, 0.f};
+      const T rs = __shfl_sync(kFull, rs_in, c);
+      V3<T> xj = {0, 0, 0}, vj = {0, 0, 0};
       if (live) {
         const long long aj = ((long long)k * Sa + jj) * B + b;
         xj = {__ldg(xi + aj), __ldg(xi + n + aj), __ldg(xi + 2 * n + aj)};
         vj = {__ldg(vel + aj), __ldg(vel + n + aj), __ldg(vel + 2 * n + aj)};
       }
-      const float vvj = __fmaf_rn(vj.z, vj.z,
-                                  __fmaf_rn(vj.y, vj.y, vj.x * vj.x));
-      const float vnj = sqrtf(vvj);
-      const bool safej = vnj > 1e-6f;
-      const Dist p = distance(xj, xs, rs);
-      Vec3 g;
-      pair_grad(p, vj, ofs * vnj, safej ? __frcp_rn(vvj) : 0.0f, safej, e,
+      const T vvj = fma_rn(vj.z, vj.z, fma_rn(vj.y, vj.y, vj.x * vj.x));
+      const T vnj = msqrt(vvj);
+      const bool safej = vnj > T(1e-6);
+      const PairDist<T> p = distance(xj, xs, rs);
+      V3<T> g;
+      pair_grad(p, vj, ofs * vnj, safej ? rcp_rn(vvj) : T(0), safej, e,
                 inv_e, &g);
       acc_in.x -= g.x;
       acc_in.y -= g.y;
@@ -590,6 +628,62 @@ cudaError_t allow_smem(size_t smem) {
                               (int)smem);
 }
 
+// The tiled path: a memset of the pair indices, the setup kernel and the
+// main kernel.  scratch holds the (Sa, So) pair indices (int, padded to a
+// multiple of sizeof(T) bytes), then the (Sa, So) radius sums and the
+// boxes (T; ops/selfcol.py scratch_words).
+template <typename T>
+int selfcol_tiled(const T* xi, const T* vel, const T* xo, int m, int Sa,
+                  int SI, int B, const int* pair_i, const int* pair_j,
+                  const T* rsum, int P, const T* eps_self, const T* obs_self,
+                  T* net, T* cost, void* scratch, cudaStream_t st) {
+  const int tiles = (B + kLanes - 1) / kLanes;
+  const int So = Sa + SI;
+  constexpr size_t per = sizeof(T) / sizeof(int);
+  int* pidx = reinterpret_cast<int*>(scratch);
+  T* prs = reinterpret_cast<T*>(pidx + ((size_t)Sa * So + per - 1) / per *
+                                           per);
+  T* box = prs + (size_t)Sa * So;
+  cudaError_t err =
+      cudaMemsetAsync(pidx, 0xff, (size_t)Sa * So * sizeof(int), st);
+  if (err != cudaSuccess) return (int)err;
+  selfcol_prep_kernel<T>
+      <<<dim3(tiles, m), dim3(kLanes, kTiledWarps), 0, st>>>(
+          xi, xo, m, Sa, SI, B, pair_i, pair_j, rsum, P, pidx, prs, box);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(tiles, m, (Sa + kTiledWarps - 1) / kTiledWarps);
+  selfcol_tiled_kernel<T><<<grid, dim3(kLanes, kTiledWarps), 0, st>>>(
+      xi, vel, xo, m, Sa, SI, B, pidx, prs, box, eps_self, obs_self, net,
+      cost);
+  return (int)cudaGetLastError();
+}
+
+// Launch facts of a main kernel fn of `threads` threads and `smem` bytes:
+// info[0] threads per block, info[1] dynamic shared memory per block
+// (bytes), info[2] resident blocks per SM, info[3] registers per thread,
+// info[4] local memory per thread (bytes; non-zero means spills), info[5]
+// the path (0 staged, 1 tiled).
+int launch_facts(const void* fn, int threads, size_t smem, bool staged,
+                 int* info) {
+  cudaError_t err = staged ? allow_smem(smem) : cudaSuccess;
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads,
+                                                      smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return (int)err;
+  info[0] = threads;
+  info[1] = (int)smem;
+  info[2] = blocks;
+  info[3] = attr.numRegs;
+  info[4] = (int)attr.localSizeBytes;
+  info[5] = staged ? 0 : 1;
+  return 0;
+}
+
 }  // namespace
 
 // scratch: the tiled path's buffer of 2*Sa*So + m*tiles*6*So words (pair
@@ -606,59 +700,47 @@ extern "C" int cdx_selfcol(const float* xi, const float* vel, const float* xo,
   dim3 block;
   size_t smem;
   cudaStream_t st = (cudaStream_t)stream;
-  const int tiles = (B + kLanes - 1) / kLanes;
   if (selfcol_path_staged(Sa, SI, &block, &smem)) {
     cudaError_t err = allow_smem(smem);
     if (err != cudaSuccess) return (int)err;
-    selfcol_kernel<<<dim3(tiles, m), block, smem, st>>>(
+    selfcol_kernel<<<dim3((B + kLanes - 1) / kLanes, m), block, smem, st>>>(
         xi, vel, xo, m, Sa, SI, B, pair_i, pair_j, rsum, P, eps_self,
         obs_self, net, cost);
     return (int)cudaGetLastError();
   }
-  const int So = Sa + SI;
-  int* pidx = reinterpret_cast<int*>(scratch);
-  float* prs = scratch + (size_t)Sa * So;
-  float* box = prs + (size_t)Sa * So;
-  cudaError_t err =
-      cudaMemsetAsync(pidx, 0xff, (size_t)Sa * So * sizeof(int), st);
-  if (err != cudaSuccess) return (int)err;
-  selfcol_prep_kernel<<<dim3(tiles, m), dim3(kLanes, kTiledWarps), 0, st>>>(
-      xi, xo, m, Sa, SI, B, pair_i, pair_j, rsum, P, pidx, prs, box);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(tiles, m, (Sa + kTiledWarps - 1) / kTiledWarps);
-  selfcol_tiled_kernel<<<grid, block, 0, st>>>(xi, vel, xo, m, Sa, SI, B,
-                                               pidx, prs, box, eps_self,
-                                               obs_self, net, cost);
-  return (int)cudaGetLastError();
+  return selfcol_tiled(xi, vel, xo, m, Sa, SI, B, pair_i, pair_j, rsum, P,
+                       eps_self, obs_self, net, cost, scratch, st);
 }
 
-// Launch facts of the main kernel for Sa active and SI inactive spheres:
-// info[0] threads per block, info[1] dynamic shared memory per block
-// (bytes), info[2] resident blocks per SM, info[3] registers per thread,
-// info[4] local memory per thread (bytes; non-zero means spills), info[5]
-// the path (0 staged, 1 tiled).
+// float64: always the tiled path; scratch of (Sa*So + 1) / 2 * 2 words of
+// pair indices, then 2 * (Sa*So + m*tiles*6*So) words of radius sums and
+// boxes.
+extern "C" int cdx_selfcol_f64(const double* xi, const double* vel,
+                               const double* xo, int m, int Sa, int SI, int B,
+                               const int* pair_i, const int* pair_j,
+                               const double* rsum, int P,
+                               const double* eps_self, const double* obs_self,
+                               double* net, double* cost, void* scratch,
+                               void* stream) {
+  if (m == 0 || Sa == 0 || B == 0) return 0;
+  if (m > 65535) return (int)cudaErrorInvalidConfiguration;
+  return selfcol_tiled(xi, vel, xo, m, Sa, SI, B, pair_i, pair_j, rsum, P,
+                       eps_self, obs_self, net, cost, scratch,
+                       (cudaStream_t)stream);
+}
+
+// Launch facts of the main kernel for Sa active and SI inactive spheres
+// (launch_facts).
 extern "C" int cdx_selfcol_launch_info(int Sa, int SI, int* info) {
   dim3 block;
   size_t smem;
   const bool staged = selfcol_path_staged(Sa, SI, &block, &smem);
   const void* fn = staged ? (const void*)selfcol_kernel
-                          : (const void*)selfcol_tiled_kernel;
-  cudaError_t err = staged ? allow_smem(smem) : cudaSuccess;
-  if (err != cudaSuccess) return (int)err;
-  const int threads = (int)(block.x * block.y);
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads,
-                                                      smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, fn);
-  if (err != cudaSuccess) return (int)err;
-  info[0] = threads;
-  info[1] = (int)smem;
-  info[2] = blocks;
-  info[3] = attr.numRegs;
-  info[4] = (int)attr.localSizeBytes;
-  info[5] = staged ? 0 : 1;
-  return 0;
+                          : (const void*)selfcol_tiled_kernel<float>;
+  return launch_facts(fn, (int)(block.x * block.y), smem, staged, info);
+}
+
+extern "C" int cdx_selfcol_launch_info_f64(int Sa, int SI, int* info) {
+  return launch_facts((const void*)selfcol_tiled_kernel<double>,
+                      kLanes * kTiledWarps, 0, false, info);
 }

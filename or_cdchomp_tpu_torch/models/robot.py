@@ -396,11 +396,12 @@ class CompiledFK:
     chain structure is analysed once at construction; the per-call
     functions are plain tensor code on ``device``."""
 
-    def __init__(self, model: RobotModel, dtype=torch.float32, device="cuda",
-                 sphere_subset=None):
+    def __init__(self, model: RobotModel, dtype=torch.float32,
+                 sphere_subset=None, device="cuda"):
         """sphere_subset: optional index array selecting (and ordering)
         the spheres this FK computes — the engine uses the active-first
-        order (orcdchomp_mod.cpp:2265-2299)."""
+        order (orcdchomp_mod.cpp:2265-2299).  The JAX signature, then
+        the port's ``device``."""
         self.model = model
         self.dtype = dtype
         self.device = torch.device(device)

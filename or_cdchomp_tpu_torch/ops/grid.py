@@ -48,9 +48,10 @@ class Grid3D:
         return tuple(self.data.shape)
 
     @classmethod
-    def create(cls, sizes, lengths, dtype=torch.float32, device="cuda"):
-        data = torch.zeros(tuple(int(s) for s in sizes), dtype=dtype,
-                           device=device)
+    def create(cls, sizes, lengths, fill=0.0, dtype=torch.float32,
+               device="cuda"):
+        data = torch.full(tuple(int(s) for s in sizes), fill, dtype=dtype,
+                          device=device)
         return cls(data=data, lengths=torch.as_tensor(
             lengths, dtype=dtype, device=device))
 
@@ -137,8 +138,8 @@ def multigrid_interp_grad(data, sizes, lengths, p, method="auto"):
 
     The four cells of each (field, query) come from
     ``sdf_lookup.sdf_cell_lookup``: on CUDA tensors K1's raw kernel, in
-    float32 only (another dtype raises ValueError), one launch per
-    call; on CPU tensors its plain version, in any float dtype.
+    ``data``'s dtype (float32 or float64; another raises ValueError), one
+    launch per call; on CPU tensors its plain version.
     ``method`` is accepted for the JAX signature: "auto", "pallas",
     "pallas_interpret", "onehot", "onehot2" and "gather" all take that
     one path, and another name raises ValueError.
@@ -146,12 +147,6 @@ def multigrid_interp_grad(data, sizes, lengths, p, method="auto"):
     if method not in METHODS:
         raise ValueError(f"multigrid_interp_grad: unknown method "
                          f"{method!r}; one of {METHODS}")
-    if p.device.type == "cuda":
-        for name, t in (("data", data), ("lengths", lengths), ("p", p)):
-            if t.dtype != torch.float32:
-                raise ValueError(
-                    f"multigrid_interp_grad on CUDA runs K1's lookup in "
-                    f"float32; {name} is {t.dtype}")
     F = data.shape[0]
     in_bounds, sub, center, use_next, sizes_f = sdf_lookup.lookup_geometry(
         p, sizes, lengths)

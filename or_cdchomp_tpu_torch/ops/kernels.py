@@ -54,6 +54,14 @@ _SIGNATURES = {
     # seed, iteration, B, m*n, dtype code, z, u, words, stream
     "cdx_hmc_draw": (_P, _P, _I, _I, _I, _P, _P, _P, _P),
 }
+# the float64 twins (suffix _f64) take the same arguments, with double
+# pointers in place of float ones
+_SIGNATURES.update({f"{name}_f64": _SIGNATURES[name] for name in (
+    "cdx_sdf_cell_lookup", "cdx_obstacle", "cdx_obstacle_launch_info",
+    "cdx_obstacle_smem_bytes", "cdx_selfcol", "cdx_selfcol_launch_info")})
+
+# the kernels' scalar types: the suffix of each one's entry points
+_SUFFIX = {"float32": "", "float64": "_f64"}
 
 _lib = None
 BUILD_LOG = ""   # nvcc/ptxas output of the build this process ran
@@ -117,6 +125,22 @@ def library():
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def check_dtype(dtype, name):
+    """``dtype`` if the kernels are built for it (float32, float64), else
+    ValueError."""
+    if str(dtype).removeprefix("torch.") not in _SUFFIX:
+        raise ValueError(f"{name}: dtype {dtype}; the kernel takes float32 "
+                         f"or float64")
+    return dtype
+
+
+def entry(name, dtype):
+    """The library's entry point ``name`` for the kernel in ``dtype``."""
+    check_dtype(dtype, name)
+    return getattr(library(),
+                   name + _SUFFIX[str(dtype).removeprefix("torch.")])
 
 
 def check(err, name):

@@ -5,6 +5,8 @@ and of the obstacle phase of or_cdchomp_tpu/chomp/cost_soa.py
 (``_obstacle_soa``).  Each public function dispatches on the device of
 its tensors: CPU tensors go to the plain PyTorch version beside it, CUDA
 tensors to the hand-written kernel (or an error).  There is no fallback.
+The kernels are built for float32 (the solve's path) and float64 (a
+module created with dtype float64); another dtype on CUDA raises.
 
 ``LAUNCHES`` / ``LOOKUP_LAUNCHES`` count kernel launches of
 :func:`obstacle` (one per call unless it splits a call past MAX_QUERIES)
@@ -64,7 +66,8 @@ def sdf_cell_lookup(data, sub, nbr):
     data: (F, mx, my, mz); sub, nbr: (F, Q, 3) int32 in-range centre and
     neighbour subscripts.  Returns (v0, vnx, vny, vnz), each (F, Q), with
     vnx = data[f, nbr_x, sub_y, sub_z] and so on.  One launch on CUDA
-    tensors, which takes Q < 2**31 (ValueError past it).
+    tensors (``data`` float32 or float64), which takes Q < 2**31
+    (ValueError past it).
     """
     global LOOKUP_LAUNCHES
     if data.device.type == "cpu":
@@ -77,12 +80,12 @@ def sdf_cell_lookup(data, sub, nbr):
         raise ValueError(f"sdf_cell_lookup: {Q} queries per field; the "
                          f"kernel takes fewer than 2**31")
     dev = data.device
-    kernels.require(data, "data", torch.float32, (F, mx, my, mz), dev)
+    dt = kernels.check_dtype(data.dtype, "sdf_cell_lookup")
+    kernels.require(data, "data", dt, (F, mx, my, mz), dev)
     kernels.require(sub, "sub", torch.int32, (F, Q, 3), dev)
     kernels.require(nbr, "nbr", torch.int32, (F, Q, 3), dev)
-    out = torch.empty((4, F, Q), dtype=torch.float32, device=dev)
-    lib = kernels.library()
-    err = lib.cdx_sdf_cell_lookup(
+    out = torch.empty((4, F, Q), dtype=dt, device=dev)
+    err = kernels.entry("cdx_sdf_cell_lookup", dt)(
         data.data_ptr(), F, mx, my, mz, sub.data_ptr(), nbr.data_ptr(),
         Q, out.data_ptr(), kernels.stream_ptr(data))
     kernels.check(err, "sdf_cell_lookup")
@@ -235,20 +238,22 @@ class Geometry:
     units: int
 
 
-def smem_bytes(F, mx, my, mz):
+def smem_bytes(F, mx, my, mz, itemsize=4):
     """Shared memory of a block: per field and lane the two staged poses
     (12 words, field_enabled among them), per field 5×4 words of
-    constants, the cell centres (F, mx + my + mz).  The layout is
-    obstacle.cu's (smem_words); a GPU test holds the two counts equal."""
-    return 4 * (4 * 3 * F * LANES + 4 * 5 * F + F * (mx + my + mz))
+    constants, the cell centres (F, mx + my + mz); words of ``itemsize``
+    bytes (4 float32, 8 float64).  The layout is obstacle.cu's
+    (smem_words); a GPU test holds the two counts equal."""
+    return itemsize * (4 * 3 * F * LANES + 4 * 5 * F + F * (mx + my + mz))
 
 
-def launch_geometry(m, S, B, F, mx, my, mz, n_sm, occupancy):
+def launch_geometry(m, S, B, F, mx, my, mz, n_sm, occupancy, itemsize=4):
     """The launch of :func:`obstacle` on a card of ``n_sm`` SMs, where
-    ``occupancy(smem_bytes)`` gives the resident blocks per SM.  The grid
-    is one wave: the units are split evenly over the blocks that fit at
-    once, each block taking at least one row per warp."""
-    smem = smem_bytes(F, mx, my, mz)
+    ``occupancy(smem_bytes)`` gives the resident blocks per SM, for
+    float32 (``itemsize`` 4) or float64 (8).  The grid is one wave: the
+    units are split evenly over the blocks that fit at once, each block
+    taking at least one row per warp."""
+    smem = smem_bytes(F, mx, my, mz, itemsize)
     if smem > SMEM_BLOCK_MAX:
         raise ValueError(f"obstacle: {smem} B of shared memory per block "
                          f"(F={F}) exceeds {SMEM_BLOCK_MAX}")
@@ -261,24 +266,28 @@ def launch_geometry(m, S, B, F, mx, my, mz, n_sm, occupancy):
 
 
 @functools.lru_cache(maxsize=None)
-def launch_info(smem):
+def launch_info(smem, dtype=torch.float32):
     """The kernel's launch on the card for blocks of THREADS threads and
-    ``smem`` bytes: resident blocks per SM, registers and local (spill)
-    bytes per thread."""
+    ``smem`` bytes, in ``dtype``: resident blocks per SM, registers and
+    local (spill) bytes per thread."""
     info = (ctypes.c_int * 3)()
-    kernels.check(kernels.library().cdx_obstacle_launch_info(
+    kernels.check(kernels.entry("cdx_obstacle_launch_info", dtype)(
         THREADS, smem, info), "obstacle launch_info")
     return dict(blocks_per_sm=info[0], registers=info[1],
                 local_bytes=info[2])
 
 
 @functools.lru_cache(maxsize=None)
-def device_geometry(m, S, B, F, mx, my, mz, device_index):
-    """:func:`launch_geometry` on CUDA device ``device_index``."""
+def device_geometry(m, S, B, F, mx, my, mz, device_index,
+                    dtype=torch.float32):
+    """:func:`launch_geometry` on CUDA device ``device_index`` for the
+    kernel in ``dtype``."""
     n_sm = torch.cuda.get_device_properties(
         device_index).multi_processor_count
-    return launch_geometry(m, S, B, F, mx, my, mz, n_sm,
-                           lambda smem: launch_info(smem)["blocks_per_sm"])
+    return launch_geometry(
+        m, S, B, F, mx, my, mz, n_sm,
+        lambda smem: launch_info(smem, dtype)["blocks_per_sm"],
+        dtype.itemsize)
 
 
 def obstacle(x, vel, acc, data, sizes, lengths, pose_gsdf_world,
@@ -304,6 +313,9 @@ def obstacle(x, vel, acc, data, sizes, lengths, pose_gsdf_world,
     along B into contiguous chunks of problems, one launch each: every
     query's arithmetic is its own, so the result is bit-equal to one
     launch.
+
+    The kernel takes float32 or float64 tensors (another dtype raises
+    ValueError); every tensor of floats has x's dtype.
     """
     if x.device.type == "cpu":
         return obstacle_ref(x, vel, acc, data, sizes, lengths,
@@ -326,7 +338,8 @@ def obstacle(x, vel, acc, data, sizes, lengths, pose_gsdf_world,
                 pose_gsdf_world, pose_world_gsdf, field_enabled, epsilon,
                 obs_factor))
         pg, pw, en, eps, of = per_problem
-        geom = device_geometry(m, S, hi - lo, *data.shape, x.device.index)
+        geom = device_geometry(m, S, hi - lo, *data.shape, x.device.index,
+                               x.dtype)
         outs.append(obstacle_launch(geom, cx, cv, ca, data, sizes, lengths,
                                     pg, pw, en, radii, eps, of, want_dirs))
     if len(outs) == 1:
@@ -344,28 +357,27 @@ def obstacle_launch(geom, x, vel, acc, data, sizes, lengths,
     _, m, S, B = x.shape
     F, mx, my, mz = data.shape
     dev = x.device
-    f32 = torch.float32
+    dt = kernels.check_dtype(x.dtype, "obstacle")
     for name, t in (("x", x), ("vel", vel), ("acc", acc)):
-        kernels.require(t, name, f32, (3, m, S, B), dev)
-    kernels.require(data, "data", f32, (F, mx, my, mz), dev)
+        kernels.require(t, name, dt, (3, m, S, B), dev)
+    kernels.require(data, "data", dt, (F, mx, my, mz), dev)
     kernels.require(sizes, "sizes", torch.int32, (F, 3), dev)
-    kernels.require(lengths, "lengths", f32, (F, 3), dev)
-    kernels.require(pose_gsdf_world, "pose_gsdf_world", f32, (B, F, 7), dev)
-    kernels.require(pose_world_gsdf, "pose_world_gsdf", f32, (B, F, 7), dev)
+    kernels.require(lengths, "lengths", dt, (F, 3), dev)
+    kernels.require(pose_gsdf_world, "pose_gsdf_world", dt, (B, F, 7), dev)
+    kernels.require(pose_world_gsdf, "pose_world_gsdf", dt, (B, F, 7), dev)
     kernels.require(field_enabled, "field_enabled", torch.bool, (B, F), dev)
-    kernels.require(radii, "radii", f32, (S,), dev)
-    kernels.require(epsilon, "epsilon", f32, (B,), dev)
-    kernels.require(obs_factor, "obs_factor", f32, (B,), dev)
+    kernels.require(radii, "radii", dt, (S,), dev)
+    kernels.require(epsilon, "epsilon", dt, (B,), dev)
+    kernels.require(obs_factor, "obs_factor", dt, (B,), dev)
     if m * S * B > MAX_QUERIES:
         raise ValueError(f"obstacle_launch: {m * S * B} queries need 64-bit "
                          f"indices; one launch takes at most {MAX_QUERIES} "
                          "(obstacle splits a larger call)")
-    cost = torch.empty((m, S, B), dtype=f32, device=dev)
-    wgrad = torch.empty((3, m, S, B), dtype=f32, device=dev)
+    cost = torch.empty((m, S, B), dtype=dt, device=dev)
+    wgrad = torch.empty((3, m, S, B), dtype=dt, device=dev)
     dirs = (torch.empty((F, m, S, B), dtype=torch.int32, device=dev)
             if want_dirs else None)
-    lib = kernels.library()
-    err = lib.cdx_obstacle(
+    err = kernels.entry("cdx_obstacle", dt)(
         x.data_ptr(), vel.data_ptr(), acc.data_ptr(), m, S, B,
         data.data_ptr(), F, mx, my, mz, sizes.data_ptr(),
         lengths.data_ptr(), pose_gsdf_world.data_ptr(),
@@ -405,19 +417,21 @@ def obstacle_cells(x, data, sizes, lengths, pose_gsdf_world, field_enabled):
     return total
 
 
-def obstacle_traffic_bytes(m, S, B, F, mx, my, mz, cells=None):
+def obstacle_traffic_bytes(m, S, B, F, mx, my, mz, cells=None,
+                           itemsize=4):
     """Bytes one :func:`obstacle` call must move at the given shapes: each
     input read once (x, vel, acc, the field cells — ``cells`` of them, as
     :func:`obstacle_cells` counts on a call's inputs, or the whole stack
     — the sizes and lengths, both per-problem poses, field_enabled,
     radii, epsilon, obs_factor), each output written once (cost, wgrad);
-    4-byte floats and ints, 1-byte bools."""
+    floats of ``itemsize`` bytes (4 float32, 8 float64), 4-byte ints,
+    1-byte bools."""
     q = m * S * B
     cells = F * mx * my * mz if cells is None else cells
-    reads = (4 * (3 * 3 * q + cells + 2 * 3 * F + 2 * 7 * B * F
-                  + S + 2 * B)
-             + B * F)
-    writes = 4 * (q + 3 * q)
+    reads = (itemsize * (3 * 3 * q + cells + 3 * F + 2 * 7 * B * F + S
+                         + 2 * B)
+             + 4 * 3 * F + B * F)
+    writes = itemsize * (q + 3 * q)
     return reads + writes
 
 

@@ -16,7 +16,9 @@ The kernel has two paths, chosen by a fixed rule that
 spheres of a block in shared memory) wherever its block fits in
 SMEM_BLOCK_MAX bytes, which holds up to 117 spheres, and beyond that the
 tiled path, which uses no shared memory and a global scratch buffer of
-:func:`scratch_words` words that the wrapper allocates.
+:func:`scratch_words` words that the wrapper allocates.  That rule is
+float32's, the solve's path; float64 (a module created with dtype
+float64) always takes the tiled path.  Another dtype on CUDA raises.
 """
 
 from __future__ import annotations
@@ -106,6 +108,9 @@ def selfcol_pairs(xi, vel, xo, pair_i, pair_j, rsum, eps_self, obs_self):
     Returns (net (3, m, Sa, B), cost (m, Sa, B)): per (point, active
     sphere) the summed workspace gradient and the pair cost scaled by
     obs_factor_self·‖ẋ_i‖ (pallas_selfcol.py:selfcol_pairs).
+
+    The kernel takes float32 or float64 tensors (another dtype raises
+    ValueError); every tensor of floats has xi's dtype.
     """
     global LAUNCHES
     if xi.device.type == "cpu":
@@ -117,21 +122,21 @@ def selfcol_pairs(xi, vel, xo, pair_i, pair_j, rsum, eps_self, obs_self):
     SI = xo.shape[1]
     P = pair_i.shape[0]
     dev = xi.device
-    f32 = torch.float32
-    kernels.require(xi, "xi", f32, (3, m, Sa, B), dev)
-    kernels.require(vel, "vel", f32, (3, m, Sa, B), dev)
-    kernels.require(xo, "xo", f32, (3, SI, B), dev)
+    dt = kernels.check_dtype(xi.dtype, "selfcol_pairs")
+    kernels.require(xi, "xi", dt, (3, m, Sa, B), dev)
+    kernels.require(vel, "vel", dt, (3, m, Sa, B), dev)
+    kernels.require(xo, "xo", dt, (3, SI, B), dev)
     kernels.require(pair_i, "pair_i", torch.int32, (P,), dev)
     kernels.require(pair_j, "pair_j", torch.int32, (P,), dev)
-    kernels.require(rsum, "rsum", f32, (P,), dev)
-    kernels.require(eps_self, "eps_self", f32, (B,), dev)
-    kernels.require(obs_self, "obs_self", f32, (B,), dev)
-    net = torch.empty((3, m, Sa, B), dtype=f32, device=dev)
-    cost = torch.empty((m, Sa, B), dtype=f32, device=dev)
-    words = scratch_words(m, Sa, SI, B)
-    scratch = torch.empty(words, dtype=f32, device=dev) if words else None
-    lib = kernels.library()
-    err = lib.cdx_selfcol(
+    kernels.require(rsum, "rsum", dt, (P,), dev)
+    kernels.require(eps_self, "eps_self", dt, (B,), dev)
+    kernels.require(obs_self, "obs_self", dt, (B,), dev)
+    net = torch.empty((3, m, Sa, B), dtype=dt, device=dev)
+    cost = torch.empty((m, Sa, B), dtype=dt, device=dev)
+    words = scratch_words(m, Sa, SI, B, dt.itemsize)
+    scratch = (torch.empty(words, dtype=torch.int32, device=dev) if words
+               else None)
+    err = kernels.entry("cdx_selfcol", dt)(
         xi.data_ptr(), vel.data_ptr(), xo.data_ptr(), m, Sa, SI, B,
         pair_i.data_ptr(), pair_j.data_ptr(), rsum.data_ptr(), P,
         eps_self.data_ptr(), obs_self.data_ptr(), net.data_ptr(),
@@ -142,13 +147,14 @@ def selfcol_pairs(xi, vel, xo, pair_i, pair_j, rsum, eps_self, obs_self):
     return net, cost
 
 
-def traffic_bytes(m, Sa, SI, B, P):
+def traffic_bytes(m, Sa, SI, B, P, itemsize=4):
     """Bytes one call must move at the given shapes: each input read once
     (xi, vel, xo, eps_self, obs_self, the pair table), each output
-    written once (net, cost); 4-byte floats and ints."""
-    reads = 2 * 3 * m * Sa * B + 3 * SI * B + 2 * B + 3 * P
-    writes = 3 * m * Sa * B + m * Sa * B
-    return 4 * (reads + writes)
+    written once (net, cost); floats of ``itemsize`` bytes (4 float32, 8
+    float64), 4-byte ints."""
+    floats = (2 * 3 * m * Sa * B + 3 * SI * B + 2 * B + P
+              + 3 * m * Sa * B + m * Sa * B)
+    return itemsize * floats + 4 * 2 * P
 
 
 def flops(m, B, P, n_reach):
@@ -204,11 +210,14 @@ def smem_words(Sa, So, nw):
             + nw * -(-So // LANES))
 
 
-def launch_shape(Sa, SI):
+def launch_shape(Sa, SI, itemsize=4):
     """The kernel's path for Sa active and SI inactive spheres and its
     main launch: (path, threads, dynamic shared memory bytes) per block.
-    The staged path wherever its block fits in SMEM_BLOCK_MAX, else the
-    tiled path (selfcol.cu selfcol_path_staged)."""
+    In float32 (``itemsize`` 4) the staged path wherever its block fits
+    in SMEM_BLOCK_MAX, else the tiled path (selfcol.cu
+    selfcol_path_staged); in float64 (8) the tiled path."""
+    if itemsize != 4:
+        return "tiled", LANES * TILED_WARPS, 0
     nw = min(Sa, MAX_WARPS)
     smem = 4 * smem_words(Sa, Sa + SI, nw)
     if smem <= SMEM_BLOCK_MAX:
@@ -216,25 +225,28 @@ def launch_shape(Sa, SI):
     return "tiled", LANES * TILED_WARPS, 0
 
 
-def scratch_words(m, Sa, SI, B):
+def scratch_words(m, Sa, SI, B, itemsize=4):
     """Global scratch of a call, in 4-byte words: none on the staged
-    path; on the tiled path the (Sa, So) matrices of pair indices and
-    radius sums and each sphere's box (6 words) per point and 32-problem
-    tile."""
-    if launch_shape(Sa, SI)[0] == "staged":
+    path; on the tiled path the (Sa, So) matrix of int32 pair indices
+    (padded to a whole number of floats of ``itemsize`` bytes), then the
+    (Sa, So) matrix of radius sums and each sphere's box (6 floats) per
+    point and 32-problem tile."""
+    if launch_shape(Sa, SI, itemsize)[0] == "staged":
         return 0
     So = Sa + SI
-    return 2 * Sa * So + m * -(-B // LANES) * 6 * So
+    per = itemsize // 4
+    return (-(-Sa * So // per) * per
+            + per * (Sa * So + m * -(-B // LANES) * 6 * So))
 
 
-def launch_info(Sa, SI):
+def launch_info(Sa, SI, dtype=torch.float32):
     """The kernel's main launch on the card for Sa active and SI inactive
-    spheres: threads and dynamic shared memory per block, resident
-    blocks per SM, registers and local (spill) bytes per thread, and the
-    path taken ("staged" or "tiled")."""
+    spheres in ``dtype``: threads and dynamic shared memory per block,
+    resident blocks per SM, registers and local (spill) bytes per thread,
+    and the path taken ("staged" or "tiled")."""
     info = (ctypes.c_int * 6)()
-    kernels.check(kernels.library().cdx_selfcol_launch_info(Sa, SI, info),
-                  "selfcol launch_info")
+    kernels.check(kernels.entry("cdx_selfcol_launch_info", dtype)(
+        Sa, SI, info), "selfcol launch_info")
     out = dict(zip(("threads", "smem_bytes", "blocks_per_sm", "registers",
                     "local_bytes"), info))
     out["path"] = ("staged", "tiled")[info[5]]

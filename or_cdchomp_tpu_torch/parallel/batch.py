@@ -109,10 +109,22 @@ class BatchSolver:
     and steps them exchanging nothing, since each problem's step, its
     joint-limit repair included, depends on its own row alone.  The only
     collective is ``iterate_until``'s: one 4-byte all-reduce (MIN) of the
-    converged flag per chunk, so every rank stops at the same chunk."""
+    converged flag per chunk, so every rank stops at the same chunk.
 
-    def __init__(self, engine, mesh=None, axis="dp"):
+    ``chunk`` and ``min_chunks`` are the JAX signature's: there they cut
+    a large batch into an XLA ``lax.map`` over chunks of problems, a
+    scheduling knob of its compiled scan (JAX batch.py:96-113), and since
+    every row steps on its own, the results are the same either way.
+    Here nothing reads them: the attributes are read-only mirrors of
+    JAX's, for code that inspects a solver."""
+
+    chunk = property(lambda self: self._jax_knobs[0])
+    min_chunks = property(lambda self: self._jax_knobs[1])
+
+    def __init__(self, engine, mesh=None, axis="dp", chunk=128,
+                 min_chunks=3):
         self.engine = engine
+        self._jax_knobs = (chunk, min_chunks)
         self.mesh = mesh
         self.group = None if mesh is None else _mesh_group(mesh, axis)
 

@@ -1,12 +1,14 @@
 """The PyTorch port and its scripts (chip_smoke.py, ab_obstacle.py, the
-two-process test's child) import neither JAX nor the JAX package: the
-machine with the card has no JAX.  An AST walk, because a subprocess
+two-process test's child, drive_torch.py and examples/torch_*.py) import
+neither JAX nor the JAX package: the machine with the card has no JAX.  An AST walk, because a subprocess
 check would see a JAX that this environment pre-imports."""
 
 import ast
 import pathlib
 
 import pytest
+
+from chip_smoke import SCRIPTS
 
 PKG = pathlib.Path(__file__).resolve().parent.parent / "or_cdchomp_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "or_cdchomp_tpu")
@@ -29,7 +31,8 @@ def _forbidden(name):
 @pytest.mark.parametrize(
     "path", sorted(PKG.rglob("*.py")) + [
         PKG.parent / "chip_smoke.py", PKG.parent / "ab_obstacle.py",
-        PKG.parent / "tests" / "torch_multiproc_child.py"],
+        PKG.parent / "tests" / "torch_multiproc_child.py"] + [
+        PKG.parent / script for script in SCRIPTS],
     ids=lambda p: str(p.relative_to(PKG)) if PKG in p.parents else p.name)
 def test_no_jax_import(path):
     tree = ast.parse(path.read_text(), filename=str(path))

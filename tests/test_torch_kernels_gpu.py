@@ -15,6 +15,7 @@ from or_cdchomp_tpu_torch.utils import np_pose
 pytestmark = pytest.mark.gpu
 
 RTOL = 1e-5   # float32 kernel vs float32 plain version: op order only
+RTOL64 = 1e-12   # the same in float64 (K2's sum order and rsqrt)
 
 
 @pytest.fixture
@@ -233,6 +234,21 @@ def test_wrappers_reject_bad_inputs(cuda):
     args[0] = args[0].double()
     with pytest.raises(ValueError, match="dtype"):
         sdf_lookup.obstacle(*args)
+    # a dtype the kernels are not built for raises: no plain version
+    n0 = sdf_lookup.LAUNCHES, sdf_lookup.LOOKUP_LAUNCHES, selfcol.LAUNCHES
+    half = [a.half() if a.is_floating_point() else a for a in
+            _obstacle_args(np.random.default_rng(0), cuda)]
+    with pytest.raises(ValueError, match="dtype"):
+        sdf_lookup.obstacle(*half)
+    sub = torch.zeros((2, 4, 3), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        sdf_lookup.sdf_cell_lookup(half[3], sub, sub)
+    sargs = [a.bfloat16() if a.is_floating_point() else a for a in
+             _selfcol_args(np.random.default_rng(0), cuda)]
+    with pytest.raises(ValueError, match="dtype"):
+        selfcol.selfcol_pairs(*sargs)
+    assert (sdf_lookup.LAUNCHES, sdf_lookup.LOOKUP_LAUNCHES,
+            selfcol.LAUNCHES) == n0
     args = list(_obstacle_args(np.random.default_rng(0), cuda))
     args[1] = args[1].transpose(2, 3).contiguous().transpose(2, 3)
     with pytest.raises(ValueError, match="contiguous"):
@@ -312,7 +328,7 @@ def _k1_geometry(args, per=None):
     smaller grid of longer per-block walks."""
     _, m, S, B = args[0].shape
     geom = sdf_lookup.device_geometry(m, S, B, *args[3].shape,
-                                      args[0].device.index)
+                                      args[0].device.index, args[0].dtype)
     if per is not None:
         geom = dataclasses.replace(geom, per=per,
                                    grid=-(-geom.units // per))
@@ -642,6 +658,84 @@ def test_selfcol_launch_shape_matches_kernel(cuda, Sa, SI):
     assert info["local_bytes"] == 0
 
 
+# ---- float64: the kernels' double instantiations --------------------------
+
+def _double(args):
+    return [a.double() if a.is_floating_point() else a for a in args]
+
+
+def test_sdf_cell_lookup_float64_exact(cuda):
+    """The raw lookup's float64 kernel reads the same cells as its plain
+    version, bit for bit, in one launch."""
+    rng = np.random.default_rng(2)
+    F, mx, my, mz, Q = 3, 5, 6, 7, 999
+    data = torch.as_tensor(rng.normal(size=(F, mx, my, mz)), device=cuda)
+    sub = rng.integers(0, [mx, my, mz], size=(F, Q, 3)).astype(np.int32)
+    nbr = np.clip(sub + rng.choice([-1, 1], size=(F, Q, 3)), 0,
+                  np.array([mx, my, mz]) - 1).astype(np.int32)
+    args = (data, torch.as_tensor(sub, device=cuda),
+            torch.as_tensor(nbr, device=cuda))
+    n0 = sdf_lookup.LOOKUP_LAUNCHES
+    got = sdf_lookup.sdf_cell_lookup(*args)
+    assert sdf_lookup.LOOKUP_LAUNCHES == n0 + 1
+    for g, w in zip(got, sdf_lookup.sdf_cell_lookup_ref(*args)):
+        assert g.dtype == torch.float64 and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("shape", [
+    dict(B=33), dict(F=3, m=3, S=5, B=70), dict(F=1, B=1),
+], ids=["B33", "F3", "B1"])
+def test_obstacle_kernel_float64_exact(cuda, shape):
+    """K1's float64 kernel on both paths against obstacle_ref in float64
+    on the card: the same expressions in the same order, so cost,
+    gradient and one-sided choices are bit-equal, as in float32."""
+    args = _double(_k1_args(np.random.default_rng(23), cuda, **shape))
+    want = _k1_exact(args)
+    assert want[0].dtype == torch.float64
+    assert float(want[0].abs().max()) > 0.0
+
+
+def test_obstacle_kernel_float64_launch_info(cuda):
+    """The float64 kernel's shared memory is the float32 layout in
+    8-byte words, counted alike by the wrapper and the kernel, and at
+    least one block fits an SM at config 2's shapes."""
+    lib = kernels.library()
+    for F, dims in ((1, (12, 16, 12)), (3, (11, 19, 11))):
+        assert sdf_lookup.smem_bytes(F, *dims, 8) == \
+            lib.cdx_obstacle_smem_bytes_f64(F, *dims) == \
+            2 * lib.cdx_obstacle_smem_bytes(F, *dims)
+    geom = sdf_lookup.device_geometry(99, 15, 256, 3, 11, 19, 11,
+                                      torch.cuda.current_device(),
+                                      torch.float64)
+    info = sdf_lookup.launch_info(geom.smem_bytes, torch.float64)
+    assert geom.blocks_per_sm == info["blocks_per_sm"] >= 1
+
+
+@pytest.mark.parametrize("Sa, SI, B", [(9, 2, 37), (15, 1, 256), (15, 0, 5),
+                                       (120, 1, 40)])
+def test_selfcol_kernel_float64(cuda, Sa, SI, B):
+    """K2's float64 kernel (the tiled path at every sphere count) against
+    selfcol_pairs_ref in float64 on the card, within RTOL64, one launch,
+    bit-equal across two launches."""
+    args = _double(_selfcol_args(np.random.default_rng(Sa + B), cuda, m=5,
+                                 Sa=Sa, SI=SI, B=B, scale=0.4))
+    info = selfcol.launch_info(Sa, SI, torch.float64)
+    assert info["path"] == selfcol.launch_shape(Sa, SI, 8)[0] == "tiled"
+    assert info["blocks_per_sm"] >= 1
+    want = selfcol.selfcol_pairs_ref(*args)
+    n0 = selfcol.LAUNCHES
+    got = selfcol.selfcol_pairs(*args)
+    again = selfcol.selfcol_pairs(*args)
+    torch.cuda.synchronize()
+    assert selfcol.LAUNCHES == n0 + 2
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == torch.float64 and torch.equal(g, a)
+        np.testing.assert_allclose(
+            g.cpu().numpy(), w.cpu().numpy(), rtol=RTOL64,
+            atol=RTOL64 * float(w.abs().max()))
+    assert float(want[1].abs().max()) > 0.0
+
+
 def test_obstacle_forced_split_bit_equal(cuda, monkeypatch):
     """A call past the per-launch query limit (forced low) is split along
     B into launches whose results are bit-equal to one launch."""
@@ -687,6 +781,59 @@ def test_module_iterate_card_matches_cpu(cuda):
                  - mod64.runs[h64].problem.traj).abs().max())
     assert err <= 1e-5, err
     assert abs(cost - cost64) <= 1e-4 * abs(cost64)
+
+
+def test_float64_module_card_matches_cpu(cuda):
+    """CHOMPModule(dtype=float64) on the card: runchomp and a B = 4 batch
+    run K1's and K2's float64 kernels (one launch each per step) and
+    equal the CPU's float64 on the same field within 1e-9."""
+    import or_cdchomp_tpu_torch as pt
+    from or_cdchomp_tpu_torch.parallel.batch import (BatchSolver,
+                                                     problem_batch_from_grid)
+
+    start = np.array([2.5, -1.8, 0.0, 2.0, 0.0, 0.2, 0.0])
+    goal = np.array([0.4, 0.6, 0.1, 1.3, 0.0, -0.5, 0.0])
+    kw = dict(robot="wam", adofgoal=goal, lambda_=100.0, obs_factor=500.0,
+              n_points=21)
+    rng = np.random.default_rng(4)
+    starts = start + 0.02 * rng.normal(size=(4, 7))
+    goals = goal + 0.02 * rng.normal(size=(4, 7))
+    field = None
+    res = []
+    for dev in (cuda, torch.device("cpu")):
+        mod = pt.CHOMPModule(dtype=torch.float64, device=dev)
+        mod.add_kinbody(pt.KinBody("table", pt.Scene.build(
+            boxes=[((0.75, 0.0, 0.5, 0, 0, 0, 1), (0.25, 0.4, 0.02))])))
+        robot = pt.Robot("wam", pt.wam7(), q_active=start.copy())
+        mod.add_robot(robot)
+        robot.enabled = False
+        mod.computedistancefield(kinbody="table", cube_extent=0.04)
+        robot.enabled = True
+        if field is None:
+            field = mod.sdfs[0].grid.data.cpu()
+        else:                         # the card's field on both
+            mod.sdfs[0].grid.data = field.clone()
+        n0 = sdf_lookup.LAUNCHES, selfcol.LAUNCHES
+        cost = [0.0]
+        traj = mod.runchomp(n_iter=20, cost=cost, **kw)
+        run = mod.runs[mod.create(**kw)]
+        probs = problem_batch_from_grid(run.problem, starts, goals,
+                                        run.engine)
+        out, costs = BatchSolver(run.engine).iterate(probs, 20)
+        n = sdf_lookup.LAUNCHES - n0[0], selfcol.LAUNCHES - n0[1]
+        assert n == ((0, 0) if dev.type == "cpu" else (n[0], n[0]))
+        assert dev.type == "cpu" or n[0] >= 40
+        assert out.traj.dtype == torch.float64
+        assert out.traj.device.type == dev.type
+        res.append((traj, cost[0], out.traj.cpu(), costs.cpu()))
+    (traj, cost, bt, bc), (traj_c, cost_c, bt_c, bc_c) = res
+    assert traj.in_collision == traj_c.in_collision
+    np.testing.assert_allclose(traj.positions, traj_c.positions, rtol=0,
+                               atol=1e-9)
+    assert abs(cost - cost_c) <= 1e-9 * abs(cost_c)
+    assert float((bt - bt_c).abs().max()) <= 1e-9
+    np.testing.assert_allclose(bc.numpy(), bc_c.numpy(), rtol=1e-9,
+                               atol=1e-9 * float(bc_c.abs().max()))
 
 
 # ---- the front door: start_tsr, start_cost, an XML robot by strings ---------
@@ -828,7 +975,8 @@ def _ragged_stack(dev):
 def test_multigrid_interp_grad_card_matches_cpu(cuda):
     """multigrid_interp_grad on the card (K1's raw lookup, one launch)
     against the same float32 call on the CPU, on a ragged 3-field stack;
-    a float64 call on the card raises."""
+    a float64 call on the card (the lookup's float64 kernel, one launch)
+    equals the CPU's within 1e-12."""
     from or_cdchomp_tpu_torch.ops import grid
 
     stack, p = _ragged_stack(cuda)
@@ -844,9 +992,20 @@ def test_multigrid_interp_grad_card_matches_cpu(cuda):
     fin = torch.isfinite(vc)
     _close(v.cpu()[fin], vc[fin])
     _close(g.cpu(), gc)
-    with pytest.raises(ValueError, match="float64"):
-        grid.multigrid_interp_grad(stack.data, stack.sizes,
-                                   stack.lengths.double(), p.double())
+    args64 = (stack.data.double(), stack.sizes, stack.lengths.double())
+    n0 = sdf_lookup.LOOKUP_LAUNCHES
+    v, g, inb = grid.multigrid_interp_grad(*args64, p.double())
+    assert sdf_lookup.LOOKUP_LAUNCHES == n0 + 1
+    assert v.dtype == g.dtype == torch.float64 and v.device.type == "cuda"
+    vc, gc, inbc = grid.multigrid_interp_grad(
+        *(a.cpu() for a in args64), p.double().cpu())
+    assert torch.equal(inb.cpu(), inbc)
+    assert torch.equal(torch.isposinf(v).cpu(), torch.isposinf(vc))
+    fin = torch.isfinite(vc)
+    np.testing.assert_allclose(v.cpu()[fin].numpy(), vc[fin].numpy(),
+                               rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(g.cpu().numpy(), gc.numpy(), rtol=1e-12,
+                               atol=1e-12)
 
 
 def test_sdf_cell_lookup_card_query_limit(cuda):

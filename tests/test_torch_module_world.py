@@ -287,3 +287,18 @@ def test_selfcol_shared_memory_rule(SI):
         assert threads == 32 * (min(Sa, 16) if path == "staged" else 8)
         assert (selfcol.scratch_words(99, Sa, SI, 256) > 0) == \
             (path == "tiled")
+
+
+@pytest.mark.parametrize("SI", [0, 1])
+def test_selfcol_float64_rule(SI):
+    """float64 takes the tiled path at every sphere count; its scratch
+    holds the int32 pair indices padded to whole 8-byte words, then the
+    radius sums and boxes in 8-byte floats."""
+    for Sa in (1, 2, 15, 117, 300):
+        So = Sa + SI
+        assert selfcol.launch_shape(Sa, SI, 8) == ("tiled", 256, 0)
+        words = selfcol.scratch_words(99, Sa, SI, 256, 8)
+        idx = Sa * So + (Sa * So) % 2
+        assert words == idx + 2 * (Sa * So + 99 * 8 * 6 * So)
+        assert words % 2 == 0
+

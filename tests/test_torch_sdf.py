@@ -347,3 +347,63 @@ def test_obstacle_field_ties_and_enabled_mask():
     # same inputs, different winner: the two problems' gradients differ
     w = w_t.numpy()
     assert np.abs(w[..., 0] - w[..., 1]).max() > 1e-3
+
+
+def test_float64_cpu_module_runs_plain_versions(monkeypatch):
+    """A float64 module on the CPU takes every wrapper's plain version
+    (obstacle, selfcol_pairs, sdf_cell_lookup through
+    multigrid_interp_grad): the kernel library is never reached and the
+    launch counts stay 0."""
+    from or_cdchomp_tpu_torch.ops import grid, kernels, sdf_lookup, selfcol
+
+    def no_library():
+        raise AssertionError("a float64 CPU call reached the kernels")
+
+    monkeypatch.setattr(kernels, "library", no_library)
+    n0 = (sdf_lookup.LAUNCHES, sdf_lookup.LOOKUP_LAUNCHES, selfcol.LAUNCHES)
+    mod = pt.CHOMPModule(dtype=torch.float64, device="cpu")
+    mod.add_kinbody(KinBody("table", pt.Scene.build(
+        boxes=[((0.75, 0.0, 0.5, 0, 0, 0, 1), (0.25, 0.4, 0.02))])))
+    robot = Robot("wam", pt.wam7(), q_active=START.copy())
+    mod.add_robot(robot)
+    robot.enabled = False
+    mod.computedistancefield(kinbody="table", cube_extent=0.04)
+    robot.enabled = True
+    h = mod.create(robot="wam", adofgoal=[0.4, 0.6, 0.1, 1.3, 0, -0.5, 0],
+                   lambda_=100.0, obs_factor=500.0, n_points=9)
+    cost = mod.iterate(run=h, n_iter=3)
+    run = mod.runs[h]
+    f = run.engine.fields
+    assert f.data.dtype == run.problem.traj.dtype == torch.float64
+    p = torch.as_tensor(np.random.default_rng(5).uniform(
+        size=(5, 1, 3))) * f.lengths
+    v, _, inb = grid.multigrid_interp_grad(f.data, f.sizes, f.lengths, p)
+    assert np.isfinite(cost) and bool(inb.all())
+    assert v.dtype == torch.float64
+    assert (sdf_lookup.LAUNCHES, sdf_lookup.LOOKUP_LAUNCHES,
+            selfcol.LAUNCHES) == n0 == (0, 0, 0)
+
+
+def test_kernel_dtypes():
+    """The kernels are built for float32 and float64: another dtype
+    raises before any launch, and the traffic counts scale with the
+    float size (4-byte ints and 1-byte bools stay)."""
+    from or_cdchomp_tpu_torch.ops import kernels, sdf_lookup, selfcol
+
+    for dt in (torch.float32, torch.float64):
+        assert kernels.check_dtype(dt, "obstacle") is dt
+    for dt in (torch.float16, torch.bfloat16, torch.int32):
+        with pytest.raises(ValueError, match="dtype"):
+            kernels.check_dtype(dt, "obstacle")
+        with pytest.raises(ValueError, match="dtype"):
+            kernels.entry("cdx_obstacle", dt)
+    args = (99, 15, 256, 3, 11, 19, 11)
+    b4 = sdf_lookup.obstacle_traffic_bytes(*args)
+    b8 = sdf_lookup.obstacle_traffic_bytes(*args, itemsize=8)
+    ints_bools = 4 * 3 * 3 + 256 * 3
+    assert b8 - ints_bools == 2 * (b4 - ints_bools)
+    assert sdf_lookup.smem_bytes(3, 11, 19, 11, 8) == \
+        2 * sdf_lookup.smem_bytes(3, 11, 19, 11)
+    t4, t8 = (selfcol.traffic_bytes(99, 15, 1, 256, 207, k) for k in (4, 8))
+    assert t8 - 4 * 2 * 207 == 2 * (t4 - 4 * 2 * 207)
+
