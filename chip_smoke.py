@@ -39,7 +39,10 @@ plain version and one torch.gather.
 
 Then the module commands on config 1's world (runchomp, B = 1 create +
 iterate, gettraj, gettraj_batch, the field commands), a grabbed tray of
-110 spheres (K2's tiled path), and the front door: the WAM7 + hand
+110 spheres (K2's tiled path: its launch facts, one device kernel per
+call with the engine's pair layout and two without, the layout kernel
+bit-equal to its plain version, the skip shares), and the front door:
+the WAM7 + hand
 loaded from OpenRAVE XML text and driven by SendCommand strings only
 (create with start_tsr at n_points 101, iterate 100, gettraj, destroy)
 against the same strings on the CPU in float64, B = 256 batches with
@@ -94,7 +97,8 @@ CHOMPModule(dtype=float64) on the card, which runs the float64 kernels
 n_points 101, a B = 4 batch and multigrid_interp_grad held to the CPU's
 float64 on the same field within 1e-9 (1e-12 for the lookup); each
 float64 kernel against its plain version on the batch's inputs (K1 and
-the lookup bit-equal, K2 within 1e-12), timed.  And the port's scripts:
+the lookup bit-equal, K2 within 1e-12 with its launch facts and one
+device kernel per call), timed.  And the port's scripts:
 drive_torch.py and examples/torch_*.py, each in a child process
 (``--script``) at its own defaults, exit code 0 and K1 and K2 launched.
 
@@ -587,7 +591,6 @@ def device_ms(torch, fn, reps=20):
 
     fn()
     torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
     for attempt in range(2):
         us = defaultdict(list)
         with profile(activities=[ProfilerActivity.CPU,
@@ -595,9 +598,8 @@ def device_ms(torch, fn, reps=20):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        for e in prof.events():
-            if e.device_type == cuda:
-                us[e.name].append(e.device_time)
+        for e in device_events(torch, prof):
+            us[e.name].append(e.device_time)
         sparse = sorted(len(v) for v in us.values() if len(v) < reps / 2)
         if us and not sparse:
             break
@@ -616,10 +618,40 @@ def device_ms(torch, fn, reps=20):
     return total / 1e3 if us else None
 
 
+def device_events(torch, prof):
+    """The device work a finished torch.profiler run recorded: kernels,
+    memcpys and memsets.  Left out are the GPU-side copies of the
+    host's ``record_function`` ranges (the solver's phase ranges open
+    while a profiler records): they span the kernels they hold, so
+    counting them too counts those kernels twice."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [e for e in prof.events() if e.device_type == cuda
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def busy_ms(events):
+    """Device busy time of events: the length of the union of their
+    intervals (kernels on two streams may overlap), ms."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    total, lo, hi = 0.0, None, None
+    for s, e in spans:
+        if hi is None or s > hi:
+            if hi is not None:
+                total += hi - lo
+            lo, hi = s, e
+        else:
+            hi = max(hi, e)
+    if hi is not None:
+        total += hi - lo
+    return total / 1e3
+
+
 def profile_calls(torch, fn, reps):
     """torch.profiler over reps calls of fn: (top-level aten calls, device
-    kernels, device busy ms, wall ms), each per call; the wall is taken
-    under the profiler, with synchronize."""
+    kernels, device busy ms, wall ms, the summed length of the ranges'
+    GPU-side copies in ms), each per call; the wall is taken under the
+    profiler, with synchronize.  Busy is the union of the device events'
+    intervals (device_events, busy_ms)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -633,28 +665,60 @@ def profile_calls(torch, fn, reps):
         wall = (time.perf_counter() - t0) * 1e3 / reps
     cuda = torch.autograd.DeviceType.CUDA
     events = prof.events()
-    kern = [e for e in events if e.device_type == cuda]
+    kern = device_events(torch, prof)
+    spans = sum(e.time_range.elapsed_us() for e in events
+                if e.device_type == cuda
+                and getattr(e, "is_user_annotation", False)) / 1e3
     aten = [e for e in events if e.device_type != cuda
             and e.name.startswith("aten::")
             and (e.cpu_parent is None
                  or not e.cpu_parent.name.startswith("aten::"))]
-    busy = sum(e.device_time for e in kern) / 1e3
-    return len(aten) / reps, len(kern) / reps, busy / reps, wall
+    return (len(aten) / reps, len(kern) / reps, busy_ms(kern) / reps, wall,
+            spans / reps)
 
 
 def step_profile(torch, eng, probs, label, card, reps=5):
     """Print one step's host and device work: aten calls, device kernels,
-    device busy time and the idle share of the step's wall."""
+    device busy time and the idle share of the step's wall; fails unless
+    the idle share lies in [0, 1]."""
     state = [probs]
 
     def step():
         state[0], _ = eng.step_batched(state[0])
 
-    calls, kern, busy, wall = profile_calls(torch, step, reps)
+    calls, kern, busy, wall, spans = profile_calls(torch, step, reps)
+    idle = 1.0 - busy / wall
     print(f"{label} step profile over {reps} steps: {calls:.0f} aten calls, "
           f"{kern:.0f} device kernels, device busy {busy:.4f} ms of a "
           f"{wall:.4f} ms wall (under the profiler), device idle "
-          f"{1.0 - busy / wall:.4f} on {card}")
+          f"{idle:.4f} on {card}; left out: {spans:.4f} ms of phase ranges' "
+          f"GPU-side copies")
+    check(0.0 <= idle <= 1.0, f"{label} step profile: device idle {idle} "
+          f"outside [0, 1]")
+
+
+def kernels_per_call(torch, fn, reps=20):
+    """Device kernels (memsets and copies too) that one call of fn
+    launches, from the profiler over reps calls: for each name it
+    recorded, ceil(recorded / reps), as device_ms counts them, since the
+    profiler loses some events.  A profile with no device event is taken
+    once more."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        names = Counter(e.name for e in device_events(torch, prof))
+        if names:
+            break
+    return sum(-(-c // reps) for c in names.values())
 
 
 def host_syncs(torch, fn):
@@ -919,7 +983,7 @@ def time_projection(torch, constraints, eng, probs, fk_out, card):
             ("evaluation", lambda: constraints.eval_tsr_all_soa(
                 spec, eng.fk, probs, probs.traj, cons, fk_out), 20),
             ("dense projection", dense, 20), ("sss projection", sss, 3)):
-        calls, kern, busy, wall = profile_calls(torch, fn, reps)
+        calls, kern, busy, wall, _ = profile_calls(torch, fn, reps)
         print(f"config 4 TSR {name}: {calls:.0f} aten calls, {kern:.0f} "
               f"device kernels, device busy {busy:.4f} ms, wall {wall:.4f} "
               f"ms per call (under the profiler)")
@@ -1279,6 +1343,44 @@ def module_phase(torch, pt, card, dev, out1, out5):
     return entry
 
 
+def k2_launch(torch, selfcol, sargs, label, card):
+    """K2's launch facts on a path's own inputs (sargs end with the
+    engine's pair layout): the block, its shared memory, residency,
+    registers and spills, the tiled ring's slots, and the device kernels
+    one call launches (fails unless 1).  On the tiled path, the layout
+    kernel against its plain version (bit-equal) and the kernels of a
+    call that brings no layout (the layout kernel and K2's, 2)."""
+    x, xo, pi, pj, rsum, layout = sargs[0], sargs[2], *sargs[3:6], sargs[8]
+    Sa, SI = x.shape[2], xo.shape[1]
+    info = selfcol.launch_info(Sa, SI, x.dtype)
+    line = (f"{label} selfcol launch: {info['path']} path, "
+            f"{info['threads']} threads, {info['smem_bytes']} B shared "
+            f"memory per block, {info['blocks_per_sm']} blocks per SM, "
+            f"{info['registers']} registers, {info['local_bytes']} B local "
+            f"(spill) per thread")
+    if info["path"] == "tiled":
+        line += (", every chunk resident" if selfcol.ring_resident(
+            Sa + SI, x.dtype.itemsize) else ", chunks streamed")
+    one = kernels_per_call(torch, lambda: selfcol.selfcol_pairs(*sargs))
+    print(f"{line}; {one:.0f} device kernel(s) per call with the engine's "
+          f"layout on {card}")
+    check(one == 1, f"{label} selfcol: {one} device kernels per call")
+    if info["path"] != "tiled":
+        return
+    made = selfcol.pair_layout(pi, pj, rsum, Sa, Sa + SI)
+    plain = selfcol.pair_layout_ref(pi.cpu(), pj.cpu(), rsum.cpu(), Sa,
+                                    Sa + SI)
+    for got, eng_t, want in zip(made, layout, plain):
+        check(torch.equal(got.cpu(), want) and torch.equal(eng_t.cpu(), want),
+              f"{label} selfcol layout: kernel, engine and plain differ")
+    bare = kernels_per_call(torch, lambda: selfcol.selfcol_pairs(*sargs[:-1]))
+    print(f"{label} selfcol layout kernel: bit-equal to its plain version "
+          f"and to the engine's layout; a call without a layout launches "
+          f"{bare:.0f} device kernels")
+    check(bare == 2, f"{label} selfcol: {bare} device kernels per call "
+          f"without a layout")
+
+
 def grab_phase(torch, pt, card, dev):
     """The robot grabs a tray of 110 spheres at its hand (S = 126, 125
     active, 1 inactive): K2's tiled path against its plain version and
@@ -1308,15 +1410,11 @@ def grab_phase(torch, pt, card, dev):
           f"{SI}, {P} pairs")
     check((len(robot.model.sphere_radius), Sa, SI) == (126, 125, 1),
           f"grab sphere counts {(Sa, SI)}")
-    info = selfcol.launch_info(Sa, SI)
-    print(f"grab selfcol launch: {info['path']} path, {info['threads']} "
-          f"threads, {info['smem_bytes']} B shared memory per block, "
-          f"{info['blocks_per_sm']} blocks per SM, {info['registers']} "
-          f"registers, {info['local_bytes']} B local (spill) per thread, "
-          f"{4 * selfcol.scratch_words(m, Sa, SI, B)} B scratch")
-    check(info["path"] == "tiled", "grab: K2 did not take the tiled path")
+    check(selfcol.launch_shape(Sa, SI)[0] == "tiled",
+          "grab: K2 did not take the tiled path")
     sargs = (x, vel, xo, *eng.pairs, probs.epsilon_self,
-             probs.obs_factor_self)
+             probs.obs_factor_self, eng.pair_layout)
+    k2_launch(torch, selfcol, sargs, "grab", card)
     votes, near, taken, reach = selfcol.vote_stats(
         x, xo, *eng.pairs, probs.epsilon_self)
     print(f"grab selfcol skips: of {votes} votes {near} pass the box test "
@@ -1329,6 +1427,9 @@ def grab_phase(torch, pt, card, dev):
     again = selfcol.selfcol_pairs(*sargs)
     check(torch.equal(again[0], net_k) and torch.equal(again[1], c_k),
           "grab selfcol: two launches on the same inputs differ")
+    bare = selfcol.selfcol_pairs(*sargs[:-1])
+    check(torch.equal(bare[0], net_k) and torch.equal(bare[1], c_k),
+          "grab selfcol: a call without the layout differs")
     t = timings(torch, lambda: selfcol.selfcol_pairs(*sargs),
                 lambda: selfcol.selfcol_pairs_ref(*sargs))
     print(f"grab selfcol: max_abs_err {err}, bit-equal across launches, per "
@@ -1341,17 +1442,20 @@ def grab_phase(torch, pt, card, dev):
     print(f"selfcol_grab: device {entry['ms']} ms, bound {entry['bound_ms']} "
           f"ms ({entry['bound_by']}), share {entry['bound_share']:.4f} on "
           f"{card}")
-    del net_k, c_k, net_r, c_r, again
+    del net_k, c_k, net_r, c_r, again, bare
 
     counts_zero(sdf_lookup, selfcol)
+    selfcol.LAYOUT_LAUNCHES = 0
     t0 = time.perf_counter()
     out, costs = BatchSolver(eng).iterate(probs, N_ITER)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = counts(sdf_lookup, selfcol)
     print(f"grab: iterate({N_ITER}) at B={BATCH} in {wall:.3f} s (first "
-          f"call), {BATCH / wall} solves/s, launches {launches} on {card}")
+          f"call), {BATCH / wall} solves/s, launches {launches}, layout "
+          f"kernel {selfcol.LAYOUT_LAUNCHES} on {card}")
     check_launches(launches, N_ITER, "grab")
+    check(selfcol.LAYOUT_LAUNCHES == 0, "grab: the step built a pair layout")
     entry["launches"] = launches["selfcol"]
     check(bool(torch.isfinite(costs).all() and torch.isfinite(out.traj).all()),
           "grab: non-finite costs or trajectories")
@@ -1594,23 +1698,24 @@ def kernels_at(torch, sdf_lookup, selfcol, eng, probs, label, card,
         return [e1]
     xo = probs.inactive_pos.permute(2, 1, 0).contiguous()
     sargs = (x, vel, xo, *eng.pairs, probs.epsilon_self,
-             probs.obs_factor_self)
+             probs.obs_factor_self, eng.pair_layout)
     P, SI = eng.pairs[0].shape[0], xo.shape[1]
     *_, reach = selfcol.vote_stats(x, xo, *eng.pairs, probs.epsilon_self)
+    k2_launch(torch, selfcol, sargs, label, card)
     net_k, c_k = selfcol.selfcol_pairs(*sargs)
     net_r, c_r = selfcol.selfcol_pairs_ref(*sargs)
     rtol = F64_KERNEL_RTOL if f64 else KERNEL_RTOL
     err = max(compare(torch, f"{label} selfcol net", net_k, net_r,
                       rtol=rtol),
               compare(torch, f"{label} selfcol cost", c_k, c_r, rtol=rtol))
+    again = selfcol.selfcol_pairs(*sargs)
+    check(torch.equal(again[0], net_k) and torch.equal(again[1], c_k),
+          f"{label} selfcol: two launches on the same inputs differ")
     t = timings(torch, lambda: selfcol.selfcol_pairs(*sargs),
                 lambda: selfcol.selfcol_pairs_ref(*sargs))
-    info = selfcol.launch_info(S, SI, x.dtype)
-    print(f"{label} selfcol ({info['path']} path, grid "
-          f"{-(-B // selfcol.LANES)} x {m} blocks, {info['registers']} "
-          f"registers, {info['local_bytes']} B local per thread): "
-          f"max_abs_err {err} (rtol {rtol}), per call {t[0]:.4f} ms vs "
-          f"plain {t[1]:.4f} ms, device {t[2]} ms vs plain {t[3]} ms")
+    print(f"{label} selfcol: max_abs_err {err} (rtol {rtol}), bit-equal "
+          f"across launches, per call {t[0]:.4f} ms vs plain {t[1]:.4f} "
+          f"ms, device {t[2]} ms vs plain {t[3]} ms")
     e2 = kernel_entry(
         f"selfcol_{tag}", "or_cdchomp_tpu_torch/csrc/selfcol.cu",
         "or_cdchomp_tpu/ops/pallas_selfcol.py:197", err, t,

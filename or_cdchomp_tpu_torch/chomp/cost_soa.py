@@ -44,12 +44,15 @@ def _selfcol_soa(pairs, probs, x_i, vel):
     active spheres against active and inactive ones, same-link pairs
     excluded through the engine's pair table.
 
-    x_i, vel: (3, m, Sa, B).  Returns (c_self (B,), net (3, m, Sa, B)).
+    pairs: (pair_i, pair_j, rsum), and optionally the table's
+    ``selfcol.pair_layout`` (the engine passes its own).  x_i, vel:
+    (3, m, Sa, B).  Returns (c_self (B,), net (3, m, Sa, B)).
     """
-    pair_i, pair_j, rsum = pairs
+    pair_i, pair_j, rsum, *layout = pairs
     xo = probs.inactive_pos.permute(2, 1, 0).contiguous()   # (3, SI, B)
     net, cost = selfcol_pairs(x_i, vel, xo, pair_i, pair_j, rsum,
-                              probs.epsilon_self, probs.obs_factor_self)
+                              probs.epsilon_self, probs.obs_factor_self,
+                              *layout)
     return cost.sum(dim=(0, 1)), net
 
 

@@ -42,7 +42,8 @@ from or_cdchomp_tpu_torch.chomp.problem import as_batch, first
 from or_cdchomp_tpu_torch.models.robot import CompiledFK
 from or_cdchomp_tpu_torch.ops import draw as draw_ops
 from or_cdchomp_tpu_torch.ops.quat import pose_normalize
-from or_cdchomp_tpu_torch.ops.selfcol import pair_table
+from or_cdchomp_tpu_torch.ops.selfcol import (PairLayout, pair_layout,
+                                              pair_table)
 from or_cdchomp_tpu_torch.utils.profiling import phase
 
 _MAX_LIMIT_FIXES = 1000  # chomp.c:608
@@ -242,9 +243,14 @@ class ChompEngine:
                                          device=device)
         same = model.sphere_same_link()[order][:, order][:n_act, :]
         pi, pj, rsum = pair_table(same, radii[:n_act], radii)
-        self.pairs = (torch.as_tensor(pi, device=device),
-                      torch.as_tensor(pj, device=device),
-                      torch.as_tensor(rsum, dtype=dtype, device=device))
+        pairs = (torch.as_tensor(pi), torch.as_tensor(pj),
+                 torch.as_tensor(rsum, dtype=dtype))
+        # K2's tiled path reads the table through its layout, built here
+        # once (on the host, from the host table), as the Pallas kernel
+        # compiles its pair matrices in
+        layout = pair_layout(*pairs, n_act, len(radii))
+        self.pairs = tuple(t.to(device) for t in pairs)
+        self.pair_layout = PairLayout(*(t.to(device) for t in layout))
         self.n_spheres_active = n_act
         # FK restricted to the active spheres, in active-first order
         self.fk = CompiledFK(model, dtype=dtype, device=device,
@@ -424,8 +430,8 @@ class ChompEngine:
         # step's scopes (solver.py:446-529); utils/profiling.py reads them
         with phase("callbacks"):
             c_obs, G, fk_out = cost_soa.total_cost_grad_batched(
-                spec, self.fk, self.fields, self.pairs, self.radii_act,
-                probs)
+                spec, self.fk, self.fields, (*self.pairs, self.pair_layout),
+                self.radii_act, probs)
             if self.extra_cost is not None:
                 # after the 1/m scaling (chomp.c:495-501)
                 ce, Ge = self._extra(T_mov)
@@ -518,8 +524,9 @@ class ChompEngine:
         T_mov = probs.traj[:, self.mov_lo:self.mov_lo + self.spec.m]
         with phase("callbacks"):
             c_obs, _, _ = cost_soa.total_cost_grad_batched(
-                self.spec, self.fk, self.fields, self.pairs, self.radii_act,
-                probs, want_grad=False)
+                self.spec, self.fk, self.fields,
+                (*self.pairs, self.pair_layout), self.radii_act, probs,
+                want_grad=False)
             if self.extra_cost is not None:
                 c_obs = c_obs + self._extra(T_mov)[0]
         with phase("smoothcost"):

@@ -66,20 +66,48 @@
 // fixed rule (selfcol_path_staged; ops/selfcol.py launch_shape mirrors it):
 //
 //  - staged (above), wherever its block fits in 232,448 B;
-//  - tiled, beyond: no shared memory at all.  A setup kernel turns the pair
-//    table into the dense (Sa, So) matrices of pair indices and radius
-//    sums in a global scratch buffer (after a memset of the indices to
-//    -1), and writes each sphere's bounding box over each 32-problem tile
-//    at each point there too.  The main kernel keeps one thread per
-//    (point, active sphere, problem), one warp per sphere (8 per block),
-//    and walks the other spheres 32 at a time: lane l reads row i and
-//    column i of the matrices and sphere base+l's box through L1, the
-//    same box test and warp votes skip pairs out of reach exactly, and the
-//    positions and velocities of the pairs taken are read from global
-//    memory (the block's warps share one point and one tile, so they hit
-//    in L1).  Outgoing and incoming pairs of a 32-sphere chunk are handled
-//    together, into two register sums added at the end: no atomics, the
-//    same order on every launch, so it is bit-deterministic too.
+//  - tiled, beyond: a robot holding a many-sphere body.
+//
+// What bounds the tiled path on this card: at the grab shape (m = 99,
+// Sa = 125, SI = 1, B = 256, 3,617 pairs) the call must move xi, vel, net
+// and cost, 126.8 MB, 37.8 us at 3.35 TB/s; of its 2.86 M (point, pair,
+// 32-problem) votes 6% pass the box test and 0.9% are taken, so the pair
+// math is small and the walk is the work.
+//
+// What held the first tiled design back: 0.168 ms, 22% of that
+// bound, in three launches a call (a memset and a setup kernel that
+// rebuilt the dense (Sa, So) pair matrices from the pair table and wrote
+// per-tile sphere boxes, then the main kernel).  Its warps read column i
+// of those matrices, a stride of So words between lanes: 32 L1 wavefronts
+// a load, ~26 M a call.  Once the gathers were gone, timing each warp
+// on the card showed the arm spheres near the held body (most of the
+// pairs past the box test and taken) running the longest warps, and a
+// block waiting for them.
+//
+// What this design does about it (one launch, ~0.076 ms at the grab):
+//  - The pair table is read through a layout built once per table (an
+//    engine constant, as the Pallas kernel compiles its pair matrices
+//    in): per active sphere the partners it pairs with, in ascending
+//    order, 32 to a group, with the group's mask words (one 16-byte
+//    broadcast load) and radius sums (coalesced).  A tray sphere's 13
+//    partners fill one group where its 32-sphere chunks needed two walks.
+//  - A block owns one point and one 32-problem tile.  It stages the
+//    positions of all So spheres with cp.async (16 bytes a copy, past L1)
+//    into a shared-memory ring, every chunk at once up to 256 spheres (128
+//    in float64), and computes each sphere's box over the tile once, one
+//    thread per (sphere, component), rotated so a warp reads 32 banks.
+//    Past 256 spheres two slots stream the chunks, each round in step.
+//  - 16 warps take the block's spheres from a counter in shared memory,
+//    in index order, the robot's own spheres first: the long ones start
+//    early and the warps finish together.  The counter only hands out
+//    spheres; every sphere's sums belong to one warp, in a fixed order, so
+//    two launches are bit-equal.  Two blocks share an SM (<= 64
+//    registers), one staging while the other walks.
+//  - Velocities are read from global memory (past L1) only when a pair in
+//    reach needs them; the own sphere's is loaded at its start.
+// Tried and measured slower on the card: a persistent double-buffered
+// block of 32 warps, the layout rows and the velocities staged in shared
+// memory, two pairs a step, and L1 / L2 prefetches of the velocities.
 //
 // The arithmetic is the Pallas body's: difference form |x_i - x_j|^2 (not
 // the expanded form, which cancels in f32), rsqrt(max(d2, 1e-24)) for both
@@ -88,7 +116,8 @@
 // float64: the tiled path's kernels are templates on the scalar type T,
 // and the library exports a float64 entry point (cdx_selfcol_f64) that
 // always takes the tiled path, with the same pair math in double (1/sqrt
-// from the double rsqrt, not the float MUFU instruction).  The staged
+// from the double rsqrt, not the float MUFU instruction), one block of 16
+// warps per SM (~110 registers).  The staged
 // path stays float32: its block keeps three resident blocks of up to 16
 // warps per SM, 40 registers a thread, which double values would spill.
 
@@ -102,7 +131,6 @@ constexpr int kMaxWarps = 16;   // warps per block: active spheres in flight
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMinBlocks = 3;   // resident blocks per SM: <= 40 registers
 constexpr size_t kSmemBlockMax = 232448;   // shared memory a block may use
-constexpr int kTiledWarps = 8;  // warps (active spheres) per tiled block
 
 template <typename T>
 struct V3 {
@@ -409,203 +437,442 @@ selfcol_kernel(const float* __restrict__ xi, const float* __restrict__ vel,
   }
 }
 
-// Component c of sphere s's position at (point k, problem b): an active
-// sphere from xi, an inactive one from xo.
-template <typename T>
-__device__ __forceinline__ T pos_at(const T* __restrict__ xi,
-                                    const T* __restrict__ xo, int c,
-                                    long long n, long long no, int Sa, int k,
-                                    int s, int B, int b) {
-  return s < Sa ? __ldg(xi + c * n + ((long long)k * Sa + s) * B + b)
-                : __ldg(xo + c * no + (long long)(s - Sa) * B + b);
-}
+// ---- The tiled path ------------------------------------------------------
+//
+// Its pair layout is an engine constant (ops/selfcol.py pair_layout builds
+// it once per pair table; selfcol_layout_kernel on the card when a call
+// brings none).  Per active sphere i, the spheres j it pairs with, as
+// (i, j) or as (j, i) with j active, in groups of 32 lanes (G = ceil(So /
+// 32) groups a sphere): where the ring holds every chunk (ring_resident),
+// the partners in ascending order, compacted; else group g is chunk g,
+// lane l sphere 32*g + l.  Per group one 16-byte word of masks, bit l for
+// the group's lane l:
+//   .x  out     pair (i, j) exists;
+//   .y  inonly  pair (j, i) exists (j active) and is not a mirror;
+//   .z  mirror  both exist with the same radius sum: d of (j, i) is
+//               bit-equal to d of (i, j), so it takes that vote;
+//   .w  the number of groups of sphere i that hold a partner;
+// the partner j of each lane, and the radius sums of (i, j) and of (j, i)
+// by lane (0 where no pair): masks (Sa, G, 4), partners (Sa, G, 32),
+// rs (2, Sa, G, 32).
 
+// Layout builder, one block per active sphere i, threads a multiple of 32;
+// shared memory: the sphere's out and in bits per 32 spheres and their
+// ranks.  Its rows are zeroed, the pair table's bits gathered (atomicOr,
+// so the result does not depend on the order), each partner's place in
+// the groups ranked, the radius sums and partners scattered there, and the
+// words assembled by ballot.
 template <typename T>
-__device__ __forceinline__ V3<T> pos3(const T* __restrict__ xi,
-                                      const T* __restrict__ xo, long long n,
-                                      long long no, int Sa, int k, int s,
-                                      int B, int b) {
-  return {pos_at(xi, xo, 0, n, no, Sa, k, s, B, b),
-          pos_at(xi, xo, 1, n, no, Sa, k, s, B, b),
-          pos_at(xi, xo, 2, n, no, Sa, k, s, B, b)};
-}
-
-// Setup of the tiled path, grid (tiles, m), blocks of 32 x nw threads:
-// every thread scatters its share of the pair table into the dense (Sa,
-// So) matrices pidx (indices, set to -1 before) and prs (radius sums), and
-// the block writes the bounding box of every sphere over its tile's
-// problems at its point to box[k][tile][6][So] (low corner, high corner).
-template <typename T>
-__global__ void selfcol_prep_kernel(
-    const T* __restrict__ xi, const T* __restrict__ xo, int m, int Sa, int SI,
-    int B, const int* __restrict__ pair_i, const int* __restrict__ pair_j,
-    const T* __restrict__ rsum, int P, int* __restrict__ pidx,
-    T* __restrict__ prs, T* __restrict__ box) {
-  const int So = Sa + SI;
-  const int lane = threadIdx.x;
-  const int nw = blockDim.y;
-  const long long nt = (long long)gridDim.x * gridDim.y * nw * kLanes;
-  const long long tid =
-      (((long long)blockIdx.y * gridDim.x + blockIdx.x) * nw + threadIdx.y) *
-          kLanes + lane;
-  for (long long p = tid; p < P; p += nt) {
-    const int i = pair_i[p];
-    const int j = pair_j[p];
-    if (i >= 0 && i < Sa && j >= 0 && j < So) {
-      pidx[(long long)i * So + j] = (int)p;
-      prs[(long long)i * So + j] = rsum[p];
+__global__ void selfcol_layout_kernel(const int* __restrict__ pair_i,
+                                      const int* __restrict__ pair_j,
+                                      const T* __restrict__ rsum, int P,
+                                      int Sa, int So, int compact,
+                                      unsigned* masks, int* partners, T* rs) {
+  extern __shared__ unsigned sbits[];   // out [G], in [G], base [G]
+  const int i = blockIdx.x;
+  const int G = (So + kLanes - 1) / kLanes;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  unsigned* sout = sbits;
+  unsigned* sin = sbits + G;
+  int* sbase = reinterpret_cast<int*>(sbits + 2 * G);
+  unsigned* mrow = masks + (size_t)i * G * 4;
+  int* prow = partners + (size_t)i * G * kLanes;
+  T* r0 = rs + (size_t)i * G * kLanes;
+  T* r1 = rs + ((size_t)Sa + i) * G * kLanes;
+  for (int q = tid; q < G; q += nt) sout[q] = sin[q] = 0u;
+  for (int q = tid; q < G * kLanes; q += nt) {
+    prow[q] = compact ? 0 : (q < So ? q : 0);
+    r0[q] = r1[q] = T(0);
+  }
+  __syncthreads();
+  for (int p = tid; p < P; p += nt) {
+    const int a = pair_i[p];
+    const int c = pair_j[p];
+    if (a < 0 || a >= Sa || c < 0 || c >= So) continue;
+    if (a == i) atomicOr(sout + c / kLanes, 1u << (c % kLanes));
+    if (c == i) atomicOr(sin + a / kLanes, 1u << (a % kLanes));
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int total = 0;
+    for (int q = 0; q < G; ++q) {
+      sbase[q] = compact ? total : q * kLanes;
+      total += __popc(sout[q] | sin[q]);
     }
   }
-  const int k = blockIdx.y;
-  const int b = blockIdx.x * kLanes + lane;
-  const bool live = b < B;
-  const long long n = (long long)m * Sa * B;
-  const long long no = (long long)SI * B;
-  T* bx = box + ((long long)k * gridDim.x + blockIdx.x) * 6 * So;
-  for (int s = threadIdx.y; s < So; s += nw)
-    for (int c = 0; c < 3; ++c)
-      stage_box(bx, So, s, c,
-                live ? pos_at(xi, xo, c, n, no, Sa, k, s, B, b) : T(0), live,
-                lane);
+  __syncthreads();
+  // the place of partner j in the groups
+  const auto rank = [&](int j) {
+    const unsigned below = (1u << (j % kLanes)) - 1u;
+    return sbase[j / kLanes] +
+           (compact ? __popc((sout[j / kLanes] | sin[j / kLanes]) & below)
+                    : j % kLanes);
+  };
+  for (int p = tid; p < P; p += nt) {
+    const int a = pair_i[p];
+    const int c = pair_j[p];
+    if (a < 0 || a >= Sa || c < 0 || c >= So) continue;
+    if (a == i) r0[rank(c)] = rsum[p];
+    if (c == i) r1[rank(a)] = rsum[p];
+  }
+  for (int j = tid; j < G * kLanes; j += nt)
+    if (compact && j < So &&
+        (((sout[j / kLanes] | sin[j / kLanes]) >> (j % kLanes)) & 1u))
+      prow[rank(j)] = j;
+  __syncthreads();
+  int groups = 0;
+  for (int q = 0; q < G; ++q) groups += __popc(sout[q] | sin[q]);
+  groups = compact ? (groups + kLanes - 1) / kLanes : G;
+  for (int q = tid; q < G * kLanes; q += nt) {   // a warp: one group
+    const int j = prow[q];
+    const bool live = compact ? q < sbase[G - 1] + __popc(sout[G - 1] |
+                                                          sin[G - 1])
+                              : q < So;
+    const bool out = live && ((sout[j / kLanes] >> (j % kLanes)) & 1u);
+    const bool in = live && ((sin[j / kLanes] >> (j % kLanes)) & 1u);
+    const bool mirror = out && in && r0[q] == r1[q];
+    const unsigned wo = __ballot_sync(kFull, out);
+    const unsigned wi = __ballot_sync(kFull, in);
+    const unsigned wm = __ballot_sync(kFull, mirror);
+    if (q % kLanes == 0) {
+      unsigned* wd = mrow + q / kLanes * 4;
+      wd[0] = wo;
+      wd[1] = wi & ~wm;
+      wd[2] = wm;
+      wd[3] = (unsigned)groups;
+    }
+  }
 }
 
-// The tiled path's main kernel, grid (tiles, m, ceil(Sa / 8)), blocks of
-// 32 x 8 threads: thread (lane, w) owns (point k, active sphere i =
-// 8*blockIdx.z + w, problem b = 32*tile + lane).  Same pair math, skip tests
-// and contract as selfcol_kernel.
+// A tiled block: 16 warps (own active spheres); in float at most 64
+// registers a thread, so that two blocks share an SM, in double one block
+// (~110 registers).
 template <typename T>
-__global__ void __launch_bounds__(kTiledWarps * kLanes)
+struct Tiled {
+  static constexpr int kWarps = 16;
+  static constexpr int kThreads = kWarps * kLanes;
+  static constexpr int kBlocks = sizeof(T) == sizeof(float) ? 2 : 1;
+};
+// one ring slot: a 32-sphere chunk's positions [3][32 spheres][32 problems]
+// and its spheres' boxes over the tile [6][32] (low corner, high corner)
+constexpr int kBoxAt = 3 * kLanes * kLanes;
+constexpr int kSlotWords = kBoxAt + 6 * kLanes;
+// the ring's budget: 8 float32 (4 float64) slots, two blocks per SM
+constexpr size_t kRingBytesMax = 8 * kSlotWords * sizeof(float);
+
+// Whether a tiled block keeps every chunk of its work item in its ring:
+// where they fit in kRingBytesMax, up to 256 spheres in float32 (128 in
+// float64); else it has two slots, through which each round streams the
+// chunks.  ops/selfcol.py ring_resident mirrors it.
+__host__ __device__ inline bool ring_resident(int So, size_t item) {
+  const int nch = (So + kLanes - 1) / kLanes;
+  return (size_t)nch * kSlotWords * item <= kRingBytesMax;
+}
+
+// Dynamic shared memory of a tiled block: its ring (ops/selfcol.py
+// tiled_smem).
+inline size_t tiled_smem(int So, size_t item) {
+  const int nch = (So + kLanes - 1) / kLanes;
+  return (size_t)(ring_resident(So, item) ? nch : 2) * kSlotWords * item;
+}
+
+// cp.async of one float or double (N = sizeof(T)) into shared memory, or
+// of 16 bytes past L1 (.cg), so that the staged positions do not evict the
+// pair layout from L1; an invalid copy reads nothing and writes zeros.
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(valid ? 16 : 0)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
+                 "l"(src), "n"(N), "r"(valid ? N : 0)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The whole block starts the copy of chunk ch's positions at point k over
+// problem tile `tile` into a ring slot: active spheres from xi, inactive
+// ones from xo, coalesced (consecutive threads, consecutive problems), 16
+// bytes a copy where `vec` (B a multiple of 16 / sizeof(T), 16-byte
+// aligned tensors), else one float a copy.
+template <typename T>
+__device__ __forceinline__ void stage_chunk(T* slot, const T* __restrict__ xi,
+                                            const T* __restrict__ xo,
+                                            long long n, long long no, int Sa,
+                                            int So, int k, int B, int tile,
+                                            int ch, bool vec) {
+  constexpr int V = 16 / sizeof(T);
+  const int nt = blockDim.x * blockDim.y;
+  const int step = vec ? V : 1;
+  for (int e = (threadIdx.y * kLanes + threadIdx.x) * step; e < kBoxAt;
+       e += nt * step) {
+    const int s = ch * kLanes + (e / kLanes) % kLanes;
+    const int c = e / (kLanes * kLanes);
+    const int b = tile * kLanes + e % kLanes;
+    const bool valid = s < So && b < B;
+    const T* src = xi;
+    if (valid)
+      src = s < Sa ? xi + c * n + ((long long)k * Sa + s) * B + b
+                   : xo + c * no + (long long)(s - Sa) * B + b;
+    if (vec)
+      cp_async<16>(slot + e, src, valid);
+    else
+      cp_async<sizeof(T)>(slot + e, src, valid);
+  }
+}
+
+// The boxes over the live problems of the 32 chunk spheres of `nslots`
+// consecutive ring slots, each slot's [6][32] low and high corners: one
+// thread per (slot, component, sphere s) walks the 32 problems starting at
+// problem s, so a warp's 32 spheres read 32 banks.
+template <typename T>
+__device__ __forceinline__ void stage_boxes(T* slots, int nslots, int tile,
+                                            int B) {
+  const int live = min(kLanes, B - tile * kLanes);   // live problems
+  const int nt = blockDim.x * blockDim.y;
+  for (int q = threadIdx.y * kLanes + threadIdx.x; q < nslots * 3 * kLanes;
+       q += nt) {
+    const int s = q % kLanes;
+    const int c = q / kLanes % 3;
+    T* slot = slots + q / (3 * kLanes) * kSlotWords;
+    const T* row = slot + (c * kLanes + s) * kLanes;
+    T lo = T(INFINITY), hi = T(-INFINITY);
+    for (int t = 0; t < kLanes; ++t) {
+      const int l = (s + t) % kLanes;
+      if (l < live) {
+        lo = mfmin(lo, row[l]);
+        hi = mfmax(hi, row[l]);
+      }
+    }
+    slot[kBoxAt + c * kLanes + s] = lo;
+    slot[kBoxAt + (3 + c) * kLanes + s] = hi;
+  }
+}
+
+// Position of chunk sphere q of a slot for this lane's problem.
+template <typename T>
+__device__ __forceinline__ V3<T> slot_pos(const T* slot, int q, int lane) {
+  return {slot[q * kLanes + lane], slot[(kLanes + q) * kLanes + lane],
+          slot[(2 * kLanes + q) * kLanes + lane]};
+}
+
+// The tiled path, a grid of work items (point k, 32-problem tile, z-group
+// z), z fastest, one a block of 32 x 16 threads; lane l owns problem
+// 32*tile + l.  The block stages the positions of all So spheres 32 at a
+// time in shared memory, with each chunk sphere's box over the tile
+// computed once.  kResident: every chunk at once, and the warps take the
+// block's active spheres z + zg*t, t = 0, 1, ..., from a counter; else two
+// slots through which each round streams the chunks, and in round r warp
+// w owns sphere (r*zg + z)*16 + w.  Each warp walks its sphere's partner
+// groups (the pair layout through L1): lane l tests the group's lane-l
+// partner j (its box and radius sum) for every problem of the tile at
+// once, then the
+// pairs in reach get the pair math, with the same votes and arithmetic as
+// the staged kernel.  Its own and the partners' velocities are read from
+// global memory when a pair in reach first needs them.  Sum order: per
+// sphere, outgoing pairs in ascending j into one register sum, incoming
+// pairs in ascending j into another, added at the end, as the staged
+// kernel sums them.
+template <typename T, bool kResident>
+__global__ void __launch_bounds__(Tiled<T>::kThreads, Tiled<T>::kBlocks)
 selfcol_tiled_kernel(const T* __restrict__ xi, const T* __restrict__ vel,
                      const T* __restrict__ xo, int m, int Sa, int SI, int B,
-                     const int* __restrict__ pidx, const T* __restrict__ prs,
-                     const T* __restrict__ box,
+                     const uint4* __restrict__ masks,
+                     const int* __restrict__ partners,
+                     const T* __restrict__ rs,
                      const T* __restrict__ eps_self,
                      const T* __restrict__ obs_self, T* __restrict__ net,
-                     T* __restrict__ cost) {
+                     T* __restrict__ cost, int zg, int rounds, bool vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const ring = reinterpret_cast<T*>(smem_raw);
   const int So = Sa + SI;
+  const int G = (So + kLanes - 1) / kLanes;
+  const int tiles = (B + kLanes - 1) / kLanes;
   const int lane = threadIdx.x;
-  const int i = blockIdx.z * blockDim.y + threadIdx.y;
-  if (i >= Sa) return;              // a whole warp: no block barrier follows
-  const int k = blockIdx.y;
-  const int b = blockIdx.x * kLanes + lane;
+  const int w = threadIdx.y;
+  const int nw = blockDim.y;
+  const int z = blockIdx.x % zg;
+  const int tile = blockIdx.x / zg % tiles;
+  const int k = blockIdx.x / (zg * tiles);
+  const int b = tile * kLanes + lane;
   const bool live = b < B;          // dead lanes vote "out of reach"
-  const long long n = (long long)m * Sa * B;
-  const long long no = (long long)SI * B;
-  const long long at = ((long long)k * Sa + i) * B + b;
-
-  V3<T> xs = {0, 0, 0}, vs = {0, 0, 0};
-  if (live) {
-    xs = {__ldg(xi + at), __ldg(xi + n + at), __ldg(xi + 2 * n + at)};
-    vs = {__ldg(vel + at), __ldg(vel + n + at), __ldg(vel + 2 * n + at)};
-  }
-  const T vv = fma_rn(vs.z, vs.z, fma_rn(vs.y, vs.y, vs.x * vs.x));
-  const T vn = msqrt(vv);
-  const bool safe = vn > T(1e-6);
-  const T iv2 = safe ? rcp_rn(vv) : T(0);
+  const long long n = (long long)m * Sa * B;   // component stride of xi
+  const long long no = (long long)SI * B;      // component stride of xo
   const T e = live ? eps_self[b] : T(1);
   const T inv_e = rcp_rn(e);
   const T ofs = live ? obs_self[b] : T(0);
-  const T ofv = ofs * vn;
-  const T emax = warp_max(e, live);   // the largest eps of the warp
+  const T emax = warp_max(e, live);   // the largest eps of the tile
 
-  const T* bx = box + ((long long)k * gridDim.x + blockIdx.x) * 6 * So;
-  T lo_i[3], hi_i[3];
-  for (int c = 0; c < 3; ++c) {
-    lo_i[c] = __ldg(bx + c * So + i);
-    hi_i[c] = __ldg(bx + (3 + c) * So + i);
+  // resident: the next of the block's spheres z + zg*t a warp takes
+  __shared__ int next_t;
+  if constexpr (kResident) {
+    if (lane == 0 && w == 0) next_t = nw;
+    for (int ch = 0; ch < G; ++ch)
+      stage_chunk(ring + ch * kSlotWords, xi, xo, n, no, Sa, So, k, B, tile,
+                  ch, vec);
+    cp_async_wait_all();
+    __syncthreads();
+    stage_boxes(ring, G, tile, B);
+    __syncthreads();
   }
-  const int* prow = pidx + (long long)i * So;
-  const T* rrow = prs + (long long)i * So;
 
-  V3<T> acc_out = {0, 0, 0}, acc_in = {0, 0, 0};
-  T c_acc = 0;
-  for (int base = 0; base < So; base += kLanes) {
-    const int j = base + lane;
-    // pair (i, j) outgoing, pair (j, i) incoming with j active; a mirror
-    // (both, same radius sum) has a bit-equal d, so one vote serves both
-    const bool out = j < So && __ldg(prow + j) >= 0;
-    const T rs_out = out ? __ldg(rrow + j) : T(0);
-    const long long ji = (long long)j * So + i;
-    const bool in = j < Sa && __ldg(pidx + ji) >= 0;
-    const T rs_in = in ? __ldg(prs + ji) : T(0);
-    const bool mirror = out && in && rs_in == rs_out;
-    const unsigned mirrors = __ballot_sync(kFull, mirror);
-    bool near_out = false, near_in = false;
-    if (out || (in && !mirror)) {
-      // boxes_near on the global boxes: the gap is symmetric in (i, j)
+  int t = w;
+  for (int r = 0; kResident || r < rounds; ++r) {
+    // resident: sphere z + zg*t, then the next one free; streamed: the
+    // rounds in step (the chunks stream past every warp at once)
+    const int i = kResident ? z + zg * t : (r * zg + z) * nw + w;
+    const bool mine = i < Sa;       // a whole warp
+    if (kResident && !mine) break;
+    const long long at = ((long long)k * Sa + i) * B + b;
+    V3<T> xs = {0, 0, 0}, vs = {0, 0, 0};
+    T lo_i[3], hi_i[3];
+    if (mine) {
+      if (live)                     // read once: past L1
+        vs = {__ldcg(vel + at), __ldcg(vel + n + at),
+              __ldcg(vel + 2 * n + at)};
+      if constexpr (kResident) {    // sphere i and its box, staged above
+        const T* own = ring + (i / kLanes) * kSlotWords;
+        xs = slot_pos(own, i % kLanes, lane);
+        for (int c = 0; c < 3; ++c) {
+          lo_i[c] = own[kBoxAt + c * kLanes + i % kLanes];
+          hi_i[c] = own[kBoxAt + (3 + c) * kLanes + i % kLanes];
+        }
+      } else {
+        if (live)
+          xs = {__ldg(xi + at), __ldg(xi + n + at), __ldg(xi + 2 * n + at)};
+        const T xc[3] = {xs.x, xs.y, xs.z};
+        for (int c = 0; c < 3; ++c) {
+          lo_i[c] = -warp_max(-xc[c], live);
+          hi_i[c] = warp_max(xc[c], live);
+        }
+      }
+    }
+    const size_t row = (size_t)(mine ? i : 0) * G;
+    const uint4* mrow = masks + row;
+    const int* prow = partners + row * kLanes;
+    const T* r0 = rs + row * kLanes;
+    const T* r1 = r0 + (size_t)Sa * G * kLanes;
+    // resident: the groups that hold a partner; streamed: every chunk
+    const int groups = kResident ? (mine ? (int)__ldg(mrow).w : 0) : G;
+    V3<T> acc_out = {0, 0, 0}, acc_in = {0, 0, 0};
+    T c_acc = 0;
+
+    if constexpr (!kResident)
+      stage_chunk(ring, xi, xo, n, no, Sa, So, k, B, tile, 0, vec);
+    for (int g = 0; g < groups; ++g) {
+      const T* cur = ring + (g & 1) * kSlotWords;   // streamed: chunk g
+      if constexpr (!kResident) {
+        cp_async_wait_all();
+        __syncthreads();            // chunk g staged; chunk g - 1 done
+        if (g + 1 < G)
+          stage_chunk(ring + ((g + 1) & 1) * kSlotWords, xi, xo, n, no, Sa,
+                      So, k, B, tile, g + 1, vec);
+        stage_boxes(ring + (g & 1) * kSlotWords, 1, tile, B);
+        __syncthreads();
+      }
+      if (!mine) continue;
+      const uint4 mw = __ldg(mrow + g);
+      if ((mw.x | mw.y) == 0u) continue;
+      // pair (i, j) outgoing, pair (j, i) incoming with j active: lane l
+      // tests partner j; a mirror's radius sum is rs_out
+      const int j = __ldg(prow + g * kLanes + lane);
+      const T* jslot = kResident ? ring + (j / kLanes) * kSlotWords : cur;
+      const bool out = (mw.x >> lane) & 1u;
+      const bool inonly = (mw.y >> lane) & 1u;
+      const T rs_out = out ? __ldg(r0 + g * kLanes + lane) : T(0);
+      const T rs_in = inonly ? __ldg(r1 + g * kLanes + lane) : rs_out;
       T g2 = 0;
-      for (int c = 0; c < 3; ++c) {
-        const T lo_j = __ldg(bx + c * So + j);
-        const T hi_j = __ldg(bx + (3 + c) * So + j);
+      for (int c = 0; c < 3; ++c) {   // the gap is symmetric in (i, j)
+        const T lo_j = jslot[kBoxAt + c * kLanes + j % kLanes];
+        const T hi_j = jslot[kBoxAt + (3 + c) * kLanes + j % kLanes];
         const T gap = mfmax(T(0), mfmax(lo_j - hi_i[c], lo_i[c] - hi_j));
         g2 = fma_rn(gap, gap, g2);
       }
       const T r_out = (emax + rs_out) * (T(1) + T(1e-4)) + T(1e-6);
       const T r_in = (emax + rs_in) * (T(1) + T(1e-4)) + T(1e-6);
-      near_out = out && g2 <= r_out * r_out;
-      near_in = in && !mirror && g2 <= r_in * r_in;
-    }
+      const bool near_out = out && g2 <= r_out * r_out;
+      const bool near_in = inonly && g2 <= r_in * r_in;
 
-    unsigned taken = 0u;
-    for (unsigned bits = __ballot_sync(kFull, near_out); bits;
-         bits &= bits - 1u) {
-      const int c = __ffs(bits) - 1;
-      const T rs = __shfl_sync(kFull, rs_out, c);
-      const V3<T> xj = live ? pos3(xi, xo, n, no, Sa, k, base + c, B, b)
-                            : V3<T>{0, 0, 0};
-      const PairDist<T> p = distance(xs, xj, rs);
-      if (!__any_sync(kFull, live && p.d <= e)) continue;
-      taken |= 1u << c;
-      V3<T> g;
-      c_acc += pair_grad(p, vs, ofv, iv2, safe, e, inv_e, &g);
-      acc_out.x += g.x;
-      acc_out.y += g.y;
-      acc_out.z += g.z;
-    }
-    taken &= mirrors;
-    for (unsigned bits = __ballot_sync(kFull, near_in); bits;
-         bits &= bits - 1u) {
-      const int c = __ffs(bits) - 1;
-      const T rs = __shfl_sync(kFull, rs_in, c);
-      const V3<T> xj = live ? pos3(xi, xo, n, no, Sa, k, base + c, B, b)
-                            : V3<T>{0, 0, 0};
-      const PairDist<T> p = distance(xj, xs, rs);
-      taken |= (unsigned)(__any_sync(kFull, live && p.d <= e) != 0) << c;
-    }
-    for (; taken; taken &= taken - 1u) {
-      const int c = __ffs(taken) - 1;
-      const int jj = base + c;
-      const T rs = __shfl_sync(kFull, rs_in, c);
-      V3<T> xj = {0, 0, 0}, vj = {0, 0, 0};
-      if (live) {
-        const long long aj = ((long long)k * Sa + jj) * B + b;
-        xj = {__ldg(xi + aj), __ldg(xi + n + aj), __ldg(xi + 2 * n + aj)};
-        vj = {__ldg(vel + aj), __ldg(vel + n + aj), __ldg(vel + 2 * n + aj)};
+      // the position of lane q's partner for this lane's problem
+      const auto partner_pos = [&](int q) {
+        const int jq = __shfl_sync(kFull, j, q);
+        const T* s = kResident ? ring + (jq / kLanes) * kSlotWords : cur;
+        return slot_pos(s, jq % kLanes, lane);
+      };
+      unsigned taken = 0u;
+      for (unsigned bits = __ballot_sync(kFull, near_out); bits;
+           bits &= bits - 1u) {
+        const int q = __ffs(bits) - 1;
+        const PairDist<T> p = distance(xs, partner_pos(q),
+                                       __shfl_sync(kFull, rs_out, q));
+        if (!__any_sync(kFull, live && p.d <= e)) continue;
+        taken |= 1u << q;
+        const T vv = fma_rn(vs.z, vs.z, fma_rn(vs.y, vs.y, vs.x * vs.x));
+        const T vn = msqrt(vv);
+        const bool safe = vn > T(1e-6);
+        V3<T> gr;
+        c_acc += pair_grad(p, vs, ofs * vn, safe ? rcp_rn(vv) : T(0), safe,
+                           e, inv_e, &gr);
+        acc_out.x += gr.x;
+        acc_out.y += gr.y;
+        acc_out.z += gr.z;
       }
-      const T vvj = fma_rn(vj.z, vj.z, fma_rn(vj.y, vj.y, vj.x * vj.x));
-      const T vnj = msqrt(vvj);
-      const bool safej = vnj > T(1e-6);
-      const PairDist<T> p = distance(xj, xs, rs);
-      V3<T> g;
-      pair_grad(p, vj, ofs * vnj, safej ? rcp_rn(vvj) : T(0), safej, e,
-                inv_e, &g);
-      acc_in.x -= g.x;
-      acc_in.y -= g.y;
-      acc_in.z -= g.z;
+      taken &= mw.z;
+      for (unsigned bits = __ballot_sync(kFull, near_in); bits;
+           bits &= bits - 1u) {
+        const int q = __ffs(bits) - 1;
+        const PairDist<T> p = distance(partner_pos(q), xs,
+                                       __shfl_sync(kFull, rs_in, q));
+        taken |= (unsigned)(__any_sync(kFull, live && p.d <= e) != 0) << q;
+      }
+      for (; taken; taken &= taken - 1u) {
+        const int q = __ffs(taken) - 1;
+        const int jq = __shfl_sync(kFull, j, q);
+        const T rs_q = __shfl_sync(kFull, rs_in, q);
+        V3<T> vj = {0, 0, 0};
+        if (live) {
+          const long long aj = ((long long)k * Sa + jq) * B + b;
+          vj = {__ldcg(vel + aj), __ldcg(vel + n + aj),
+                __ldcg(vel + 2 * n + aj)};
+        }
+        const T vvj = fma_rn(vj.z, vj.z, fma_rn(vj.y, vj.y, vj.x * vj.x));
+        const T vnj = msqrt(vvj);
+        const bool safej = vnj > T(1e-6);
+        const PairDist<T> p = distance(partner_pos(q), xs, rs_q);
+        V3<T> gr;
+        pair_grad(p, vj, ofs * vnj, safej ? rcp_rn(vvj) : T(0), safej, e,
+                  inv_e, &gr);
+        acc_in.x -= gr.x;
+        acc_in.y -= gr.y;
+        acc_in.z -= gr.z;
+      }
     }
-  }
-
-  if (live) {
-    net[at] = acc_out.x + acc_in.x;
-    net[n + at] = acc_out.y + acc_in.y;
-    net[2 * n + at] = acc_out.z + acc_in.z;
-    cost[at] = c_acc;
+    if (mine && live) {
+      net[at] = acc_out.x + acc_in.x;
+      net[n + at] = acc_out.y + acc_in.y;
+      net[2 * n + at] = acc_out.z + acc_in.z;
+      cost[at] = c_acc;
+    }
+    if constexpr (kResident) {
+      if (lane == 0) t = atomicAdd(&next_t, 1);
+      t = __shfl_sync(kFull, t, 0);
+    } else {
+      __syncthreads();              // slot 0: next round
+    }
   }
 }
 
 // Which path a launch takes, by a fixed rule: the staged path wherever its
 // block (one warp per active sphere, up to 16) fits in shared memory, else
-// the tiled path.  block and smem are the main kernel's launch.
+// the tiled path.  block and smem are the float32 launch.
 bool selfcol_path_staged(int Sa, int SI, dim3* block, size_t* smem) {
   const int nw = Sa < kMaxWarps ? Sa : kMaxWarps;
   const size_t staged = smem_words(Sa, Sa + SI, nw) * sizeof(float);
@@ -614,48 +881,70 @@ bool selfcol_path_staged(int Sa, int SI, dim3* block, size_t* smem) {
     *smem = staged;
     return true;
   }
-  *block = dim3(kLanes, kTiledWarps);
-  *smem = 0;
+  *block = dim3(kLanes, Tiled<float>::kWarps);
+  *smem = tiled_smem(Sa + SI, sizeof(float));
   return false;
 }
 
-// Allow the dynamic shared memory a launch needs (above the default 48 KB
-// only by opting in).
-cudaError_t allow_smem(size_t smem) {
+// Allow the dynamic shared memory a launch of fn needs (above the default
+// 48 KB only by opting in).
+cudaError_t allow_smem(const void* fn, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(selfcol_kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)smem);
 }
 
-// The tiled path: a memset of the pair indices, the setup kernel and the
-// main kernel.  scratch holds the (Sa, So) pair indices (int, padded to a
-// multiple of sizeof(T) bytes), then the (Sa, So) radius sums and the
-// boxes (T; ops/selfcol.py scratch_words).
+// The tiled path: one launch, a block per work item.  Enough z-groups of
+// warps that the grid fills every SM's Tiled<T>::kBlocks blocks where
+// m * tiles falls short; each warp takes `rounds` active spheres in turn.
 template <typename T>
 int selfcol_tiled(const T* xi, const T* vel, const T* xo, int m, int Sa,
-                  int SI, int B, const int* pair_i, const int* pair_j,
-                  const T* rsum, int P, const T* eps_self, const T* obs_self,
-                  T* net, T* cost, void* scratch, cudaStream_t st) {
-  const int tiles = (B + kLanes - 1) / kLanes;
-  const int So = Sa + SI;
-  constexpr size_t per = sizeof(T) / sizeof(int);
-  int* pidx = reinterpret_cast<int*>(scratch);
-  T* prs = reinterpret_cast<T*>(pidx + ((size_t)Sa * So + per - 1) / per *
-                                           per);
-  T* box = prs + (size_t)Sa * So;
-  cudaError_t err =
-      cudaMemsetAsync(pidx, 0xff, (size_t)Sa * So * sizeof(int), st);
+                  int SI, int B, const unsigned* masks, const int* partners,
+                  const T* rs, const T* eps_self, const T* obs_self, T* net,
+                  T* cost, cudaStream_t st) {
+  if (masks == nullptr || partners == nullptr || rs == nullptr)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  selfcol_prep_kernel<T>
-      <<<dim3(tiles, m), dim3(kLanes, kTiledWarps), 0, st>>>(
-          xi, xo, m, Sa, SI, B, pair_i, pair_j, rsum, P, pidx, prs, box);
-  err = cudaGetLastError();
+  constexpr int nw = Tiled<T>::kWarps;
+  const long long blocks = (long long)sms * Tiled<T>::kBlocks;
+  const long long cells = (long long)m * ((B + kLanes - 1) / kLanes);
+  const int groups = (Sa + nw - 1) / nw;
+  const long long want = (blocks + cells - 1) / cells;
+  const int zg = (int)(want < groups ? want : groups);
+  const int rounds = (groups + zg - 1) / zg;
+  if (cells * zg > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
+  const size_t smem = tiled_smem(Sa + SI, sizeof(T));
+  const auto aligned = [](const void* p) {
+    return p == nullptr || reinterpret_cast<size_t>(p) % 16 == 0;
+  };
+  const bool vec = B % (16 / sizeof(T)) == 0 && aligned(xi) && aligned(xo);
+  auto* fn = ring_resident(Sa + SI, sizeof(T))
+                 ? selfcol_tiled_kernel<T, true>
+                 : selfcol_tiled_kernel<T, false>;
+  err = allow_smem((const void*)fn, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(tiles, m, (Sa + kTiledWarps - 1) / kTiledWarps);
-  selfcol_tiled_kernel<T><<<grid, dim3(kLanes, kTiledWarps), 0, st>>>(
-      xi, vel, xo, m, Sa, SI, B, pidx, prs, box, eps_self, obs_self, net,
-      cost);
+  fn<<<(unsigned)(cells * zg), dim3(kLanes, nw), smem, st>>>(
+      xi, vel, xo, m, Sa, SI, B, reinterpret_cast<const uint4*>(masks),
+      partners, rs, eps_self, obs_self, net, cost, zg, rounds, vec);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int selfcol_layout(const int* pair_i, const int* pair_j, const T* rsum,
+                   int P, int Sa, int So, unsigned* masks, int* partners,
+                   T* rs, cudaStream_t st) {
+  if (Sa == 0) return 0;
+  const int G = (So + kLanes - 1) / kLanes;
+  const size_t smem = (size_t)3 * G * sizeof(unsigned);
+  cudaError_t err = allow_smem((const void*)selfcol_layout_kernel<T>, smem);
+  if (err != cudaSuccess) return (int)err;
+  selfcol_layout_kernel<T><<<Sa, 256, smem, st>>>(
+      pair_i, pair_j, rsum, P, Sa, So, ring_resident(So, sizeof(T)), masks,
+      partners, rs);
   return (int)cudaGetLastError();
 }
 
@@ -666,7 +955,7 @@ int selfcol_tiled(const T* xi, const T* vel, const T* xo, int m, int Sa,
 // the path (0 staged, 1 tiled).
 int launch_facts(const void* fn, int threads, size_t smem, bool staged,
                  int* info) {
-  cudaError_t err = staged ? allow_smem(smem) : cudaSuccess;
+  cudaError_t err = allow_smem(fn, smem);
   if (err != cudaSuccess) return (int)err;
   int blocks = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads,
@@ -684,16 +973,27 @@ int launch_facts(const void* fn, int threads, size_t smem, bool staged,
   return 0;
 }
 
+// launch_facts of the tiled kernel that a launch for Sa active and SI
+// inactive spheres takes.
+template <typename T>
+int tiled_facts(int Sa, int SI, int* info) {
+  const void* fn = ring_resident(Sa + SI, sizeof(T))
+                       ? (const void*)selfcol_tiled_kernel<T, true>
+                       : (const void*)selfcol_tiled_kernel<T, false>;
+  return launch_facts(fn, Tiled<T>::kThreads,
+                      tiled_smem(Sa + SI, sizeof(T)), false, info);
+}
+
 }  // namespace
 
-// scratch: the tiled path's buffer of 2*Sa*So + m*tiles*6*So words (pair
-// indices, radius sums, boxes; ops/selfcol.py scratch_words), unused (may
-// be null) on the staged path.
+// masks, partners, rs: the tiled path's pair layout (ops/selfcol.py
+// pair_layout), unused (may be null) on the staged path.
 extern "C" int cdx_selfcol(const float* xi, const float* vel, const float* xo,
                            int m, int Sa, int SI, int B, const int* pair_i,
                            const int* pair_j, const float* rsum, int P,
                            const float* eps_self, const float* obs_self,
-                           float* net, float* cost, float* scratch,
+                           float* net, float* cost, const unsigned* masks,
+                           const int* partners, const float* rs,
                            void* stream) {
   if (m == 0 || Sa == 0 || B == 0) return 0;
   if (m > 65535) return (int)cudaErrorInvalidConfiguration;
@@ -701,32 +1001,49 @@ extern "C" int cdx_selfcol(const float* xi, const float* vel, const float* xo,
   size_t smem;
   cudaStream_t st = (cudaStream_t)stream;
   if (selfcol_path_staged(Sa, SI, &block, &smem)) {
-    cudaError_t err = allow_smem(smem);
+    cudaError_t err = allow_smem((const void*)selfcol_kernel, smem);
     if (err != cudaSuccess) return (int)err;
     selfcol_kernel<<<dim3((B + kLanes - 1) / kLanes, m), block, smem, st>>>(
         xi, vel, xo, m, Sa, SI, B, pair_i, pair_j, rsum, P, eps_self,
         obs_self, net, cost);
     return (int)cudaGetLastError();
   }
-  return selfcol_tiled(xi, vel, xo, m, Sa, SI, B, pair_i, pair_j, rsum, P,
-                       eps_self, obs_self, net, cost, scratch, st);
+  return selfcol_tiled(xi, vel, xo, m, Sa, SI, B, masks, partners, rs,
+                       eps_self, obs_self, net, cost, st);
 }
 
-// float64: always the tiled path; scratch of (Sa*So + 1) / 2 * 2 words of
-// pair indices, then 2 * (Sa*So + m*tiles*6*So) words of radius sums and
-// boxes.
+// float64: always the tiled path.
 extern "C" int cdx_selfcol_f64(const double* xi, const double* vel,
                                const double* xo, int m, int Sa, int SI, int B,
                                const int* pair_i, const int* pair_j,
                                const double* rsum, int P,
                                const double* eps_self, const double* obs_self,
-                               double* net, double* cost, void* scratch,
-                               void* stream) {
+                               double* net, double* cost,
+                               const unsigned* masks, const int* partners,
+                               const double* rs, void* stream) {
   if (m == 0 || Sa == 0 || B == 0) return 0;
   if (m > 65535) return (int)cudaErrorInvalidConfiguration;
-  return selfcol_tiled(xi, vel, xo, m, Sa, SI, B, pair_i, pair_j, rsum, P,
-                       eps_self, obs_self, net, cost, scratch,
-                       (cudaStream_t)stream);
+  return selfcol_tiled(xi, vel, xo, m, Sa, SI, B, masks, partners, rs,
+                       eps_self, obs_self, net, cost, (cudaStream_t)stream);
+}
+
+// The tiled path's pair layout from the pair table, one launch: masks
+// (Sa, G, 4) words, partners (Sa, G, 32) and rs (2, Sa, G, 32), G =
+// ceil(So / 32).
+extern "C" int cdx_selfcol_layout(const int* pair_i, const int* pair_j,
+                                  const float* rsum, int P, int Sa, int So,
+                                  unsigned* masks, int* partners, float* rs,
+                                  void* stream) {
+  return selfcol_layout(pair_i, pair_j, rsum, P, Sa, So, masks, partners,
+                        rs, (cudaStream_t)stream);
+}
+
+extern "C" int cdx_selfcol_layout_f64(const int* pair_i, const int* pair_j,
+                                      const double* rsum, int P, int Sa,
+                                      int So, unsigned* masks, int* partners,
+                                      double* rs, void* stream) {
+  return selfcol_layout(pair_i, pair_j, rsum, P, Sa, So, masks, partners,
+                        rs, (cudaStream_t)stream);
 }
 
 // Launch facts of the main kernel for Sa active and SI inactive spheres
@@ -734,13 +1051,12 @@ extern "C" int cdx_selfcol_f64(const double* xi, const double* vel,
 extern "C" int cdx_selfcol_launch_info(int Sa, int SI, int* info) {
   dim3 block;
   size_t smem;
-  const bool staged = selfcol_path_staged(Sa, SI, &block, &smem);
-  const void* fn = staged ? (const void*)selfcol_kernel
-                          : (const void*)selfcol_tiled_kernel<float>;
-  return launch_facts(fn, (int)(block.x * block.y), smem, staged, info);
+  if (selfcol_path_staged(Sa, SI, &block, &smem))
+    return launch_facts((const void*)selfcol_kernel, (int)(block.x * block.y),
+                        smem, true, info);
+  return tiled_facts<float>(Sa, SI, info);
 }
 
 extern "C" int cdx_selfcol_launch_info_f64(int Sa, int SI, int* info) {
-  return launch_facts((const void*)selfcol_tiled_kernel<double>,
-                      kLanes * kTiledWarps, 0, false, info);
+  return tiled_facts<double>(Sa, SI, info);
 }

@@ -46,9 +46,11 @@ _SIGNATURES = {
     # F, mx, my, mz
     "cdx_obstacle_smem_bytes": (_I, _I, _I, _I),
     # xi, vel, xo, m, Sa, SI, B, pair_i, pair_j, rsum, P, eps_self,
-    # obs_self, net, cost, scratch, stream
+    # obs_self, net, cost, layout masks, partners and rs, stream
     "cdx_selfcol": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P,
-                    _P, _P, _P, _P),
+                    _P, _P, _P, _P, _P, _P),
+    # pair_i, pair_j, rsum, P, Sa, So, masks, partners, rs, stream
+    "cdx_selfcol_layout": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
     # Sa, SI, info (6 ints out)
     "cdx_selfcol_launch_info": (_I, _I, _P),
     # seed, iteration, B, m*n, dtype code, z, u, words, stream
@@ -58,7 +60,8 @@ _SIGNATURES = {
 # pointers in place of float ones
 _SIGNATURES.update({f"{name}_f64": _SIGNATURES[name] for name in (
     "cdx_sdf_cell_lookup", "cdx_obstacle", "cdx_obstacle_launch_info",
-    "cdx_obstacle_smem_bytes", "cdx_selfcol", "cdx_selfcol_launch_info")})
+    "cdx_obstacle_smem_bytes", "cdx_selfcol", "cdx_selfcol_layout",
+    "cdx_selfcol_launch_info")})
 
 # the kernels' scalar types: the suffix of each one's entry points
 _SUFFIX = {"float32": "", "float64": "_f64"}

@@ -15,15 +15,17 @@ The kernel has two paths, chosen by a fixed rule that
 :func:`launch_shape` mirrors: the staged path (the pair matrices and the
 spheres of a block in shared memory) wherever its block fits in
 SMEM_BLOCK_MAX bytes, which holds up to 117 spheres, and beyond that the
-tiled path, which uses no shared memory and a global scratch buffer of
-:func:`scratch_words` words that the wrapper allocates.  That rule is
-float32's, the solve's path; float64 (a module created with dtype
-float64) always takes the tiled path.  Another dtype on CUDA raises.
+tiled path, which stages the spheres 32 at a time in a shared-memory
+ring (all of them where :func:`ring_resident`) and reads the pair table
+through its :func:`pair_layout`, an engine constant.  That rule is float32's,
+the solve's path; float64 (a module created with dtype float64) always
+takes the tiled path.  Another dtype on CUDA raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -31,10 +33,16 @@ import torch
 from or_cdchomp_tpu_torch.ops import kernels
 
 LAUNCHES = 0
+LAYOUT_LAUNCHES = 0   # launches of the pair-layout kernel (pair_layout)
 LANES = 32          # problems per warp of the kernel: one vote each
 MAX_WARPS = 16      # warps (active spheres in flight) of a staged block
-TILED_WARPS = 8     # warps (active spheres) of a tiled block
+TILED_WARPS = 16    # warps (own active spheres) of a tiled block
 SMEM_BLOCK_MAX = 232_448   # shared memory one block may use (227 KB)
+# one tiled ring slot, in floats: a 32-sphere chunk's positions for 32
+# problems and the chunk spheres' boxes; the ring's budget holds 8 float32
+# or 4 float64 slots (selfcol.cu kSlotWords, kRingBytesMax)
+SLOT_WORDS = 3 * LANES * LANES + 6 * LANES
+RING_BYTES_MAX = 8 * SLOT_WORDS * 4
 FLOPS_TEST = 12     # per (point, pair, problem): diff, d², rsqrt, d, test
 FLOPS_REACH = 33    # more per pair in reach: hinge, w1, w2, g, the sums
 
@@ -52,6 +60,100 @@ def pair_table(same_link, radii_act, radii_all):
     return ii.astype(np.int32), jj.astype(np.int32), rsum
 
 
+class PairLayout(NamedTuple):
+    """The tiled path's view of a pair table (:func:`pair_layout`); G =
+    ceil(So / 32) groups of 32 lanes per active sphere."""
+    masks: torch.Tensor      # (Sa, G, 4) int32: out, inonly, mirror, groups
+    partners: torch.Tensor   # (Sa, G, 32) int32: the partner of each lane
+    rs: torch.Tensor         # (2, Sa, G, 32): rsum of (i, j), of (j, i)
+
+
+def _words(bits):
+    """(..., 32) bool → (...) int32 words, bit l from entry l."""
+    shift = torch.arange(LANES, device=bits.device)
+    words = (bits.long() << shift).sum(dim=-1)
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
+def pair_layout_ref(pair_i, pair_j, rsum, Sa, So):
+    """Plain version of :func:`pair_layout` (same contract)."""
+    dev = rsum.device
+    G = -(-So // LANES)
+    pi, pj = pair_i.long(), pair_j.long()
+    ok = (pi >= 0) & (pi < Sa) & (pj >= 0) & (pj < So)
+    pi, pj, rv = pi[ok], pj[ok], rsum[ok]
+    act = pj < Sa
+    out = torch.zeros((Sa, G * LANES), dtype=torch.bool, device=dev)
+    inn = torch.zeros_like(out)
+    r = torch.zeros((2, Sa, G * LANES), dtype=rsum.dtype, device=dev)
+    out[pi, pj] = True
+    r[0, pi, pj] = rv
+    inn[pj[act], pi[act]] = True
+    r[1, pj[act], pi[act]] = rv[act]
+    any_ = out | inn
+    if ring_resident(So, rsum.dtype.itemsize):
+        # compacted: each sphere's partners in ascending order, lanes past
+        # them 0 (partner 0, no bit)
+        order = torch.argsort((~any_).to(torch.int8), dim=1, stable=True)
+        count = any_.sum(dim=1)
+        live = torch.arange(G * LANES, device=dev) < count[:, None]
+        partners = torch.where(live, order, 0)
+        out, inn = (torch.gather(t, 1, order) & live for t in (out, inn))
+        r = torch.where(live, torch.gather(r, 2, order.expand(2, -1, -1)), 0)
+        groups = -(-count // LANES)
+    else:
+        # group g is chunk g
+        partners = torch.arange(G * LANES, device=dev).expand(Sa, -1)
+        partners = torch.where(partners < So, partners, 0)
+        groups = torch.full((Sa,), G, device=dev)
+    mirror = out & inn & (r[0] == r[1])
+    bits = torch.stack([out, inn & ~mirror, mirror]).view(3, Sa, G, LANES)
+    masks = torch.cat([_words(bits), groups.to(torch.int32)
+                       .expand(1, G, Sa).permute(0, 2, 1)]).permute(1, 2, 0)
+    return PairLayout(masks.contiguous(),
+                      partners.to(torch.int32).view(Sa, G, LANES).contiguous(),
+                      r.view(2, Sa, G, LANES).contiguous())
+
+
+def pair_layout(pair_i, pair_j, rsum, Sa, So):
+    """The tiled path's pair layout of a pair table (:func:`pair_table`;
+    Sa active spheres, So in all), an engine constant.  Per active sphere
+    i the spheres j it pairs with, as (i, j) or as (j, i) with j active,
+    in G = ceil(So / 32) groups of 32 lanes: where the kernel's ring holds
+    every chunk (:func:`ring_resident` in rsum's dtype), in ascending
+    order and compacted; else group g is chunk g (lane l, sphere 32·g +
+    l).  Per group a word each of ``out`` (pair (i, j) exists),
+    ``inonly`` (pair (j, i) exists, j active, and is no mirror) and
+    ``mirror`` (both exist with equal radius sums in rsum's dtype, so
+    their distances are bit-equal and share one vote), bit l for lane l,
+    and the count of groups that hold a partner; each lane's partner; the
+    radius sums of (i, j) and of (j, i) by lane (0 where no pair).  A CPU
+    rsum runs the plain version, a CUDA one the layout kernel (one
+    launch)."""
+    global LAYOUT_LAUNCHES
+    if rsum.device.type == "cpu":
+        return pair_layout_ref(pair_i, pair_j, rsum, Sa, So)
+    if rsum.device.type != "cuda":
+        raise ValueError(f"pair_layout: unsupported device {rsum.device}")
+    P = pair_i.shape[0]
+    dev = rsum.device
+    dt = kernels.check_dtype(rsum.dtype, "pair_layout")
+    kernels.require(pair_i, "pair_i", torch.int32, (P,), dev)
+    kernels.require(pair_j, "pair_j", torch.int32, (P,), dev)
+    kernels.require(rsum, "rsum", dt, (P,), dev)
+    G = -(-So // LANES)
+    masks = torch.empty((Sa, G, 4), dtype=torch.int32, device=dev)
+    partners = torch.empty((Sa, G, LANES), dtype=torch.int32, device=dev)
+    rs = torch.empty((2, Sa, G, LANES), dtype=dt, device=dev)
+    err = kernels.entry("cdx_selfcol_layout", dt)(
+        pair_i.data_ptr(), pair_j.data_ptr(), rsum.data_ptr(), P, Sa, So,
+        masks.data_ptr(), partners.data_ptr(), rs.data_ptr(),
+        kernels.stream_ptr(rsum))
+    kernels.check(err, "pair_layout")
+    LAYOUT_LAUNCHES += 1
+    return PairLayout(masks, partners, rs)
+
+
 def _distance(xi, xo, pi, pj, rsum):
     """Per (point, pair, problem): diff = x_i − x_j (3, m, P, B), 1/|diff|
     and d = |diff| − rsum (m, P, B)."""
@@ -64,8 +166,10 @@ def _distance(xi, xo, pi, pj, rsum):
     return diff, inv_cd, d2 * inv_cd - rsum[:, None]
 
 
-def selfcol_pairs_ref(xi, vel, xo, pair_i, pair_j, rsum, eps_self, obs_self):
-    """Plain version of :func:`selfcol_pairs` (same contract)."""
+def selfcol_pairs_ref(xi, vel, xo, pair_i, pair_j, rsum, eps_self, obs_self,
+                      layout=None):
+    """Plain version of :func:`selfcol_pairs` (same contract; it reads
+    the pair table, not ``layout``)."""
     Sa = xi.shape[2]
     pi = pair_i.long()
     pj = pair_j.long()
@@ -96,7 +200,8 @@ def selfcol_pairs_ref(xi, vel, xo, pair_i, pair_j, rsum, eps_self, obs_self):
     return net, cost
 
 
-def selfcol_pairs(xi, vel, xo, pair_i, pair_j, rsum, eps_self, obs_self):
+def selfcol_pairs(xi, vel, xo, pair_i, pair_j, rsum, eps_self, obs_self,
+                  layout=None):
     """Self-collision net workspace gradient and per-sphere cost.
 
     xi, vel: (3, m, Sa, B) active sphere positions / velocities; xo
@@ -108,6 +213,10 @@ def selfcol_pairs(xi, vel, xo, pair_i, pair_j, rsum, eps_self, obs_self):
     Returns (net (3, m, Sa, B), cost (m, Sa, B)): per (point, active
     sphere) the summed workspace gradient and the pair cost scaled by
     obs_factor_self·‖ẋ_i‖ (pallas_selfcol.py:selfcol_pairs).
+
+    ``layout``: the table's :func:`pair_layout` on xi's device (the
+    engine's, built once); on the tiled path a call without one builds it
+    first, in one more launch.  The plain version does not read it.
 
     The kernel takes float32 or float64 tensors (another dtype raises
     ValueError); every tensor of floats has xi's dtype.
@@ -133,15 +242,22 @@ def selfcol_pairs(xi, vel, xo, pair_i, pair_j, rsum, eps_self, obs_self):
     kernels.require(obs_self, "obs_self", dt, (B,), dev)
     net = torch.empty((3, m, Sa, B), dtype=dt, device=dev)
     cost = torch.empty((m, Sa, B), dtype=dt, device=dev)
-    words = scratch_words(m, Sa, SI, B, dt.itemsize)
-    scratch = (torch.empty(words, dtype=torch.int32, device=dev) if words
-               else None)
+    ptrs = (None, None, None)
+    if launch_shape(Sa, SI, dt.itemsize)[0] == "tiled":
+        if layout is None:
+            layout = pair_layout(pair_i, pair_j, rsum, Sa, Sa + SI)
+        G = -(-(Sa + SI) // LANES)
+        for t, name, tdt, shape in zip(
+                layout, ("masks", "partners", "rs"),
+                (torch.int32, torch.int32, dt),
+                ((Sa, G, 4), (Sa, G, LANES), (2, Sa, G, LANES))):
+            kernels.require(t, f"layout.{name}", tdt, shape, dev)
+        ptrs = tuple(t.data_ptr() for t in layout)
     err = kernels.entry("cdx_selfcol", dt)(
         xi.data_ptr(), vel.data_ptr(), xo.data_ptr(), m, Sa, SI, B,
         pair_i.data_ptr(), pair_j.data_ptr(), rsum.data_ptr(), P,
         eps_self.data_ptr(), obs_self.data_ptr(), net.data_ptr(),
-        cost.data_ptr(), None if scratch is None else scratch.data_ptr(),
-        kernels.stream_ptr(xi))
+        cost.data_ptr(), *ptrs, kernels.stream_ptr(xi))
     kernels.check(err, "selfcol_pairs")
     LAUNCHES += 1
     return net, cost
@@ -210,33 +326,34 @@ def smem_words(Sa, So, nw):
             + nw * -(-So // LANES))
 
 
+def ring_resident(So, itemsize=4):
+    """Whether a tiled block for So spheres holds every 32-sphere chunk of
+    its work item in its shared-memory ring: where they fit in
+    RING_BYTES_MAX, up to 256 spheres in float32, 128 in float64; else
+    two slots, through which each round streams the chunks (selfcol.cu
+    ring_resident)."""
+    return -(-So // LANES) * SLOT_WORDS * itemsize <= RING_BYTES_MAX
+
+
+def tiled_smem(So, itemsize=4):
+    """Dynamic shared memory of a tiled block, bytes: its ring
+    (selfcol.cu tiled_smem)."""
+    slots = -(-So // LANES) if ring_resident(So, itemsize) else 2
+    return slots * SLOT_WORDS * itemsize
+
+
 def launch_shape(Sa, SI, itemsize=4):
     """The kernel's path for Sa active and SI inactive spheres and its
-    main launch: (path, threads, dynamic shared memory bytes) per block.
-    In float32 (``itemsize`` 4) the staged path wherever its block fits
-    in SMEM_BLOCK_MAX, else the tiled path (selfcol.cu
+    launch: (path, threads, dynamic shared memory bytes) per block.  In
+    float32 (``itemsize`` 4) the staged path wherever its block fits in
+    SMEM_BLOCK_MAX, else the tiled path (selfcol.cu
     selfcol_path_staged); in float64 (8) the tiled path."""
-    if itemsize != 4:
-        return "tiled", LANES * TILED_WARPS, 0
-    nw = min(Sa, MAX_WARPS)
-    smem = 4 * smem_words(Sa, Sa + SI, nw)
-    if smem <= SMEM_BLOCK_MAX:
-        return "staged", LANES * nw, smem
-    return "tiled", LANES * TILED_WARPS, 0
-
-
-def scratch_words(m, Sa, SI, B, itemsize=4):
-    """Global scratch of a call, in 4-byte words: none on the staged
-    path; on the tiled path the (Sa, So) matrix of int32 pair indices
-    (padded to a whole number of floats of ``itemsize`` bytes), then the
-    (Sa, So) matrix of radius sums and each sphere's box (6 floats) per
-    point and 32-problem tile."""
-    if launch_shape(Sa, SI, itemsize)[0] == "staged":
-        return 0
-    So = Sa + SI
-    per = itemsize // 4
-    return (-(-Sa * So // per) * per
-            + per * (Sa * So + m * -(-B // LANES) * 6 * So))
+    if itemsize == 4:
+        nw = min(Sa, MAX_WARPS)
+        smem = 4 * smem_words(Sa, Sa + SI, nw)
+        if smem <= SMEM_BLOCK_MAX:
+            return "staged", LANES * nw, smem
+    return "tiled", LANES * TILED_WARPS, tiled_smem(Sa + SI, itemsize)
 
 
 def launch_info(Sa, SI, dtype=torch.float32):

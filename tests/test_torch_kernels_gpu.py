@@ -124,8 +124,9 @@ def test_obstacle_kernel_field_tie(cuda):
 
 def _selfcol_args(rng, dev, m=11, Sa=9, SI=2, B=37, scale=0.25):
     same = np.eye(Sa, Sa + SI, dtype=bool)
-    same[0, 1] = same[1, 0] = True
-    if SI:
+    if Sa > 1:
+        same[0, 1] = same[1, 0] = True
+    if SI and Sa > 2:
         same[2, Sa] = True
     ra = rng.uniform(0.03, 0.1, size=Sa)
     rall = np.concatenate([ra, rng.uniform(0.03, 0.1, size=SI)])
@@ -647,15 +648,182 @@ def test_selfcol_kernel_any_sphere_count(cuda, S, SI):
                                     (117, 0), (117, 1), (118, 0), (125, 1),
                                     (600, 1), (1024, 0)])
 def test_selfcol_launch_shape_matches_kernel(cuda, Sa, SI):
-    """The wrapper's mirror of the dispatch rule and of the staged
-    layout (selfcol.launch_shape) against cdx_selfcol_launch_info; no
-    path spills or needs more than a block may have."""
-    path, threads, smem = selfcol.launch_shape(Sa, SI)
-    info = selfcol.launch_info(Sa, SI)
-    assert (info["path"], info["threads"], info["smem_bytes"]) == \
-        (path, threads, smem)
-    assert smem <= selfcol.SMEM_BLOCK_MAX and info["blocks_per_sm"] >= 1
-    assert info["local_bytes"] == 0
+    """The wrapper's mirror of the dispatch rule, of the staged layout
+    and of the tiled block (16 warps, its ring of chunk slots;
+    selfcol.launch_shape) against cdx_selfcol_launch_info, in float32
+    and float64; no path spills or needs more than a block may have, and
+    a float32 tiled block keeps the two blocks per SM it is built for."""
+    for dtype in (torch.float32, torch.float64):
+        path, threads, smem = selfcol.launch_shape(Sa, SI, dtype.itemsize)
+        info = selfcol.launch_info(Sa, SI, dtype)
+        assert (info["path"], info["threads"], info["smem_bytes"]) == \
+            (path, threads, smem)
+        assert smem <= selfcol.SMEM_BLOCK_MAX and info["blocks_per_sm"] >= 1
+        assert info["local_bytes"] == 0
+        if path == "tiled" and dtype == torch.float32:
+            assert threads == 512 and info["blocks_per_sm"] >= 2
+
+
+# ---- K2's tiled path ------------------------------------------------------
+
+@pytest.mark.parametrize("B", [1, 33, 256])
+@pytest.mark.parametrize("SI", [0, 1, 3])
+@pytest.mark.parametrize("S", [118, 126, 200, 300])
+def test_selfcol_tiled_matches_plain(cuda, S, SI, B):
+    """The tiled path at S spheres in all (SI inactive; at 118 with 3
+    inactive the staged block still fits, and takes them): the ring
+    holds every chunk up to 256 spheres and streams at 300; a call
+    without a layout builds it (one launch of the layout kernel,
+    bit-equal to the plain builder), then one K2 launch matches the
+    plain version and a second is bit-equal to it."""
+    Sa = S - SI
+    args = _selfcol_args(np.random.default_rng(S * 10 + SI + B), cuda, m=3,
+                         Sa=Sa, SI=SI, B=B, scale=0.6)
+    tiled = selfcol.launch_shape(Sa, SI)[0] == "tiled"
+    assert tiled == ((S, SI) != (118, 3))
+    n0 = selfcol.LAYOUT_LAUNCHES
+    got, want = _selfcol_check(args)
+    assert selfcol.LAYOUT_LAUNCHES == n0 + tiled
+    layout = selfcol.pair_layout(*args[3:6], Sa, S)
+    plain = selfcol.pair_layout_ref(*(a.cpu() for a in args[3:6]), Sa, S)
+    for g, w in zip(layout, plain):
+        assert torch.equal(g.cpu(), w)
+    again = selfcol.selfcol_pairs(*args, layout)
+    assert selfcol.LAYOUT_LAUNCHES == n0 + tiled + 1
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+    assert float(want[1].abs().max()) > 0.0
+
+
+@pytest.mark.parametrize("S, m, B", [(126, 264, 1), (300, 264, 1),
+                                     (126, 99, 256), (300, 600, 1)])
+def test_selfcol_tiled_rounds(cuda, S, m, B):
+    """Shapes with as many (point, tile) work items as the card holds
+    blocks (264 points of one problem) or more (the grab's 99 x 8, or
+    600): no z-groups, so each warp takes its active spheres in rounds
+    (8 at 126 spheres, 19 at 300), every chunk resident (126) or streamed
+    (300)."""
+    args = _selfcol_args(np.random.default_rng(S + m), cuda, m=m, Sa=S - 1,
+                         SI=1, B=B, scale=0.6)
+    got, want = _selfcol_check(args)
+    again = selfcol.selfcol_pairs(*args)
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+    assert float(want[1].abs().max()) > 0.0
+
+
+def test_selfcol_tiled_uneven_mirror(cuda):
+    """An active pair (i, j) whose radius sum differs from its mirror
+    (j, i)'s: the layout marks no mirror, so (j, i) takes a vote of its
+    own with its own radius sum, and the result stays the plain one."""
+    args = _selfcol_args(np.random.default_rng(12), cuda, m=4, Sa=125, SI=1,
+                         B=64, scale=0.5)
+    pi, pj, rsum = args[3:6]
+    p = int(((pi == 4) & (pj == 9)).nonzero())
+    q = int(((pi == 9) & (pj == 4)).nonzero())
+    rsum[p] += 0.03
+    args[0][:, :, 9] = args[0][:, :, 4] + 0.05     # the pair in reach
+    layout = selfcol.pair_layout(pi, pj, rsum, 125, 126)
+    words = layout.masks.cpu()
+    g, lane = divmod(layout.partners[4].flatten().tolist().index(9), 32)
+    assert int(words[4, g, 2]) >> lane & 1 == 0     # no mirror bit
+    assert int(words[4, g, 1]) >> lane & 1 == 1     # (9, 4) votes alone
+    assert float(rsum[p]) != float(rsum[q])
+    _, want = _selfcol_check(args)
+    assert float(want[0][:, :, 4].abs().max()) > 0.0
+
+
+@pytest.mark.parametrize("case", ["out_of_reach", "stationary"])
+def test_selfcol_tiled_exact_zeros(cuda, case):
+    """The tiled path with every sphere beyond reach, or all at rest:
+    exactly 0 everywhere."""
+    args = _selfcol_args(np.random.default_rng(15), cuda, m=3, Sa=125,
+                         SI=1, B=40)
+    if case == "out_of_reach":
+        far = 100.0 * torch.arange(126, dtype=torch.float32, device=cuda)
+        args[0][0] += far[:125, None]
+        args[2][0] += far[125:, None]
+    else:
+        args[1].zero_()
+    net, cost = selfcol.selfcol_pairs(*args)
+    assert float(net.abs().max()) == 0.0 and float(cost.abs().max()) == 0.0
+
+
+def test_selfcol_tiled_partial_warp_vote(cuda):
+    """The tiled path at a ragged B = 33 (a second warp of one live
+    lane): only problems 3 and 32 have a pair in reach, so two warps
+    take the pair math and the problems out of reach add nothing."""
+    args = _selfcol_args(np.random.default_rng(16), cuda, m=2, Sa=125,
+                         SI=1, B=33)
+    far = 100.0 * torch.arange(126, dtype=torch.float32, device=cuda)
+    args[0][0] += far[:125, None]
+    args[2][0] += far[125:, None]
+    for b in (3, 32):
+        args[0][:, :, 40, b] = args[0][:, :, 41, b] + 0.01
+    votes, near, taken, reach = selfcol.vote_stats(args[0], *args[2:7])
+    assert 0 < taken <= near < votes and reach < taken * selfcol.LANES
+    (net, cost), (_, cost_r) = _selfcol_check(args)
+    hit = cost_r.abs().sum(dim=(0, 1)) > 0
+    assert hit.nonzero().flatten().tolist() == [3, 32]
+    assert float(cost[:, :, ~hit].abs().max()) == 0.0
+    assert float(net[:, :, :, ~hit].abs().max()) == 0.0
+
+
+def _grab_run(device, dtype, B=40):
+    """Config 1's world with a 110-sphere tray held at the hand (126
+    spheres, 125 active) at n_points 11, and a batch of B perturbed
+    problems."""
+    from or_cdchomp_tpu_torch.parallel.batch import problem_batch_from_grid
+    import or_cdchomp_tpu_torch as pt
+
+    model = pt.wam7().with_spheres([
+        ("handbase", (0.03 * (a - 4.5), 0.03 * (c - 5.0), 0.22), 0.015)
+        for a in range(10) for c in range(11)])
+    mod = pt.CHOMPModule(dtype=dtype, device=device)
+    mod.add_kinbody(pt.KinBody("table", pt.Scene.build(
+        boxes=[((0.75, 0.0, 0.5, 0, 0, 0, 1), (0.25, 0.4, 0.02))])))
+    start = np.array([2.5, -1.8, 0.0, 2.0, 0.0, 0.2, 0.0])
+    goal = np.array([0.4, 0.6, 0.1, 1.3, 0.0, -0.5, 0.0])
+    robot = pt.Robot("wam", model, q_active=start)
+    mod.add_robot(robot)
+    robot.enabled = False
+    mod.computedistancefield(kinbody="table", cube_extent=0.08)
+    robot.enabled = True
+    run = mod.runs[mod.create(robot="wam", adofgoal=goal, lambda_=100.0,
+                              obs_factor=500.0, n_points=11)]
+    rng = np.random.default_rng(3)
+    return run, problem_batch_from_grid(
+        run.problem, start + 0.3 * rng.normal(size=(B, 7)),
+        goal + 0.3 * rng.normal(size=(B, 7)), run.engine)
+
+
+def test_selfcol_engine_layout(cuda):
+    """The engine's layout (built once, on the host) equals the layout
+    kernel's on its pair table, bit for bit; a K2 call that passes it
+    and one that passes none give bit-equal results; a step launches
+    K2 once and builds no layout."""
+    from or_cdchomp_tpu_torch.chomp.cost_soa import sphere_kinematics
+
+    run, probs = _grab_run(cuda, torch.float32)
+    eng = run.engine
+    _, x, vel, _ = sphere_kinematics(eng.spec, eng.fk, probs)
+    assert x.shape[2] == eng.n_spheres_active == 125
+    for g, w in zip(selfcol.pair_layout(*eng.pairs, 125, 126),
+                    eng.pair_layout):
+        assert torch.equal(g, w)
+    xo = probs.inactive_pos.permute(2, 1, 0).contiguous()
+    args = [x, vel, xo, *eng.pairs, probs.epsilon_self, probs.obs_factor_self]
+    n0 = selfcol.LAUNCHES, selfcol.LAYOUT_LAUNCHES
+    with_layout = selfcol.selfcol_pairs(*args, eng.pair_layout)
+    assert (selfcol.LAUNCHES, selfcol.LAYOUT_LAUNCHES) == (n0[0] + 1, n0[1])
+    without = selfcol.selfcol_pairs(*args)
+    assert (selfcol.LAUNCHES, selfcol.LAYOUT_LAUNCHES) == (n0[0] + 2,
+                                                           n0[1] + 1)
+    for a, b in zip(with_layout, without):
+        assert torch.equal(a, b)
+    _, want = _selfcol_check(args + [eng.pair_layout])
+    assert float(want[1].abs().max()) > 0.0
+    n0 = selfcol.LAUNCHES, selfcol.LAYOUT_LAUNCHES
+    eng.step_batched(probs)
+    assert (selfcol.LAUNCHES, selfcol.LAYOUT_LAUNCHES) == (n0[0] + 1, n0[1])
 
 
 # ---- float64: the kernels' double instantiations --------------------------
@@ -712,9 +880,12 @@ def test_obstacle_kernel_float64_launch_info(cuda):
 
 
 @pytest.mark.parametrize("Sa, SI, B", [(9, 2, 37), (15, 1, 256), (15, 0, 5),
-                                       (120, 1, 40)])
+                                       (120, 1, 40), (1, 1, 256), (1, 3, 33),
+                                       (126, 0, 40), (125, 1, 256),
+                                       (299, 1, 33)])
 def test_selfcol_kernel_float64(cuda, Sa, SI, B):
-    """K2's float64 kernel (the tiled path at every sphere count) against
+    """K2's float64 kernel (the tiled path at every sphere count: its
+    ring resident up to 128 spheres, streamed at 300) against
     selfcol_pairs_ref in float64 on the card, within RTOL64, one launch,
     bit-equal across two launches."""
     args = _double(_selfcol_args(np.random.default_rng(Sa + B), cuda, m=5,

@@ -270,8 +270,11 @@ def test_grabbed_tray_run_matches_jax(fk64):
 def test_selfcol_shared_memory_rule(SI):
     """Every sphere count up to 1,024 has a path whose block fits: the
     staged path where its shared memory (growing with S) fits, which is
-    up to 117 spheres with at most one inactive, the tiled path (none,
-    and a global scratch buffer) beyond."""
+    up to 117 spheres with at most one inactive, the tiled path beyond:
+    16 warps, and a ring of 32-sphere slots in shared memory, one per
+    chunk up to 256 spheres (resident), two (streamed) beyond, so that
+    two blocks share an SM."""
+    slot = 4 * (3 * 32 * 32 + 6 * 32)
     for S in range(SI + 1, 1025):
         Sa = S - SI
         path, threads, smem = selfcol.launch_shape(Sa, SI)
@@ -282,23 +285,26 @@ def test_selfcol_shared_memory_rule(SI):
             assert path == "staged"
         if S >= 118 and SI <= 1:
             assert path == "tiled"
-        assert smem == (staged if path == "staged" else 0)
+        assert selfcol.ring_resident(S) == (S <= 256)
+        slots = -(-S // 32) if S <= 256 else 2
+        assert smem == (staged if path == "staged" else slots * slot)
         assert smem <= selfcol.SMEM_BLOCK_MAX
-        assert threads == 32 * (min(Sa, 16) if path == "staged" else 8)
-        assert (selfcol.scratch_words(99, Sa, SI, 256) > 0) == \
-            (path == "tiled")
+        assert threads == 32 * (min(Sa, 16) if path == "staged" else 16)
+        # two tiled blocks fit an SM's 228 KB with 1 KB reserved each
+        assert path == "staged" or 2 * (smem + 1024) <= 233_472
 
 
 @pytest.mark.parametrize("SI", [0, 1])
 def test_selfcol_float64_rule(SI):
-    """float64 takes the tiled path at every sphere count; its scratch
-    holds the int32 pair indices padded to whole 8-byte words, then the
-    radius sums and boxes in 8-byte floats."""
-    for Sa in (1, 2, 15, 117, 300):
+    """float64 takes the tiled path at every sphere count, in blocks of
+    16 warps; its ring slots hold 8-byte floats, so every chunk of up to
+    128 spheres stays resident (four slots, as many bytes as float32's
+    eight), two slots stream beyond."""
+    slot = 8 * (3 * 32 * 32 + 6 * 32)
+    for Sa in (1, 2, 15, 117, 127, 128, 300):
         So = Sa + SI
-        assert selfcol.launch_shape(Sa, SI, 8) == ("tiled", 256, 0)
-        words = selfcol.scratch_words(99, Sa, SI, 256, 8)
-        idx = Sa * So + (Sa * So) % 2
-        assert words == idx + 2 * (Sa * So + 99 * 8 * 6 * So)
-        assert words % 2 == 0
-
+        slots = -(-So // 32) if So <= 128 else 2
+        assert selfcol.ring_resident(So, 8) == (So <= 128)
+        assert selfcol.launch_shape(Sa, SI, 8) == ("tiled", 512,
+                                                   slots * slot)
+        assert slots * slot <= selfcol.RING_BYTES_MAX == 8 * slot // 2

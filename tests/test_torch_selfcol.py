@@ -161,3 +161,95 @@ def test_vote_stats_counts_warps():
     votes, near, taken, reach = stats
     assert stats == (4, 2, 2, 2)
     assert selfcol.flops(1, B, 2, reach) == 12 * 80 + 33 * 2
+
+
+def _engine_table(grab):
+    """The pair table the engine builds for the WAM7 + hand (15 active
+    spheres, 1 inactive), or with a 110-sphere tray grabbed at the hand
+    (125 + 1): active-first order, same-link pairs dropped, rsum in
+    float32 as on the card."""
+    import or_cdchomp_tpu_torch as pt
+
+    model = pt.wam7()
+    if grab:
+        model = model.with_spheres([("handbase", (0.03 * a, 0.03 * c, 0.2),
+                                     0.015)
+                                    for a in range(10) for c in range(11)])
+    act = model.sphere_active_mask()
+    order = np.concatenate([np.where(act)[0], np.where(~act)[0]])
+    n_act = int(act.sum())
+    radii = model.sphere_radius[order]
+    same = model.sphere_same_link()[order][:, order][:n_act]
+    pi, pj, rsum = pair_table(same, radii[:n_act], radii)
+    return (torch.as_tensor(pi), torch.as_tensor(pj),
+            torch.as_tensor(rsum, dtype=torch.float32), n_act, len(radii))
+
+
+def _synthetic_table(Sa, SI, seed):
+    """A pair table of Sa + SI spheres on random links of 3 to 9 spheres,
+    radii in float32 (as on the card)."""
+    rng = np.random.default_rng(seed)
+    link = np.repeat(np.arange(Sa + SI), rng.integers(3, 10, Sa + SI))
+    link = link[:Sa + SI]
+    radii = rng.uniform(0.01, 0.06, Sa + SI)
+    pi, pj, rsum = pair_table(link[:Sa, None] == link[None, :], radii[:Sa],
+                              radii)
+    return (torch.as_tensor(pi), torch.as_tensor(pj),
+            torch.as_tensor(rsum, dtype=torch.float32), Sa, Sa + SI)
+
+
+@pytest.mark.parametrize("case", ["wam7", "grab", "uneven_mirror",
+                                  "streamed"])
+def test_pair_layout_entries(case):
+    """The tiled path's pair layout against its pair table, entry by
+    entry: each sphere's partners (ascending, compacted into groups of
+    32 where the ring holds every chunk, 125 + 1 spheres at the grab;
+    group g = chunk g past 256 spheres in float32), each lane's mask bits
+    and both radius sums, the group count.  ``uneven_mirror`` gives one
+    active pair (i, j) another radius sum than (j, i): no mirror, so
+    (j, i) takes its own vote, with its own radius sum."""
+    if case == "streamed":
+        pi, pj, rsum, Sa, So = _synthetic_table(290, 10, 3)
+    else:
+        pi, pj, rsum, Sa, So = _engine_table(case == "grab")
+    if case == "uneven_mirror":
+        rsum = rsum.clone()
+        rsum[int((pj < Sa).nonzero()[0])] += 0.01
+    compact = case != "streamed"
+    assert selfcol.ring_resident(So) == compact
+    layout = selfcol.pair_layout(pi, pj, rsum, Sa, So)
+    G = -(-So // 32)
+    assert tuple(layout.masks.shape) == (Sa, G, 4)
+    assert tuple(layout.partners.shape) == (Sa, G, 32)
+    assert tuple(layout.rs.shape) == (2, Sa, G, 32)
+    assert layout.rs.dtype == torch.float32
+    table = {(int(a), int(b)): float(r) for a, b, r in zip(pi, pj, rsum)}
+    words = layout.masks.numpy().view(np.uint32)
+    partners = layout.partners.numpy()
+    rs = layout.rs.numpy()
+    mirrors = 0
+    for i in range(Sa):
+        mates = [j for j in range(So)
+                 if (i, j) in table or (j < Sa and (j, i) in table)]
+        lanes = mates if compact else list(range(So))
+        groups = -(-len(mates) // 32) if compact else G
+        assert (words[i, :, 3] == groups).all()
+        for q in range(G * 32):
+            g, l = divmod(q, 32)
+            bit = [bool((words[i, g, k] >> l) & 1) for k in range(3)]
+            if q >= len(lanes):
+                assert partners[i, g, l] == 0 and not any(bit)
+                assert rs[0, i, g, l] == rs[1, i, g, l] == 0.0
+                continue
+            j = lanes[q]
+            out = (i, j) in table
+            inc = j < Sa and (j, i) in table
+            mirror = out and inc and table[(i, j)] == table[(j, i)]
+            mirrors += mirror
+            assert partners[i, g, l] == j
+            assert bit == [out, inc and not mirror, mirror], (i, j)
+            assert rs[0, i, g, l] == (table[(i, j)] if out else 0.0)
+            assert rs[1, i, g, l] == (table[(j, i)] if inc else 0.0)
+    # every active pair has its mirror, but the one made uneven
+    active = sum(b < Sa for _, b in table)
+    assert mirrors == active - 2 * (case == "uneven_mirror")
