@@ -1212,3 +1212,122 @@ def test_per_problem_fk_card_matches_cpu(cuda):
     for a, b in zip(*out):
         np.testing.assert_allclose(a.double().cpu().numpy(), b.numpy(),
                                    rtol=1e-4, atol=1e-5)
+
+
+# ---- launches on a card that is not the current device ----------------------
+
+@pytest.fixture
+def other_card():
+    """The machine's last card, with cuda:0 the runtime's current device:
+    every kernel must launch on its tensors' card whatever is current.
+    Skipped with fewer than two cards."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    yield torch.device("cuda", torch.cuda.device_count() - 1)
+    torch.cuda.set_device(0)
+
+
+def _on_card(args, dev):
+    return [a.to(dev) if isinstance(a, torch.Tensor) else a for a in args]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kernel", ["obstacle", "lookup", "selfcol_staged",
+                                    "selfcol_tiled", "layout", "draw"])
+def test_kernels_launch_on_a_card_that_is_not_current(other_card, kernel,
+                                                      dtype):
+    """K1 (both of its paths), the raw lookup, K2 on its staged path
+    (float32; float64 always tiles) and its tiled path, the layout
+    kernel and the draw, each launched on the last card while cuda:0 is
+    current: one launch, its results on that card and equal to the plain
+    version on the CPU (bit for bit where the plain version is; K2
+    within its rtol), and cuda:0 still current afterwards."""
+    from or_cdchomp_tpu_torch.ops import draw
+
+    dev = other_card
+    rng = np.random.default_rng(41)
+    if kernel == "obstacle":
+        args = _k1_args(rng, "cpu")
+        args = [a.to(dtype) if a.is_floating_point() else a for a in args]
+        want = sdf_lookup.obstacle_ref(*args, want_dirs=True)
+        n0 = sdf_lookup.LAUNCHES
+        got = sdf_lookup.obstacle(*_on_card(args, dev), want_dirs=True)
+        main = sdf_lookup.obstacle(*_on_card(args, dev))
+        assert sdf_lookup.LAUNCHES == n0 + 2
+        assert torch.equal(main[0].cpu(), want[0])
+        assert torch.equal(main[1].cpu(), want[1])
+    elif kernel == "lookup":
+        F, mx, my, mz, Q = 2, 5, 6, 7, 1000
+        sub = rng.integers(0, [mx, my, mz], size=(F, Q, 3)).astype(np.int32)
+        nbr = np.clip(sub + rng.choice([-1, 1], size=(F, Q, 3)), 0,
+                      np.array([mx, my, mz]) - 1).astype(np.int32)
+        args = (torch.as_tensor(rng.normal(size=(F, mx, my, mz)),
+                                dtype=dtype),
+                torch.as_tensor(sub), torch.as_tensor(nbr))
+        want = sdf_lookup.sdf_cell_lookup_ref(*args)
+        n0 = sdf_lookup.LOOKUP_LAUNCHES
+        got = sdf_lookup.sdf_cell_lookup(*_on_card(args, dev))
+        assert sdf_lookup.LOOKUP_LAUNCHES == n0 + 1
+    elif kernel.startswith("selfcol"):
+        Sa, SI = (9, 2) if kernel == "selfcol_staged" else (125, 1)
+        args = _selfcol_args(rng, "cpu", m=3, Sa=Sa, SI=SI, B=37,
+                             scale=0.6)
+        args = [a.to(dtype) if a.is_floating_point() else a for a in args]
+        path = selfcol.launch_shape(Sa, SI, dtype.itemsize)[0]
+        if kernel == "selfcol_staged" and path != "staged":
+            pytest.skip("float64 has no staged path")
+        assert path == kernel.removeprefix("selfcol_")
+        want = selfcol.selfcol_pairs_ref(*args)
+        card = _on_card(args, dev)
+        layout = (selfcol.pair_layout(*card[3:6], Sa, Sa + SI)
+                  if path == "tiled" else None)
+        n0 = selfcol.LAUNCHES
+        got = selfcol.selfcol_pairs(*card, layout)
+        assert selfcol.LAUNCHES == n0 + 1
+        assert float(want[1].abs().max()) > 0.0
+        for g, w in zip(got, want):
+            assert g.device == dev
+            np.testing.assert_allclose(
+                g.double().cpu().numpy(), w.double().numpy(),
+                rtol=RTOL if dtype == torch.float32 else RTOL64,
+                atol=(RTOL if dtype == torch.float32 else RTOL64)
+                * max(float(w.abs().max()), 1e-30))
+        got = want = ()
+    elif kernel == "layout":
+        args = _selfcol_args(rng, "cpu", m=3, Sa=125, SI=1, B=4)[3:6]
+        args[2] = args[2].to(dtype)
+        want = selfcol.pair_layout_ref(*args, 125, 126)
+        n0 = selfcol.LAYOUT_LAUNCHES
+        got = selfcol.pair_layout(*_on_card(args, dev), 125, 126)
+        assert selfcol.LAYOUT_LAUNCHES == n0 + 1
+    else:
+        seed = torch.as_tensor(np.array([7, -3, 2 ** 40 + 1] * 11))
+        it = torch.arange(33, dtype=torch.int32) * 7
+        want = draw.hmc_draw(seed, it, 99, 7, dtype, want_words=True)[2:]
+        n0 = draw.LAUNCHES
+        got = draw.hmc_draw(seed.to(dev), it.to(dev), 99, 7, dtype,
+                            want_words=True)[2:]
+        assert draw.LAUNCHES == n0 + 1
+    torch.cuda.synchronize(dev)
+    for g, w in zip(got, want):
+        assert g.device == dev
+        assert torch.equal(g.cpu(), w)
+    assert torch.cuda.current_device() == 0
+
+
+def test_kernels_refuse_tensors_on_two_cards(other_card):
+    """A kernel call whose tensors lie on two cards raises ValueError
+    before it launches."""
+    rng = np.random.default_rng(42)
+    args = _on_card(_k1_args(rng, "cpu"), other_card)
+    args[3] = args[3].to("cuda:0")                 # the field stack
+    n0 = sdf_lookup.LAUNCHES
+    with pytest.raises(ValueError, match="expected"):
+        sdf_lookup.obstacle(*args)
+    sargs = _on_card(_selfcol_args(rng, "cpu"), other_card)
+    sargs[1] = sargs[1].to("cuda:0")               # the velocities
+    with pytest.raises(ValueError, match="expected"):
+        selfcol.selfcol_pairs(*sargs)
+    assert sdf_lookup.LAUNCHES == n0
