@@ -137,13 +137,12 @@ def hmc_draw(seed, iteration, m, n, dtype, want_words=False):
     u = torch.empty((B,), dtype=dtype, device=dev)
     words = (torch.empty((B, J + 1, 4), dtype=torch.int32, device=dev)
              if want_words else None)
-    err = kernels.library().cdx_hmc_draw(
-        seed.data_ptr(), iteration.data_ptr(), B, m * n,
-        _DTYPE_CODES[dtype], z.data_ptr(), u.data_ptr(),
-        None if words is None else words.data_ptr(),
-        kernels.stream_ptr(seed))
-    kernels.check(err, "hmc_draw")
-    LAUNCHES += 1
+    kernels.launch(seed, "hmc_draw", kernels.library().cdx_hmc_draw,
+                   seed.data_ptr(), iteration.data_ptr(), B, m * n,
+                   _DTYPE_CODES[dtype], z.data_ptr(), u.data_ptr(),
+                   None if words is None else words.data_ptr())
+    with kernels.COUNTS:
+        LAUNCHES += 1
     if not want_words:
         return z, u
     w = words.to(torch.int64) & _M32

@@ -85,11 +85,12 @@ def sdf_cell_lookup(data, sub, nbr):
     kernels.require(sub, "sub", torch.int32, (F, Q, 3), dev)
     kernels.require(nbr, "nbr", torch.int32, (F, Q, 3), dev)
     out = torch.empty((4, F, Q), dtype=dt, device=dev)
-    err = kernels.entry("cdx_sdf_cell_lookup", dt)(
-        data.data_ptr(), F, mx, my, mz, sub.data_ptr(), nbr.data_ptr(),
-        Q, out.data_ptr(), kernels.stream_ptr(data))
-    kernels.check(err, "sdf_cell_lookup")
-    LOOKUP_LAUNCHES += 1
+    kernels.launch(data, "sdf_cell_lookup",
+                   kernels.entry("cdx_sdf_cell_lookup", dt), data.data_ptr(),
+                   F, mx, my, mz, sub.data_ptr(), nbr.data_ptr(), Q,
+                   out.data_ptr())
+    with kernels.COUNTS:
+        LOOKUP_LAUNCHES += 1
     return out[0], out[1], out[2], out[3]
 
 
@@ -266,13 +267,15 @@ def launch_geometry(m, S, B, F, mx, my, mz, n_sm, occupancy, itemsize=4):
 
 
 @functools.lru_cache(maxsize=None)
-def launch_info(smem, dtype=torch.float32):
-    """The kernel's launch on the card for blocks of THREADS threads and
-    ``smem`` bytes, in ``dtype``: resident blocks per SM, registers and
-    local (spill) bytes per thread."""
+def launch_info(smem, dtype=torch.float32, device_index=None):
+    """The kernel's launch on card ``device_index`` (None: the current
+    one) for blocks of THREADS threads and ``smem`` bytes, in ``dtype``:
+    resident blocks per SM, registers and local (spill) bytes per
+    thread."""
     info = (ctypes.c_int * 3)()
-    kernels.check(kernels.entry("cdx_obstacle_launch_info", dtype)(
-        THREADS, smem, info), "obstacle launch_info")
+    with kernels.on_card(device_index):
+        kernels.check(kernels.entry("cdx_obstacle_launch_info", dtype)(
+            THREADS, smem, info), "obstacle launch_info")
     return dict(blocks_per_sm=info[0], registers=info[1],
                 local_bytes=info[2])
 
@@ -286,7 +289,7 @@ def device_geometry(m, S, B, F, mx, my, mz, device_index,
         device_index).multi_processor_count
     return launch_geometry(
         m, S, B, F, mx, my, mz, n_sm,
-        lambda smem: launch_info(smem, dtype)["blocks_per_sm"],
+        lambda smem: launch_info(smem, dtype, device_index)["blocks_per_sm"],
         dtype.itemsize)
 
 
@@ -377,7 +380,8 @@ def obstacle_launch(geom, x, vel, acc, data, sizes, lengths,
     wgrad = torch.empty((3, m, S, B), dtype=dt, device=dev)
     dirs = (torch.empty((F, m, S, B), dtype=torch.int32, device=dev)
             if want_dirs else None)
-    err = kernels.entry("cdx_obstacle", dt)(
+    kernels.launch(
+        x, "obstacle", kernels.entry("cdx_obstacle", dt),
         x.data_ptr(), vel.data_ptr(), acc.data_ptr(), m, S, B,
         data.data_ptr(), F, mx, my, mz, sizes.data_ptr(),
         lengths.data_ptr(), pose_gsdf_world.data_ptr(),
@@ -385,9 +389,9 @@ def obstacle_launch(geom, x, vel, acc, data, sizes, lengths,
         radii.data_ptr(), epsilon.data_ptr(), obs_factor.data_ptr(),
         cost.data_ptr(), wgrad.data_ptr(),
         dirs.data_ptr() if want_dirs else None, geom.grid, geom.threads,
-        geom.per, geom.smem_bytes, kernels.stream_ptr(x))
-    kernels.check(err, "obstacle")
-    LAUNCHES += 1
+        geom.per, geom.smem_bytes)
+    with kernels.COUNTS:
+        LAUNCHES += 1
     if want_dirs:
         return cost, wgrad, dirs
     return cost, wgrad

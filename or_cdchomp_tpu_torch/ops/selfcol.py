@@ -145,12 +145,12 @@ def pair_layout(pair_i, pair_j, rsum, Sa, So):
     masks = torch.empty((Sa, G, 4), dtype=torch.int32, device=dev)
     partners = torch.empty((Sa, G, LANES), dtype=torch.int32, device=dev)
     rs = torch.empty((2, Sa, G, LANES), dtype=dt, device=dev)
-    err = kernels.entry("cdx_selfcol_layout", dt)(
-        pair_i.data_ptr(), pair_j.data_ptr(), rsum.data_ptr(), P, Sa, So,
-        masks.data_ptr(), partners.data_ptr(), rs.data_ptr(),
-        kernels.stream_ptr(rsum))
-    kernels.check(err, "pair_layout")
-    LAYOUT_LAUNCHES += 1
+    kernels.launch(rsum, "pair_layout",
+                   kernels.entry("cdx_selfcol_layout", dt), pair_i.data_ptr(),
+                   pair_j.data_ptr(), rsum.data_ptr(), P, Sa, So,
+                   masks.data_ptr(), partners.data_ptr(), rs.data_ptr())
+    with kernels.COUNTS:
+        LAYOUT_LAUNCHES += 1
     return PairLayout(masks, partners, rs)
 
 
@@ -253,13 +253,14 @@ def selfcol_pairs(xi, vel, xo, pair_i, pair_j, rsum, eps_self, obs_self,
                 ((Sa, G, 4), (Sa, G, LANES), (2, Sa, G, LANES))):
             kernels.require(t, f"layout.{name}", tdt, shape, dev)
         ptrs = tuple(t.data_ptr() for t in layout)
-    err = kernels.entry("cdx_selfcol", dt)(
+    kernels.launch(
+        xi, "selfcol_pairs", kernels.entry("cdx_selfcol", dt),
         xi.data_ptr(), vel.data_ptr(), xo.data_ptr(), m, Sa, SI, B,
         pair_i.data_ptr(), pair_j.data_ptr(), rsum.data_ptr(), P,
         eps_self.data_ptr(), obs_self.data_ptr(), net.data_ptr(),
-        cost.data_ptr(), *ptrs, kernels.stream_ptr(xi))
-    kernels.check(err, "selfcol_pairs")
-    LAUNCHES += 1
+        cost.data_ptr(), *ptrs)
+    with kernels.COUNTS:
+        LAUNCHES += 1
     return net, cost
 
 
@@ -356,14 +357,16 @@ def launch_shape(Sa, SI, itemsize=4):
     return "tiled", LANES * TILED_WARPS, tiled_smem(Sa + SI, itemsize)
 
 
-def launch_info(Sa, SI, dtype=torch.float32):
-    """The kernel's main launch on the card for Sa active and SI inactive
-    spheres in ``dtype``: threads and dynamic shared memory per block,
-    resident blocks per SM, registers and local (spill) bytes per thread,
-    and the path taken ("staged" or "tiled")."""
+def launch_info(Sa, SI, dtype=torch.float32, device_index=None):
+    """The kernel's main launch on card ``device_index`` (None: the
+    current one) for Sa active and SI inactive spheres in ``dtype``:
+    threads and dynamic shared memory per block, resident blocks per SM,
+    registers and local (spill) bytes per thread, and the path taken
+    ("staged" or "tiled")."""
     info = (ctypes.c_int * 6)()
-    kernels.check(kernels.entry("cdx_selfcol_launch_info", dtype)(
-        Sa, SI, info), "selfcol launch_info")
+    with kernels.on_card(device_index):
+        kernels.check(kernels.entry("cdx_selfcol_launch_info", dtype)(
+            Sa, SI, info), "selfcol launch_info")
     out = dict(zip(("threads", "smem_bytes", "blocks_per_sm", "registers",
                     "local_bytes"), info))
     out["path"] = ("staged", "tiled")[info[5]]
