@@ -26,6 +26,13 @@ and read just after:
   are held against their plain versions again on its inputs, and K1 is
   timed there.
 
+Config 1's B = 256 solve also runs over two replicas on the one card
+(``BatchSolver(engine, devices=[card, card])``: the engine and a copy,
+one layout-kernel launch, 128 rows each from two host threads), K1 and
+K2 counted per replica and every row bit-equal to ``devices=[card]``,
+the two walls in turns, and the layout kernel timed at its pair table
+(config 1's 207 pairs; the grab's 3,617 in the grab phase).
+
 Then the libcd math library: every quat / spatial function of the
 pose-algebra API in float32 on 65,536 seeded inputs against the port's
 CPU float64; the per-problem FK (fk_spheres, apply_sphere_jacT) at
@@ -110,6 +117,16 @@ Any failed phase exits non-zero.
     python3 chip_smoke.py
     python3 chip_smoke.py --split 4   # the seeded split alone, 4 ranks
                                       # (NCCL, one per card, on 4 cards)
+    python3 chip_smoke.py --cards 4   # one process over 4 cards
+
+``--cards N`` (a machine of N >= 2 cards): every kernel launched on the
+last card with cuda:0 current against its plain version; then
+BatchSolver's default over all N cards in one process (a replica and a
+host thread per card) against one card: config 1's B = 256 solve and
+config 3's seeded batch (best_of_batch), every row bit-equal, K1 and K2
+counted per replica; config 5 at B = 10,240; config 1's float64 B = 4
+batch over two cards against the CPU's float64; solves/s of one card
+and of N in turns; and the ``--split N`` reading (split_solve).
 
 Prints the card (nvidia-smi name, power limit), the obstacle kernel's
 launch per configuration and the self-collision kernel's (grid, threads,
@@ -214,6 +231,8 @@ F64_TRAJ_BAR = 1e-9     # max |Δtraj|, card against CPU
 F64_COST_RTOL = 1e-9
 F64_GRID_BAR = 1e-12    # multigrid_interp_grad, relative to max(1, |v|)
 F64_BATCH = 4
+# --cards N: warm walls of one card against every card, taken in turns
+CARD_REPS = 4
 
 # the port's scripts, each run in a child process at its own defaults
 SCRIPTS = ("drive_torch.py", "examples/torch_wam7_demo.py",
@@ -542,14 +561,21 @@ def string_drive(pt, mod, tsr, n_iter=N_ITER, n_points=N_POINTS):
     return cost, out, before, after, rn.spec
 
 
-def quadratic_hook(torch, dtype, device):
+def quadratic_hook(torch):
     """create's start_cost for the front door: ½·FRONT_W·Σ (T −
     FRONT_QMID)² over the moving points, pulling them towards a mid
-    posture; torch ops only, so torch.func.vmap takes it."""
-    mid = torch.as_tensor(FRONT_QMID, dtype=dtype, device=device)
+    posture; torch ops only, so torch.func.vmap takes it.  The mid
+    posture is made on the device and in the dtype of the rows the hook
+    is given, once each: a BatchSolver over several cards runs the hook
+    on each card's rows, so it holds no tensor of a fixed card."""
+    mids = {}
 
     def hook(T):
-        d = T - mid
+        key = (T.device, T.dtype)
+        if key not in mids:
+            mids[key] = torch.as_tensor(FRONT_QMID, dtype=T.dtype,
+                                        device=T.device)
+        d = T - mids[key]
         return 0.5 * FRONT_W * torch.sum(d * d), FRONT_W * d
     return hook
 
@@ -1385,7 +1411,8 @@ def grab_phase(torch, pt, card, dev):
     """The robot grabs a tray of 110 spheres at its hand (S = 126, 125
     active, 1 inactive): K2's tiled path against its plain version and
     itself, a B = 256 solve of 100 iterations with its launches, the CPU
-    float64 re-solve of 8 problems, and release.  Returns K2's entry."""
+    float64 re-solve of 8 problems, and release; the layout kernel at its
+    pair table, timed.  Returns K2's and the layout kernel's entries."""
     from or_cdchomp_tpu_torch.chomp import cost_soa
     from or_cdchomp_tpu_torch.ops import sdf_lookup, selfcol
     from or_cdchomp_tpu_torch.parallel.batch import (BatchSolver,
@@ -1457,6 +1484,11 @@ def grab_phase(torch, pt, card, dev):
     check_launches(launches, N_ITER, "grab")
     check(selfcol.LAYOUT_LAUNCHES == 0, "grab: the step built a pair layout")
     entry["launches"] = launches["selfcol"]
+    # the layout kernel at the grab's pair table: the engine builds its
+    # layout on the host, so the grab's iterate launches it no time
+    entry_layout = layout_entry(torch, selfcol, eng.pairs, Sa, Sa + SI,
+                                "selfcol_layout_grab", card)
+    entry_layout["launches"] = 0
     check(bool(torch.isfinite(costs).all() and torch.isfinite(out.traj).all()),
           "grab: non-finite costs or trajectories")
 
@@ -1475,7 +1507,7 @@ def grab_phase(torch, pt, card, dev):
     check(len(robot.model.sphere_radius) == 16
           and tray.grabbed_by is None, "release")
     print(f"release: {len(robot.model.sphere_radius)} spheres")
-    return entry
+    return entry, entry_layout
 
 
 def front_door_phase(torch, pt, card, dev):
@@ -1547,7 +1579,7 @@ def front_door_phase(torch, pt, card, dev):
     # -- B = 256 batches: start_tsr, and a start_cost hook --------------------
     _, run1 = bench_module(pt, f32, dev)
     starts, goals = bench_endpoints(BATCH)
-    hook = quadratic_hook(torch, f32, dev)
+    hook = quadratic_hook(torch)
     runs = {"config 1": run1,
             "start_tsr": mod.runs[mod.create(**run_kw(), start_tsr=tsr)],
             "start_cost": mod.runs[mod.create(**run_kw(), start_cost=hook)]}
@@ -1631,7 +1663,7 @@ def front_door_phase(torch, pt, card, dev):
     cpu_runs = {
         "start_tsr": mod64.runs[mod64.create(**run_kw(), start_tsr=tsr)],
         "start_cost": mod64.runs[mod64.create(
-            **run_kw(), start_cost=quadratic_hook(torch, f64, cpu))]}
+            **run_kw(), start_cost=quadratic_hook(torch))]}
     for k, r in cpu_runs.items():
         t0 = time.perf_counter()
         p64 = problem_batch_from_grid(r.problem, starts[:N_CHECK],
@@ -2363,7 +2395,7 @@ def split_solve(torch, pt, card, dev, nranks):
     for old in outdir.glob("rank*.pt"):
         old.unlink()
     eng3, probs3 = seeded_hmc_batch(pt, f32, dev)
-    solver3 = BatchSolver(eng3)
+    solver3 = BatchSolver(eng3, devices=[dev])
     t0 = time.perf_counter()
     out3, fin3, done3 = solver3.solve(probs3, N_ITER, tol=-math.inf)
     best3, idx3 = best_of_batch(out3, fin3)
@@ -2439,6 +2471,7 @@ def split_solve(torch, pt, card, dev, nranks):
              for r in range(nranks)]
     check(all(torch.equal(b, bests[0]) for b in bests),
           "distributed: the ranks' best differ")
+    return res, wall3
 
 
 def checkpoint_phase(torch, pt, card, dev):
@@ -3192,6 +3225,418 @@ def scripts_phase(card):
     print(f"scripts phase: {time.perf_counter() - t_all} s")
 
 
+# ---- one process over several devices ---------------------------------------
+
+class ReplicaLaunches:
+    """While entered, counts the K1 and K2 launches of each replica of a
+    BatchSolver (``solver.replicas``), told apart by the field stack (K1)
+    and the pair table (K2) each launch reads: every replica holds its
+    own.  The wrappers' own counts are not touched."""
+
+    def __init__(self, sdf_lookup, cost_soa, solver):
+        import threading
+
+        self.mods = sdf_lookup, cost_soa
+        self.k1 = {r.fields.data.data_ptr(): i
+                   for i, r in enumerate(solver.replicas)}
+        self.k2 = {r.pairs[2].data_ptr(): i
+                   for i, r in enumerate(solver.replicas)}
+        check(len(self.k1) == len(self.k2) == len(solver.replicas),
+              "replicas share a field stack or a pair table")
+        self.counts = [{"obstacle": 0, "selfcol": 0}
+                       for _ in solver.replicas]
+        self.lock = threading.Lock()
+
+    def __enter__(self):
+        sdf_lookup, cost_soa = self.mods
+        self.inner = sdf_lookup.obstacle_launch, cost_soa.selfcol_pairs
+        k1, k2 = self.inner
+
+        def obstacle_launch(geom, x, vel, acc, data, *args, **kw):
+            with self.lock:
+                self.counts[self.k1[data.data_ptr()]]["obstacle"] += 1
+            return k1(geom, x, vel, acc, data, *args, **kw)
+
+        def selfcol_pairs(*args, **kw):
+            with self.lock:
+                self.counts[self.k2[args[5].data_ptr()]]["selfcol"] += 1
+            return k2(*args, **kw)
+
+        sdf_lookup.obstacle_launch = obstacle_launch
+        cost_soa.selfcol_pairs = selfcol_pairs
+        return self
+
+    def __exit__(self, *exc):
+        sdf_lookup, cost_soa = self.mods
+        sdf_lookup.obstacle_launch, cost_soa.selfcol_pairs = self.inner
+        return False
+
+
+def sync_all(torch):
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def in_turns(torch, fns, reps):
+    """Warm walls of each of ``fns`` ({label: call}), taken in turns
+    (every card synchronised around each call); {label: walls}."""
+    walls = {k: [] for k in fns}
+    for _ in range(reps):
+        for k, fn in fns.items():
+            sync_all(torch)
+            t0 = time.perf_counter()
+            fn()
+            sync_all(torch)
+            walls[k].append(time.perf_counter() - t0)
+    return walls
+
+
+def print_rates(walls, batch, what, card):
+    """solves/s from the median wall of each label, with the spread."""
+    for k, w in walls.items():
+        med = statistics.median(w)
+        print(f"{what}, {k}: median warm wall {med} s of {w} (spread "
+              f"{min(w)} - {max(w)} s), {batch / med} solves/s "
+              f"({batch / max(w)} - {batch / min(w)}) on {card}")
+
+
+def layout_entry(torch, selfcol, pairs, Sa, So, name, card):
+    """The pair-layout kernel on a pair table against its plain version
+    on the card (bit-equal), timed; its kernel entry (launches unset)."""
+    got = selfcol.pair_layout(*pairs, Sa, So)
+    want = selfcol.pair_layout_ref(*pairs, Sa, So)
+    err = max(compare(torch, f"{name} {k}", g, w, exact=True)
+              for k, g, w in zip(("masks", "partners", "rs"), got, want))
+    t = timings(torch, lambda: selfcol.pair_layout(*pairs, Sa, So),
+                lambda: selfcol.pair_layout_ref(*pairs, Sa, So))
+    P = pairs[0].shape[0]
+    # no PyTorch call computes the layout (a sort, a scatter and bit
+    # packing at the least)
+    entry = kernel_entry(
+        name, "or_cdchomp_tpu_torch/csrc/selfcol.cu",
+        "or_cdchomp_tpu/ops/pallas_selfcol.py:197", err, t,
+        selfcol.layout_traffic_bytes(P, Sa, So, pairs[2].element_size()), 0)
+    print(f"{name} (P={P}, Sa={Sa}, So={So}): bit-equal to its plain "
+          f"version; per call {t[0]:.4f} ms vs plain {t[1]:.4f} ms; device "
+          f"{entry['ms']} ms vs plain {entry['plain_ms']} ms, bound "
+          f"{entry['bound_ms']} ms ({entry['bound_by']}), share "
+          f"{entry['bound_share']:.4f} on {card}")
+    return entry
+
+
+def replica_solve(torch, sdf_lookup, selfcol, cost_soa, make_solver, fn,
+                  steps, label):
+    """Counts zeroed, then ``make_solver()`` (building any replica it
+    lacks: one layout launch each) and ``fn(solver)`` under
+    ReplicaLaunches: every replica launches K1 and K2 ``steps`` times, and
+    the wrappers' counts are the replicas' sums.  Returns (solver, fn's
+    result, the wrappers' counts, wall)."""
+    counts_zero(sdf_lookup, selfcol)
+    selfcol.LAYOUT_LAUNCHES = 0
+    sync_all(torch)
+    t0 = time.perf_counter()
+    solver = make_solver()
+    with ReplicaLaunches(sdf_lookup, cost_soa, solver) as tally:
+        out = fn(solver)
+    sync_all(torch)
+    wall = time.perf_counter() - t0
+    launches = dict(counts(sdf_lookup, selfcol),
+                    selfcol_layout=selfcol.LAYOUT_LAUNCHES)
+    devs = [str(d) for d in solver.devices]
+    print(f"{label}: {len(devs)} replicas on {devs}, launches {launches}, "
+          f"per replica {tally.counts}, {wall:.3f} s (first call, replicas "
+          f"built)")
+    for i, c in enumerate(tally.counts):
+        check(c == {"obstacle": steps, "selfcol": steps},
+              f"{label}: replica {i} launched {c}, expected {steps} each")
+    check(launches["obstacle"] == launches["selfcol"] == steps * len(devs),
+          f"{label}: launches {launches}")
+    return solver, out, launches, wall
+
+
+def same_solve(torch, label, got, want):
+    """A split solve against one device's: the state of every row
+    bit-equal (trajectory, iteration, HMC schedule), the final costs'
+    largest difference printed and held bit-equal too."""
+    (out, fin), (out1, fin1) = got, want
+    for k in ("traj", "iteration", "resample_iter", "leapfrog_first"):
+        a, b = getattr(out, k), getattr(out1, k)
+        check(torch.equal(a, b), f"{label}: {k} differs from one device "
+              f"(max {float((a.double() - b.double()).abs().max())})")
+    d = float((fin.double() - fin1.double()).abs().max())
+    print(f"{label}: every row's state bit-equal to one device's; final "
+          f"costs max |Δ| {d}, bit-equal {torch.equal(fin, fin1)}")
+    check(torch.equal(fin, fin1), f"{label}: final costs differ by {d}")
+
+
+def devices_phase(torch, pt, card, dev, engine, probs):
+    """Config 1's B = 256 solve(100) on devices=[dev, dev]: two replicas
+    (the engine and a copy, built here: one layout launch) stepping 128
+    rows each from two host threads on one card, K1 and K2 counted per
+    replica (101 each), every row bit-equal to devices=[dev]; the two
+    walls in turns; the layout kernel at config 1's pair table against
+    its plain version, timed.  Returns the layout kernel's entry."""
+    from or_cdchomp_tpu_torch.chomp import cost_soa
+    from or_cdchomp_tpu_torch.ops import sdf_lookup, selfcol
+    from or_cdchomp_tpu_torch.parallel.batch import BatchSolver
+
+    one = BatchSolver(engine, devices=[dev])
+    out1, fin1, _ = one.solve(probs, N_ITER)
+    solver, (out2, fin2, done2), launches, _ = replica_solve(
+        torch, sdf_lookup, selfcol, cost_soa,
+        lambda: BatchSolver(engine, devices=[dev, dev]),
+        lambda s: s.solve(probs, N_ITER), N_ITER + 1,
+        "devices phase, config 1 solve")
+    check(solver.replicas[0] is engine and solver.replicas[1] is not engine,
+          "devices phase: replicas")
+    check(launches["selfcol_layout"] == 1 and done2 == N_ITER,
+          f"devices phase: {launches['selfcol_layout']} layout launches, "
+          f"{done2} steps")
+    check([p[1:] for p in solver._placement(BATCH)]
+          == [(0, BATCH // 2), (BATCH // 2, BATCH)], "devices phase: rows")
+    same_solve(torch, "devices phase", (out2, fin2), (out1, fin1))
+    walls = in_turns(torch, {
+        "devices=[dev]": lambda: one.solve(probs, N_ITER),
+        "devices=[dev, dev]": lambda: solver.solve(probs, N_ITER)}, 3)
+    print_rates(walls, BATCH, f"devices phase, config 1 solve({N_ITER})",
+                card)
+    entry = layout_entry(torch, selfcol, engine.pairs,
+                         engine.n_spheres_active, len(engine._sphere_order),
+                         "selfcol_layout", card)
+    entry["launches"] = launches["selfcol_layout"]
+    return entry
+
+
+def guard_phase(torch, pt, card, last):
+    """Every kernel launched on the last card with cuda:0 current, each
+    against its plain version on the same inputs: config 1's world
+    through CHOMPModule(device=last), K1 (both paths) and K2's staged
+    path at its B = 256 batch, K2's tiled path and K1 in float64 on the
+    same inputs, the layout kernel on its pair table, the raw lookup at
+    random cells, the draw on seeds arange(256); then two steps of the
+    engine there."""
+    import numpy as np
+
+    from or_cdchomp_tpu_torch.chomp import cost_soa
+    from or_cdchomp_tpu_torch.ops import draw, sdf_lookup, selfcol
+    from or_cdchomp_tpu_torch.parallel.batch import problem_batch_from_grid
+
+    torch.cuda.set_device(0)
+    _, run = bench_module(pt, torch.float32, last)
+    eng = run.engine
+    starts, goals = bench_endpoints(BATCH)
+    probs = problem_batch_from_grid(run.problem, starts, goals, eng)
+    _, x, vel, acc = cost_soa.sphere_kinematics(eng.spec, eng.fk, probs)
+    check(x.device == last and torch.cuda.current_device() == 0,
+          f"guard: inputs on {x.device}, current "
+          f"{torch.cuda.current_device()}")
+    before = (sdf_lookup.LAUNCHES, sdf_lookup.LOOKUP_LAUNCHES,
+              selfcol.LAUNCHES, selfcol.LAYOUT_LAUNCHES, draw.LAUNCHES)
+    oargs = obstacle_args(eng, probs, x, vel, acc)
+    check_obstacle(torch, sdf_lookup, oargs, "guard obstacle")
+    xo = probs.inactive_pos.permute(2, 1, 0).contiguous()
+    sargs = (x, vel, xo, *eng.pairs, probs.epsilon_self,
+             probs.obs_factor_self)
+    check(selfcol.launch_shape(15, 1)[0] == "staged", "guard: K2 path")
+    for g, w, k in zip(selfcol.selfcol_pairs(*sargs),
+                       selfcol.selfcol_pairs_ref(*sargs), ("net", "cost")):
+        compare(torch, f"guard selfcol staged {k}", g, w)
+    d = [a.double() if a.is_floating_point() else a for a in sargs]
+    layout = selfcol.pair_layout(*d[3:6], 15, 16)
+    for g, w, k in zip(layout, selfcol.pair_layout_ref(*d[3:6], 15, 16),
+                       ("masks", "partners", "rs")):
+        compare(torch, f"guard layout f64 {k}", g, w, exact=True)
+    got, want = (selfcol.selfcol_pairs(*d, layout),
+                 selfcol.selfcol_pairs_ref(*d))
+    for g, w, k in zip(got, want, ("net", "cost")):
+        compare(torch, f"guard selfcol tiled f64 {k}", g, w,
+                rtol=F64_KERNEL_RTOL)
+    d1 = [a.double() if a.is_floating_point() else a for a in oargs]
+    for g, w in zip(sdf_lookup.obstacle(*d1), sdf_lookup.obstacle_ref(*d1)):
+        compare(torch, "guard obstacle f64", g, w, exact=True)
+    for g, w, k in zip(selfcol.pair_layout(*eng.pairs, 15, 16),
+                       selfcol.pair_layout_ref(*eng.pairs, 15, 16),
+                       ("masks", "partners", "rs")):
+        compare(torch, f"guard layout {k}", g, w, exact=True)
+    rng = np.random.default_rng(5)
+    F, mx, my, mz = eng.fields.data.shape
+    Q = 100_000
+    sub = rng.integers(0, [mx, my, mz], size=(F, Q, 3)).astype(np.int32)
+    nbr = np.clip(sub + rng.choice([-1, 1], size=(F, Q, 3)), 0,
+                  np.array([mx, my, mz]) - 1).astype(np.int32)
+    largs = (eng.fields.data, torch.as_tensor(sub, device=last),
+             torch.as_tensor(nbr, device=last))
+    compare(torch, "guard sdf_cell_lookup",
+            torch.stack(sdf_lookup.sdf_cell_lookup(*largs)),
+            torch.stack(sdf_lookup.sdf_cell_lookup_ref(*largs)), exact=True)
+    seed = torch.arange(BATCH, device=last)
+    it = torch.full((BATCH,), 3, dtype=torch.int32, device=last)
+    got = draw.hmc_draw(seed, it, eng.spec.m, eng.spec.n, torch.float32,
+                        want_words=True)
+    want = draw.hmc_draw_ref(seed, it, eng.spec.m, eng.spec.n,
+                             torch.float32, want_words=True)
+    for g, w, k in zip(got[2:], want[2:], ("z words", "u words")):
+        compare(torch, f"guard draw {k}", g, w, exact=True)
+    out, costs = eng.iterate_batched(probs, 2)
+    torch.cuda.synchronize(last)
+    after = (sdf_lookup.LAUNCHES, sdf_lookup.LOOKUP_LAUNCHES,
+             selfcol.LAUNCHES, selfcol.LAYOUT_LAUNCHES, draw.LAUNCHES)
+    made = [a - b for a, b in zip(after, before)]
+    print(f"guard: on {last} with cuda:{torch.cuda.current_device()} "
+          f"current, launches (K1, raw lookup, K2, layout, draw) {made}: "
+          f"K1 both paths and float64 bit-equal, K2 staged within "
+          f"{KERNEL_RTOL} and tiled (float64) within {F64_KERNEL_RTOL}, "
+          f"layout, lookup and draw words bit-equal to their plain "
+          f"versions; two steps there, costs finite "
+          f"{bool(torch.isfinite(costs).all())}")
+    check(made == [5, 1, 4, 2, 1], f"guard: launches {made}")
+    check(out.traj.device == last and bool(torch.isfinite(costs).all())
+          and torch.cuda.current_device() == 0, "guard: the steps")
+
+
+def cards_phase(torch, pt, card, ncards):
+    """The port's BatchSolver over every card of the machine in one
+    process (its default), against devices=[cuda:0]: config 1's B = 256
+    solve(100), config 3's seeded HMC batch (seeds arange(256)) with
+    best_of_batch, each row bit-equal to one card and K1 / K2 counted per
+    replica; config 5 at B = 10,240, iterate(100), likewise; config 1's
+    float64 B = 4 batch over two cards within F64_TRAJ_BAR of the CPU's
+    float64; then solves/s for one card and for every card, in turns."""
+    import numpy as np
+
+    from or_cdchomp_tpu_torch.chomp import cost_soa
+    from or_cdchomp_tpu_torch.ops import draw, sdf_lookup, selfcol
+    from or_cdchomp_tpu_torch.parallel.batch import (BatchSolver,
+                                                     best_of_batch,
+                                                     problem_batch_from_grid)
+
+    devs = [torch.device("cuda", i) for i in range(ncards)]
+    dev, f32 = devs[0], torch.float32
+    _, run = bench_module(pt, f32, dev)
+    eng = run.engine
+    starts, goals = bench_endpoints(BATCH)
+    probs = problem_batch_from_grid(run.problem, starts, goals, eng)
+    one = BatchSolver(eng, devices=[dev])
+    ref = one.solve(probs, N_ITER)
+    many, got, _, _ = replica_solve(
+        torch, sdf_lookup, selfcol, cost_soa, lambda: BatchSolver(eng),
+        lambda s: s.solve(probs, N_ITER), N_ITER + 1,
+        f"cards, config 1 solve({N_ITER}) at B={BATCH}")
+    check(many.devices == devs, f"cards: default devices {many.devices}")
+    same_solve(torch, "cards, config 1", got[:2], ref[:2])
+
+    eng3, probs3 = seeded_hmc_batch(pt, f32, dev)
+    one3 = BatchSolver(eng3, devices=[dev])
+    ref3 = one3.solve(probs3, N_ITER)
+    draw.LAUNCHES = 0
+    many3, got3, _, _ = replica_solve(
+        torch, sdf_lookup, selfcol, cost_soa, lambda: BatchSolver(eng3),
+        lambda s: s.solve(probs3, N_ITER), N_ITER + 1,
+        f"cards, config 3 seeded solve({N_ITER}) at B={BATCH}")
+    check(draw.LAUNCHES == ncards * N_ITER,
+          f"cards, config 3: {draw.LAUNCHES} draw launches")
+    same_solve(torch, "cards, config 3 seeded", got3[:2], ref3[:2])
+    idx, idx1 = best_of_batch(*got3[:2])[1], best_of_batch(*ref3[:2])[1]
+    print(f"cards, config 3: best_of_batch index {int(idx)} (one card "
+          f"{int(idx1)}), {draw.LAUNCHES} draw launches")
+    check(int(idx) == int(idx1), "cards, config 3: best index")
+
+    starts5, goals5 = bench_endpoints(BATCH_POD)
+    probs5 = problem_batch_from_grid(run.problem, starts5, goals5, eng)
+    ref5 = one.iterate(probs5, N_ITER)
+    _, got5, _, _ = replica_solve(
+        torch, sdf_lookup, selfcol, cost_soa, lambda: many,
+        lambda s: s.iterate(probs5, N_ITER), N_ITER,
+        f"cards, config 5 iterate({N_ITER}) at B={BATCH_POD}")
+    check(bool(torch.isfinite(got5[1]).all()), "cards, config 5: costs")
+    same_solve(torch, "cards, config 5", (got5[0], got5[1][-1]),
+               (ref5[0], ref5[1][-1]))
+    del got5, ref5
+
+    f64, cpu = torch.float64, torch.device("cpu")
+    cache = CACHE_DIR / "f64_cards.dat"
+    CACHE_DIR.mkdir(parents=True, exist_ok=True)
+    cache.unlink(missing_ok=True)
+    s4, g4 = bench_endpoints(F64_BATCH)
+    outs = []
+    for where in (dev, cpu):                       # the card first
+        mod, robot = config1_world(pt, f64, where)
+        robot.enabled = False
+        mod.computedistancefield(kinbody="table", cube_extent=0.04,
+                                 cache_filename=str(cache),
+                                 require_cache=bool(outs))
+        robot.enabled = True
+        r64 = mod.runs[mod.create(**run_kw())]
+        p64 = problem_batch_from_grid(r64.problem, s4, g4, r64.engine)
+        if where == cpu:
+            outs.append(BatchSolver(r64.engine).iterate(p64, N_ITER)[0])
+            continue
+        _, (o64, _), _, _ = replica_solve(
+            torch, sdf_lookup, selfcol, cost_soa,
+            lambda: BatchSolver(r64.engine, devices=devs[:2]),
+            lambda s: s.iterate(p64, N_ITER), N_ITER,
+            f"cards, float64 B={F64_BATCH} over two cards")
+        outs.append(o64)
+    d = float((outs[0].traj.cpu() - outs[1].traj).abs().max())
+    print(f"cards, float64 B={F64_BATCH} over two cards (K1<double>, K2 "
+          f"tiled): max |Δtraj| against the CPU float64 {d} (bar "
+          f"{F64_TRAJ_BAR})")
+    check(d <= F64_TRAJ_BAR, f"cards, float64: max |Δtraj| {d}")
+
+    walls = in_turns(torch, {
+        "one card": lambda: one.solve(probs, N_ITER),
+        f"{ncards} cards": lambda: many.solve(probs, N_ITER)}, CARD_REPS)
+    print_rates(walls, BATCH, f"cards, config 1 solve({N_ITER}) at "
+                f"B={BATCH}", card)
+    walls = in_turns(torch, {
+        "one card": lambda: one3.solve(probs3, N_ITER),
+        f"{ncards} cards": lambda: many3.solve(probs3, N_ITER)}, CARD_REPS)
+    print_rates(walls, BATCH, f"cards, config 3 seeded solve({N_ITER}) at "
+                f"B={BATCH}", card)
+    walls = in_turns(torch, {
+        "one card": lambda: one.iterate(probs5, N_ITER),
+        f"{ncards} cards": lambda: many.iterate(probs5, N_ITER)}, CARD_REPS)
+    print_rates(walls, BATCH_POD, f"cards, config 5 iterate({N_ITER}) at "
+                f"B={BATCH_POD}", card)
+
+
+def cards_main(ncards):
+    """``chip_smoke.py --cards N``: on a machine of N >= 2 cards, the
+    device-guard check on the last card, the one-process multi-card
+    solves (cards_phase) and the same seeded batch over N processes, one
+    per card (split_solve, the ``--split N`` reading)."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(card)
+    check(torch.cuda.device_count() >= ncards >= 2,
+          f"--cards {ncards} on {torch.cuda.device_count()} cards")
+    import or_cdchomp_tpu_torch as pt
+    from or_cdchomp_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    kernels.library()
+    print(f"build: {time.perf_counter() - t0:.2f} s")
+    guard_phase(torch, pt, card, torch.device("cuda", ncards - 1))
+    cards_phase(torch, pt, card, ncards)
+    res, wall3 = split_solve(torch, pt, card, torch.device("cuda", 0), ncards)
+    slowest = max(r["wall_s"] for r in res)
+    print(f"--split {ncards} reading: config 3's seeded B={BATCH} solve("
+          f"{N_ITER}) + all_hosts_best over {ncards} processes, slowest "
+          f"rank {slowest} s (first call), {BATCH / slowest} solves/s; one "
+          f"process on one card {wall3} s (first call) on {card}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def split_main(nranks):
     """``chip_smoke.py --split N``: split_solve alone over N ranks, one per
     card where the machine has N cards (NCCL), else sharing them (gloo)."""
@@ -3379,6 +3824,9 @@ def main():
     wall, walls = warm_walls(torch, lambda: solver.iterate(probs, N_ITER), 7)
     print(f"flagship iterate({N_ITER}) at B={BATCH}: median warm wall "
           f"{wall} s of {walls}, {BATCH / wall} solves/s on {card}")
+
+    # -- config 1 over two replicas on this card ------------------------------
+    entry_layout = devices_phase(torch, pt, card, dev, engine, probs)
 
     # -- config 2: three SDFs, self-collision weights, moved base -------------
     CACHE_DIR.mkdir(parents=True, exist_ok=True)
@@ -3569,7 +4017,7 @@ def main():
     # -- the module commands, and a grabbed tray (K2 at S = 126) --------------
     entry_split = module_phase(torch, pt, card, dev, out, out5)
     del out5
-    entry_grab = grab_phase(torch, pt, card, dev)
+    entry_grab, entry_layout_grab = grab_phase(torch, pt, card, dev)
     entries_front = front_door_phase(torch, pt, card, dev)
     entries_long = long_phase(torch, pt, card, dev)
     entries_mesh = mesh_phase(torch, pt, card, dev)
@@ -3640,9 +4088,9 @@ def main():
           f"{time.perf_counter() - t0:.2f} s")
     check(dtraj <= TRAJ_BAR, f"config 4: max |Δtraj| {dtraj} > {TRAJ_BAR}")
 
-    results += [entry_f3, *entries4, entry_b5, *entries_libcd, entry_split,
-                entry_grab, *entries_front, *entries_long, *entries_mesh,
-                entry_draw, *entries_f64]
+    results += [entry_layout, entry_f3, *entries4, entry_b5, *entries_libcd,
+                entry_split, entry_grab, entry_layout_grab, *entries_front,
+                *entries_long, *entries_mesh, entry_draw, *entries_f64]
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -3657,6 +4105,8 @@ if __name__ == "__main__":
                                 sys.argv[4], sys.argv[5]))
         if sys.argv[1:2] == ["--split"]:
             sys.exit(split_main(int(sys.argv[2])))
+        if sys.argv[1:2] == ["--cards"]:
+            sys.exit(cards_main(int(sys.argv[2])))
         if sys.argv[1:2] == ["--script"]:
             sys.exit(script_child(sys.argv[2]))
         sys.exit(main())

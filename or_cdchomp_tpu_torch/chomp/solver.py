@@ -31,6 +31,9 @@ B = 1.
 
 from __future__ import annotations
 
+import copy
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -209,6 +212,7 @@ class ChompEngine:
         # of given draws).  A module run carries its own (api.Run.draw),
         # so runs that share a cached engine share no random state.
         self.draw = HmcDraw(seed, device)
+        self._seed = seed
         # the semiseparable metric holds no m×m tensor (A, Ainv None)
         self.metric_ops = self.A = self.Ainv = None
         if metric_mode == "dense":
@@ -255,6 +259,48 @@ class ChompEngine:
         # FK restricted to the active spheres, in active-first order
         self.fk = CompiledFK(model, dtype=dtype, device=device,
                              sphere_subset=order[:n_act])
+
+    # -- replicas on other devices -------------------------------------------
+
+    def _replica(self, device, slot=0):
+        """This engine on ``device``, for a BatchSolver that spreads a
+        batch over several devices: a copy of its device state (the field
+        stack, the FK, the pair table, the active radii, the dense
+        metric's A and A⁻¹, the projection constants and an HmcDraw of
+        the same seed) with the same spec, dtype, metric and extra_cost
+        hook.  Its pair layout is built there (the layout kernel on a
+        card).  ``slot`` tells replicas on one device apart, each with
+        its own copies; the engine itself is slot 0 of its own device.
+        Built once and cached on the engine by (device, slot)."""
+        device = torch.device(device)
+        if device == self.radii_act.device and slot == 0:
+            return self
+        cache = self.__dict__.setdefault("_replicas", {})
+        if (device, slot) not in cache:
+            cache[(device, slot)] = self._copy_to(device)
+        return cache[(device, slot)]
+
+    def _copy_to(self, device):
+        def mv(t):
+            return t.to(device, copy=True)
+
+        rep = copy.copy(self)
+        rep.__dict__.pop("_replicas", None)
+        rep.device = device
+        rep.fields = type(self.fields)(**{
+            f.name: mv(getattr(self.fields, f.name))
+            for f in dataclasses.fields(self.fields)})
+        if self.A is not None:
+            rep.A, rep.Ainv = mv(self.A), mv(self.Ainv)
+        rep.radii_act = mv(self.radii_act)
+        rep.pairs = tuple(mv(t) for t in self.pairs)
+        rep.pair_layout = pair_layout(*rep.pairs, self.n_spheres_active,
+                                      len(self._sphere_order))
+        if self.proj_ops is not None:
+            rep.proj_ops = ProjectionOps.build(self.spec, self.cons, rep)
+        rep.fk = self.fk._on(device)
+        rep.draw = HmcDraw(self._seed, device)
+        return rep
 
     # -- metric ------------------------------------------------------------
 

@@ -13,6 +13,7 @@ chain in float64 numpy for host-side callers.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import NamedTuple, Optional, Sequence
 
@@ -417,8 +418,6 @@ class CompiledFK:
         subset = (np.arange(len(model.sphere_link)) if sphere_subset is None
                   else np.asarray(sphere_subset))
         self.sphere_subset = subset
-        self.sphere_radius = torch.as_tensor(
-            model.sphere_radius[subset], dtype=dtype, device=self.device)
         # (S, n_dof) DOF-affects-sphere mask
         mask = model.ancestor_dof_mask()[model.sphere_link[subset]]
         self._sphere_dof_mask_np = np.asarray(mask)
@@ -458,8 +457,18 @@ class CompiledFK:
                 self._ee_offset_np = eo
         self._to_device()
 
+    def _on(self, device):
+        """A copy of this FK with its tables on ``device``."""
+        fk = copy.copy(self)
+        fk.device = torch.device(device)
+        fk._to_device()
+        return fk
+
     def _to_device(self):
         dev, dt = self.device, self.dtype
+        self.sphere_radius = torch.as_tensor(
+            self.model.sphere_radius[self.sphere_subset], dtype=dt,
+            device=dev)
         self._sphere_slot = torch.as_tensor(self._sphere_red_slot_np,
                                             dtype=torch.long, device=dev)
         # folded sphere offsets as (S, 1) columns: broadcast over batch

@@ -9,7 +9,8 @@ an error).  There is no fallback.
 
 ``LAUNCHES`` counts kernel launches of :func:`selfcol_pairs`.
 :func:`traffic_bytes`, :func:`flops` and :func:`vote_stats` count the
-work of one call for its bound on the card.
+work of one call for its bound on the card, :func:`layout_traffic_bytes`
+that of one :func:`pair_layout`.
 
 The kernel has two paths, chosen by a fixed rule that
 :func:`launch_shape` mirrors: the staged path (the pair matrices and the
@@ -272,6 +273,16 @@ def traffic_bytes(m, Sa, SI, B, P, itemsize=4):
     floats = (2 * 3 * m * Sa * B + 3 * SI * B + 2 * B + P
               + 3 * m * Sa * B + m * Sa * B)
     return itemsize * floats + 4 * 2 * P
+
+
+def layout_traffic_bytes(P, Sa, So, itemsize=4):
+    """Bytes one :func:`pair_layout` call must move: the pair table read
+    once (two int32 columns, rsum in floats of ``itemsize`` bytes), the
+    layout written once (G = ceil(So / 32) groups per active sphere: four
+    mask words, 32 partners, two rows of 32 radius sums)."""
+    G = -(-So // LANES)
+    return (8 + itemsize) * P + Sa * G * (4 * 4 + 4 * LANES
+                                          + 2 * LANES * itemsize)
 
 
 def flops(m, B, P, n_reach):

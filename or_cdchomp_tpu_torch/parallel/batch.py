@@ -1,4 +1,4 @@
-"""Batched CHOMP solves, on one device or split across ranks
+"""Batched CHOMP solves, on one or several devices or split across ranks
 (counterpart of or_cdchomp_tpu/parallel/batch.py).
 
 ``problem_batch_from_grid`` broadcasts a template problem to a (P,)
@@ -7,13 +7,18 @@ terms (``stack_problems`` stacks given problems, ``pad_problems`` pads a
 batch to a multiple); ``BatchSolver`` runs the batch-native step on it:
 a fixed number of steps (``iterate``, ``iterate_masked``), a
 convergence-checked chunk (``iterate_until``) or a chunked solve
-(``solve``).  With a ``DeviceMesh`` it holds one rank's rows of a global
-batch (parallel/multihost.py).  ``best_of_batch`` picks the lowest-cost
-problem of a batch.
+(``solve``).  In one process it spreads the batch over every visible
+card, as the JAX package's over every chip; with a ``DeviceMesh`` it
+holds one rank's rows of a global batch (parallel/multihost.py).
+``best_of_batch`` picks the lowest-cost problem of a batch.
 """
 
 from __future__ import annotations
 
+import contextlib
+import math
+import threading
+import types
 from typing import Optional
 
 import numpy as np
@@ -98,15 +103,42 @@ def problem_batch_from_grid(problem: ChompProblem, starts, goals, engine,
 
 
 class BatchSolver:
-    """Runs batched solves for one ChompEngine.  The whole batch runs as
-    one SoA step: the TPU build's problem-axis chunking (sized for its
-    128-lane vector tiles) has no counterpart here.
+    """Runs batched solves for one ChompEngine, as one SoA step per
+    device: the TPU build's problem-axis chunking (sized for its 128-lane
+    vector tiles) has no counterpart here.
 
-    ``mesh`` (a ``torch.distributed.device_mesh.DeviceMesh``, or None for
-    one process) splits a global batch across ranks along ``axis`` (a
-    name, or a tuple of every name of the mesh): this solver then holds
-    this rank's rows (:meth:`shard`, or ``multihost.make_global_problems``)
-    and steps them exchanging nothing, since each problem's step, its
+    **One process, several devices** (``mesh=None``; JAX batch.py:116-147
+    builds a mesh over ``jax.devices()``).  ``devices`` (the port's own
+    parameter) lists the devices the batch spreads over; by default every
+    visible card for a CUDA engine, the engine's first, and the engine's
+    device alone for a CPU one.  A list may repeat a device: each entry
+    is a replica of its own (``ChompEngine._replica``, built here once
+    per engine and device entry and cached on the engine).  Each call
+    places the rows by JAX's ``shard`` rule: split evenly when the batch
+    size B divides by the device count k, over the first gcd(B, k)
+    devices when it does not, on the first device alone when the gcd is
+    1 (where JAX replicates the batch).  Each device steps its rows on its
+    replica, with its card current, one host thread per device, all
+    driven at once (the step is host-bound); two replicas on one card
+    share its stream.  Results come back on the engine's device in the
+    batch's order.  Every row steps on its own, so the result is the
+    one-device result: bit-equal where each operation's rounding does not
+    depend on the batch width.  An ``extra_cost`` hook runs on each
+    device's rows: it must not capture tensors on a fixed card.
+
+    HMC over several devices: a batch with per-problem seeds draws on each
+    device's own rows (``SeededDraw``).  An unseeded batch draws the whole
+    batch's ``z``, ``u`` at every step from the engine's draw source, as
+    one device would, and each device takes its rows: the threads meet at
+    a barrier once per step for it, and the draw source sees a stand-in
+    batch whose only leaf is ``AG`` (the package's sources read no other).
+
+    **Several processes** (``mesh``, a ``torch.distributed.device_mesh.
+    DeviceMesh``; ``devices`` must then be None): the mesh splits a global
+    batch across ranks along ``axis`` (a name, or a tuple of every name of
+    the mesh), and this solver holds this rank's rows on the engine's
+    device (:meth:`shard`, or ``multihost.make_global_problems``) and
+    steps them exchanging nothing, since each problem's step, its
     joint-limit repair included, depends on its own row alone.  The only
     collective is ``iterate_until``'s: one 4-byte all-reduce (MIN) of the
     converged flag per chunk, so every rank stops at the same chunk.
@@ -122,27 +154,137 @@ class BatchSolver:
     min_chunks = property(lambda self: self._jax_knobs[1])
 
     def __init__(self, engine, mesh=None, axis="dp", chunk=128,
-                 min_chunks=3):
+                 min_chunks=3, devices=None):
+        if mesh is not None and devices is not None:
+            raise ValueError("BatchSolver: give devices or a mesh, not "
+                             "both (a rank steps its rows on the engine's "
+                             "device)")
         self.engine = engine
         self._jax_knobs = (chunk, min_chunks)
         self.mesh = mesh
         self.group = None if mesh is None else _mesh_group(mesh, axis)
+        home = engine.radii_act.device
+        if mesh is not None:
+            devices = [home]
+        elif devices is None:
+            devices = [home] + (
+                [torch.device("cuda", i)
+                 for i in range(torch.cuda.device_count()) if i != home.index]
+                if home.type == "cuda" else [])
+        self.devices = [_device(d) for d in devices]
+        if not self.devices:
+            raise ValueError("BatchSolver: devices is empty")
+        slots = {}
+        self.replicas = []
+        for d in self.devices:
+            slots[d] = slots.get(d, -1) + 1
+            self.replicas.append(engine._replica(d, slots[d]))
+
+    def _placement(self, P):
+        """JAX's ``shard`` rule for P rows over the devices: [(device
+        index, first row, end row)] for the first gcd(P, k) of the k
+        devices, P / gcd rows each; [(0, 0, P)] where the gcd is 1."""
+        d = math.gcd(P, len(self.devices))
+        if d <= 1:
+            return [(0, 0, P)]
+        size = P // d
+        return [(i, i * size, (i + 1) * size) for i in range(d)]
 
     def shard(self, probs: ChompProblem) -> ChompProblem:
-        """The batch on the engine's device; with a mesh, this rank's
-        ``host_local_batch`` rows of the global batch ``probs``.  ``solve``
-        takes the rows it is given and does not call this."""
+        """The batch on the engine's device, in its order; with a mesh,
+        this rank's ``host_local_batch`` rows of the global batch
+        ``probs``.  Over several devices, each call places the rows
+        (:meth:`_placement`); ``solve`` takes the rows it is given and
+        does not call this."""
         if self.mesh is not None:
             start, size = multihost.host_local_batch(
                 int(probs.traj.shape[0]), self.group)
             probs = ChompProblem(**{k: v[start:start + size]
                                     for k, v in probs.leaves().items()})
-        return probs.to(self.engine.device)
+        return probs.to(self.engine.radii_act.device)
+
+    def _scatter(self, probs):
+        """[(replica, its rows on its device, first row, end row)]."""
+        P = int(probs.traj.shape[0])
+        parts = []
+        for i, lo, hi in self._placement(P):
+            rows = probs if (lo, hi) == (0, P) else ChompProblem(
+                **{k: v[lo:hi] for k, v in probs.leaves().items()})
+            parts.append((self.replicas[i], rows.to(self.devices[i]), lo, hi))
+        return parts
+
+    def _gather(self, tensors):
+        """The parts' tensors joined along axis 0 on the engine's
+        device."""
+        home = self.engine.radii_act.device
+        if len(tensors) == 1:
+            return tensors[0].to(home)
+        return torch.cat([t.to(home) for t in tensors])
+
+    def _gather_problems(self, parts):
+        return ChompProblem(**{
+            k: self._gather([rows.leaves()[k] for _, rows, _, _ in parts])
+            for k in parts[0][1].leaves()})
+
+    def _each(self, parts, fn):
+        """``fn(replica, rows, draw)`` for every part, concurrently: one
+        host thread per part with its device current (a lone part of the
+        engine's own runs in the calling thread); the results in part
+        order.  ``draw`` is the HMC draw source to pass to the step: None
+        (the step's own choice) unless an unseeded HMC batch is split, or
+        runs on a replica, where it is a view of one whole-batch draw."""
+        eng = self.engine
+        rows0 = parts[0][1]
+        shared = None
+        if (eng.spec.use_hmc and rows0.hmc_seed is None
+                and (len(parts) > 1 or parts[0][0] is not eng)):
+            _, m, n = rows0.AG.shape
+            shared = _SharedDraw(eng.draw, len(parts), parts[-1][3], m, n,
+                                 rows0.AG.dtype, eng.radii_act.device)
+
+        def run(part):
+            rep, rows, lo, hi = part
+            with _current(rep.device):
+                return fn(rep, rows, None if shared is None
+                          else shared.rows(lo, hi))
+
+        if len(parts) == 1 and shared is None:
+            return [run(parts[0])]
+        results = [None] * len(parts)
+        errors = []
+
+        def work(i):
+            try:
+                results[i] = run(parts[i])
+            except BaseException as e:  # handed to the calling thread
+                errors.append(e)
+                if shared is not None:
+                    shared.barrier.abort()
+
+        threads = [threading.Thread(target=work, args=(i,),
+                                    name=f"BatchSolver-{i}")
+                   for i in range(len(parts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise next((e for e in errors
+                        if not isinstance(e, threading.BrokenBarrierError)),
+                       errors[0])
+        return results
+
+    def _iterate_parts(self, parts, n_iter):
+        out = self._each(parts, lambda eng, rows, draw:
+                         eng.iterate_batched(rows, n_iter, draw))
+        return ([(p[0], rows, p[2], p[3]) for p, (rows, _) in
+                 zip(parts, out)], [c for _, c in out])
 
     def iterate(self, probs: ChompProblem, n_iter: int):
         """n_iter batched steps.  Returns (problems, costs (n_iter, P, 3))."""
-        probs, costs = self.engine.iterate_batched(probs, n_iter)
-        return probs, costs.transpose(0, 1)
+        parts, costs = self._iterate_parts(self._scatter(probs), n_iter)
+        return (self._gather_problems(parts),
+                self._gather(costs).transpose(0, 1))
 
     def iterate_masked(self, probs: ChompProblem, valid, chunk_size: int):
         """``chunk_size`` batched steps with the first ``valid`` applied.
@@ -156,47 +298,98 @@ class BatchSolver:
             costs = torch.cat([costs, pad])
         return probs, costs
 
+    def _until(self, parts, valid, chunk_size, tol):
+        """``iterate_until`` on placed parts: (parts, last costs per part,
+        the converged flag of every row of every part and rank)."""
+        if int(valid) < 1:
+            raise ValueError("iterate_until needs valid >= 1")
+        parts, costs = self._iterate_parts(parts,
+                                           min(int(valid), chunk_size))
+        lasts = [c[:, -1] for c in costs]
+        flags = [torch.all(c[:, 0, 0] - c[:, -1, 0] < tol) for c in costs]
+        converged = self._gather([f[None] for f in flags]).all()
+        if self.mesh is not None:
+            flag = multihost.comm_tensor(converged.to(torch.int32),
+                                         self.group)
+            dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=self.group)
+            converged = flag.to(converged.device) > 0
+        return parts, lasts, converged
+
     def iterate_until(self, probs: ChompProblem, valid, chunk_size: int,
                       tol=0.0):
         """One convergence-checked chunk: ``valid`` (≥ 1) of
         ``chunk_size`` steps.  Returns (problems, last costs (P, 3),
         converged) where converged, a 0-d bool tensor, says every problem's
         total cost fell by less than ``tol`` from the chunk's first step
-        to its last; on one process it stays on the device, with a mesh it
-        is all-reduced over the mesh's ranks."""
-        if int(valid) < 1:
-            raise ValueError("iterate_until needs valid >= 1")
-        probs, costs = self.iterate_masked(probs, valid, chunk_size)
-        last = costs[min(int(valid), chunk_size) - 1]
-        converged = torch.all(costs[0, :, 0] - last[:, 0] < tol)
-        if self.mesh is not None:
-            flag = multihost.comm_tensor(converged.to(torch.int32),
-                                         self.group)
-            dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=self.group)
-            converged = flag.to(converged.device) > 0
-        return probs, last, converged
+        to its last: the AND of every device's rows, on the engine's
+        device; with a mesh, all-reduced over the mesh's ranks."""
+        parts, lasts, converged = self._until(self._scatter(probs), valid,
+                                              chunk_size, tol)
+        return self._gather_problems(parts), self._gather(lasts), converged
 
     def solve(self, probs: ChompProblem, n_iter: int, chunk: int = 10,
               tol: Optional[float] = None):
         """Up to n_iter steps in chunks of ``chunk``; with ``tol``, stops
         after the first chunk in which every problem converged (one host
-        sync per chunk for that test, none without ``tol``; with a mesh,
-        every problem of every rank).  Returns
-        (problems, final costs (P, 3) from :meth:`ChompEngine.
-        final_costs_batch`, steps done)."""
+        sync per chunk for that test, none without ``tol``; over several
+        devices or ranks, every problem of every one).  The rows stay on
+        their devices from the first chunk to the final costs, each
+        device's from its replica's :meth:`ChompEngine.final_costs_batch`.
+        Returns (problems, final costs (P, 3), steps done)."""
+        parts = self._scatter(probs)
         done = 0
         while done < n_iter:
             todo = min(chunk, n_iter - done)
-            if tol is None:
-                probs, _ = self.iterate(probs, todo)
-                done += todo
-                continue
-            probs, _, conv = self.iterate_until(probs, todo, chunk, tol)
             done += todo
+            if tol is None:
+                parts, _ = self._iterate_parts(parts, todo)
+                continue
+            parts, _, conv = self._until(parts, todo, chunk, tol)
             if bool(conv):
                 break
-        finals = torch.stack(self.engine.final_costs_batch(probs), dim=-1)
-        return probs, finals, done
+        finals = self._each(parts, lambda eng, rows, _: torch.stack(
+            eng.final_costs_batch(rows), dim=-1))
+        return self._gather_problems(parts), self._gather(finals), done
+
+
+class _SharedDraw:
+    """One whole-batch HMC draw per step for a batch split over devices:
+    when every part's thread has reached the step's draw (a barrier), one
+    of them calls ``inner`` (the engine's draw source) on a stand-in of
+    the (B, m, n) batch on the engine's device; each part then takes its
+    rows to its device."""
+
+    def __init__(self, inner, parties, B, m, n, dtype, home):
+        stand_in = types.SimpleNamespace(AG=torch.empty(
+            (), dtype=dtype, device=home).expand(B, m, n))
+
+        def draw():
+            self.z, self.u = inner(stand_in)
+
+        self.barrier = threading.Barrier(parties, action=draw)
+
+    def rows(self, lo, hi):
+        def draw(probs):
+            self.barrier.wait()
+            dev = probs.AG.device
+            return self.z[lo:hi].to(dev), self.u[lo:hi].to(dev)
+        return draw
+
+
+def _device(d):
+    """``d`` as a torch.device, a CUDA one with its index."""
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+def _current(device):
+    """A context in which ``device``'s card is current (nothing for the
+    CPU)."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 def _mesh_group(mesh, axis):

@@ -1076,8 +1076,7 @@ def test_start_cost_batch_card_matches_cpu(cuda):
     for dev, dt in ((cuda, torch.float32), ("cpu", torch.float64)):
         mod, _ = _front_door(dev, dt)
         run = mod.runs[mod.create(**dict(cs.run_kw(), n_points=11),
-                                  start_cost=cs.quadratic_hook(torch, dt,
-                                                               dev))]
+                                  start_cost=cs.quadratic_hook(torch))]
         probs = problem_batch_from_grid(run.problem, starts, goals,
                                         run.engine)
         outs.append(BatchSolver(run.engine).iterate(probs, 5))
