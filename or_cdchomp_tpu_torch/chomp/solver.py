@@ -276,16 +276,14 @@ class ChompEngine:
         if device == self.radii_act.device and slot == 0:
             return self
         cache = self.__dict__.setdefault("_replicas", {})
-        if (device, slot) not in cache:
-            cache[(device, slot)] = self._copy_to(device)
-        return cache[(device, slot)]
+        if (device, slot) in cache:
+            return cache[(device, slot)]
 
-    def _copy_to(self, device):
         def mv(t):
             return t.to(device, copy=True)
 
         rep = copy.copy(self)
-        rep.__dict__.pop("_replicas", None)
+        del rep.__dict__["_replicas"]
         rep.device = device
         rep.fields = type(self.fields)(**{
             f.name: mv(getattr(self.fields, f.name))
@@ -300,6 +298,7 @@ class ChompEngine:
             rep.proj_ops = ProjectionOps.build(self.spec, self.cons, rep)
         rep.fk = self.fk._on(device)
         rep.draw = HmcDraw(self._seed, device)
+        cache[(device, slot)] = rep
         return rep
 
     # -- metric ------------------------------------------------------------

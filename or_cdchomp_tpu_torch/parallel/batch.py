@@ -163,7 +163,7 @@ class BatchSolver:
         self._jax_knobs = (chunk, min_chunks)
         self.mesh = mesh
         self.group = None if mesh is None else _mesh_group(mesh, axis)
-        home = engine.radii_act.device
+        self._home = home = engine.radii_act.device   # with its index
         if mesh is not None:
             devices = [home]
         elif devices is None:
@@ -201,7 +201,7 @@ class BatchSolver:
                 int(probs.traj.shape[0]), self.group)
             probs = ChompProblem(**{k: v[start:start + size]
                                     for k, v in probs.leaves().items()})
-        return probs.to(self.engine.radii_act.device)
+        return probs.to(self._home)
 
     def _scatter(self, probs):
         """[(replica, its rows on its device, first row, end row)]."""
@@ -216,10 +216,9 @@ class BatchSolver:
     def _gather(self, tensors):
         """The parts' tensors joined along axis 0 on the engine's
         device."""
-        home = self.engine.radii_act.device
         if len(tensors) == 1:
-            return tensors[0].to(home)
-        return torch.cat([t.to(home) for t in tensors])
+            return tensors[0].to(self._home)
+        return torch.cat([t.to(self._home) for t in tensors])
 
     def _gather_problems(self, parts):
         return ChompProblem(**{
@@ -240,11 +239,12 @@ class BatchSolver:
                 and (len(parts) > 1 or parts[0][0] is not eng)):
             _, m, n = rows0.AG.shape
             shared = _SharedDraw(eng.draw, len(parts), parts[-1][3], m, n,
-                                 rows0.AG.dtype, eng.radii_act.device)
+                                 rows0.AG.dtype, self._home)
 
         def run(part):
             rep, rows, lo, hi = part
-            with _current(rep.device):
+            with (torch.cuda.device(rep.device) if rep.device.type == "cuda"
+                  else contextlib.nullcontext()):
                 return fn(rep, rows, None if shared is None
                           else shared.rows(lo, hi))
 
@@ -383,13 +383,6 @@ def _device(d):
         return torch.device("cuda", torch.cuda.current_device())
     return d
 
-
-def _current(device):
-    """A context in which ``device``'s card is current (nothing for the
-    CPU)."""
-    if device.type == "cuda":
-        return torch.cuda.device(device)
-    return contextlib.nullcontext()
 
 
 def _mesh_group(mesh, axis):
