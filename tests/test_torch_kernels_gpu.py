@@ -1241,19 +1241,23 @@ def test_kernels_launch_on_a_card_that_is_not_current(other_card, kernel,
     (float32; float64 always tiles) and its tiled path, the layout
     kernel and the draw, each launched on the last card while cuda:0 is
     current: one launch, its results on that card and equal to the plain
-    version on the CPU (bit for bit where the plain version is; K2
-    within its rtol), and cuda:0 still current afterwards."""
+    version (K1's on the same card, the others' on the CPU; bit for bit
+    where the plain version is, K2 within its rtol), and cuda:0 still
+    current afterwards."""
     from or_cdchomp_tpu_torch.ops import draw
 
     dev = other_card
     rng = np.random.default_rng(41)
     if kernel == "obstacle":
-        args = _k1_args(rng, "cpu")
+        # bit-equal to the plain version on the same card, as everywhere
+        # (in float64 the CPU's plain version differs in the last bit)
+        args = _on_card(_k1_args(rng, "cpu"), dev)
         args = [a.to(dtype) if a.is_floating_point() else a for a in args]
-        want = sdf_lookup.obstacle_ref(*args, want_dirs=True)
+        want = [w.cpu() for w in sdf_lookup.obstacle_ref(*args,
+                                                         want_dirs=True)]
         n0 = sdf_lookup.LAUNCHES
-        got = sdf_lookup.obstacle(*_on_card(args, dev), want_dirs=True)
-        main = sdf_lookup.obstacle(*_on_card(args, dev))
+        got = sdf_lookup.obstacle(*args, want_dirs=True)
+        main = sdf_lookup.obstacle(*args)
         assert sdf_lookup.LAUNCHES == n0 + 2
         assert torch.equal(main[0].cpu(), want[0])
         assert torch.equal(main[1].cpu(), want[1])
