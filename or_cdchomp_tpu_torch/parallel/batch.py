@@ -119,12 +119,15 @@ class BatchSolver:
     devices when it does not, on the first device alone when the gcd is
     1 (where JAX replicates the batch).  Each device steps its rows on its
     replica, with its card current, one host thread per device, all
-    driven at once (the step is host-bound); two replicas on one card
-    share its stream.  Results come back on the engine's device in the
-    batch's order.  Every row steps on its own, so the result is the
-    one-device result: bit-equal where each operation's rounding does not
-    depend on the batch width.  An ``extra_cost`` hook runs on each
-    device's rows: it must not capture tensors on a fixed card.
+    driven at once; two replicas on one card share its stream.  The step
+    is host-bound, and the threads' Python-level issue contends for the
+    GIL: on four H100s the default ran far below one card's solves/s
+    (PERF.md §6), so a caller after throughput names one card.  Results
+    come back on the engine's device in the batch's order.  Every row
+    steps on its own, so the result is the one-device result: bit-equal
+    where each operation's rounding does not depend on the batch width.
+    An ``extra_cost`` hook runs on each device's rows: it must not
+    capture tensors on a fixed card.
 
     HMC over several devices: a batch with per-problem seeds draws on each
     device's own rows (``SeededDraw``).  An unseeded batch draws the whole
