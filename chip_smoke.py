@@ -28,10 +28,11 @@ and read just after:
 
 Config 1's B = 256 solve also runs over two replicas on the one card
 (``BatchSolver(engine, devices=[card, card])``: the engine and a copy,
-one layout-kernel launch, 128 rows each from two host threads), K1 and
-K2 counted per replica and every row bit-equal to ``devices=[card]``,
-the two walls in turns, and the layout kernel timed at its pair table
-(config 1's 207 pairs; the grab's 3,617 in the grab phase).
+one layout-kernel launch, 128 rows each, stepped in turn), K1 and K2
+counted per replica and every row bit-equal to ``devices=[card]``, the
+two walls in turns; config 3's unseeded HMC batch the same way, its
+whole-batch draws bit-equal; and the layout kernel timed at its pair
+table (config 1's 207 pairs; the grab's 3,617 in the grab phase).
 
 Then the libcd math library: every quat / spatial function of the
 pose-algebra API in float32 on 65,536 seeded inputs against the port's
@@ -121,10 +122,11 @@ Any failed phase exits non-zero.
 
 ``--cards N`` (a machine of N >= 2 cards): every kernel launched on the
 last card with cuda:0 current against its plain version; then
-BatchSolver's default over all N cards in one process (a replica and a
-host thread per card) against one card: config 1's B = 256 solve and
-config 3's seeded batch (best_of_batch), every row bit-equal, K1 and K2
-counted per replica; config 5 at B = 10,240; config 1's float64 B = 4
+BatchSolver over all N cards in one process (``devices=`` every card: a
+replica per card, stepped in turn) against one card, its default:
+config 1's B = 256 solve, config 3's seeded batch (best_of_batch) and
+its unseeded one, every row bit-equal, K1 and K2 counted per replica;
+config 5 at B = 10,240; config 1's float64 B = 4
 batch over two cards against the CPU's float64; solves/s of one card
 and of N in turns; and the ``--split N`` reading (split_solve).
 
@@ -3240,8 +3242,6 @@ class ReplicaLaunches:
     own.  The wrappers' own counts are not touched."""
 
     def __init__(self, sdf_lookup, cost_soa, solver):
-        import threading
-
         self.mods = sdf_lookup, cost_soa
         self.k1 = {r.fields.data.data_ptr(): i
                    for i, r in enumerate(solver.replicas)}
@@ -3251,7 +3251,6 @@ class ReplicaLaunches:
               "replicas share a field stack or a pair table")
         self.counts = [{"obstacle": 0, "selfcol": 0}
                        for _ in solver.replicas]
-        self.lock = threading.Lock()
 
     def __enter__(self):
         sdf_lookup, cost_soa = self.mods
@@ -3259,13 +3258,11 @@ class ReplicaLaunches:
         k1, k2 = self.inner
 
         def obstacle_launch(geom, x, vel, acc, data, *args, **kw):
-            with self.lock:
-                self.counts[self.k1[data.data_ptr()]]["obstacle"] += 1
+            self.counts[self.k1[data.data_ptr()]]["obstacle"] += 1
             return k1(geom, x, vel, acc, data, *args, **kw)
 
         def selfcol_pairs(*args, **kw):
-            with self.lock:
-                self.counts[self.k2[args[5].data_ptr()]]["selfcol"] += 1
+            self.counts[self.k2[args[5].data_ptr()]]["selfcol"] += 1
             return k2(*args, **kw)
 
         sdf_lookup.obstacle_launch = obstacle_launch
@@ -3360,18 +3357,6 @@ def replica_solve(torch, sdf_lookup, selfcol, cost_soa, make_solver, fn,
     return solver, out, launches, wall
 
 
-def one_thread_iterate(solver, probs, n_iter):
-    """``solver``'s placement of ``probs`` stepped from this thread alone,
-    each step on every card in turn: what one host thread issuing every
-    card's steps does, beside BatchSolver's thread per card.  A batch
-    without HMC draws.  Returns the problems, gathered."""
-    parts = solver._scatter(probs)
-    for _ in range(n_iter):
-        parts = [(rep, rep.step_batched(rows)[0], lo, hi)
-                 for rep, rows, lo, hi in parts]
-    return solver._gather_problems(parts)
-
-
 def same_solve(torch, label, got, want):
     """A split solve against one device's: the state of every row
     bit-equal (trajectory, iteration, HMC schedule); the costs within
@@ -3391,13 +3376,47 @@ def same_solve(torch, label, got, want):
     check(d <= SPLIT_COST_RTOL * scale, f"{label}: costs differ by {d}")
 
 
+def unseeded_split(torch, pt, dev, devices, label):
+    """Config 3's unseeded HMC batch (B = 256, every row drawing from the
+    engine's generator) solve(100) on ``devices`` against devices=[dev],
+    each arm from a fresh generator of seed 7 whose draws are recorded:
+    the draws (one whole-batch draw per step on the engine's card, each
+    part taking its rows to its own), every row's state and the resample
+    schedule bit-equal to one device's."""
+    from or_cdchomp_tpu_torch.chomp.solver import HmcDraw, RecordingDraw
+    from or_cdchomp_tpu_torch.parallel.batch import (BatchSolver,
+                                                     problem_batch_from_grid)
+
+    run = config3_run(pt, torch.float32, dev)
+    eng = run.engine
+    starts, goals = bench_endpoints(BATCH)
+    probs = problem_batch_from_grid(run.problem, starts, goals, eng)
+    outs, recs = [], []
+    for devs in ([dev], devices):
+        eng.draw = RecordingDraw(HmcDraw(7, dev))
+        outs.append(BatchSolver(eng, devices=devs).solve(probs, N_ITER))
+        recs.append(eng.draw)
+    check(len(recs[0].z) == len(recs[1].z) == N_ITER,
+          f"{label}: {len(recs[0].z)} and {len(recs[1].z)} draws")
+    for i, (a, b) in enumerate(zip(recs[0].z + recs[0].u,
+                                   recs[1].z + recs[1].u)):
+        check(tuple(a.shape) == tuple(b.shape) and torch.equal(a, b),
+              f"{label}: draw {i} differs from one device's")
+    nxt = outs[0][0].resample_iter
+    print(f"{label}: {N_ITER} whole-batch draws of {tuple(recs[1].z[0].shape)}"
+          f" bit-equal to one device's over {[str(d) for d in devices]}; "
+          f"next resample at iterations {int(nxt.min())} - {int(nxt.max())}")
+    same_solve(torch, label, outs[1][:2], outs[0][:2])
+
+
 def devices_phase(torch, pt, card, dev, engine, probs):
     """Config 1's B = 256 solve(100) on devices=[dev, dev]: two replicas
     (the engine and a copy, built here: one layout launch) stepping 128
-    rows each from two host threads on one card, K1 and K2 counted per
-    replica (101 each), every row bit-equal to devices=[dev]; the two
-    walls in turns; the layout kernel at config 1's pair table against
-    its plain version, timed.  Returns the layout kernel's entry."""
+    rows each in turn on one card, K1 and K2 counted per replica (101
+    each), every row bit-equal to devices=[dev]; the two walls in turns;
+    config 3's unseeded HMC batch on devices=[dev, dev] (unseeded_split);
+    the layout kernel at config 1's pair table against its plain
+    version, timed.  Returns the layout kernel's entry."""
     from or_cdchomp_tpu_torch.chomp import cost_soa
     from or_cdchomp_tpu_torch.ops import sdf_lookup, selfcol
     from or_cdchomp_tpu_torch.parallel.batch import BatchSolver
@@ -3422,6 +3441,8 @@ def devices_phase(torch, pt, card, dev, engine, probs):
         "devices=[dev, dev]": lambda: solver.solve(probs, N_ITER)}, 3)
     print_rates(walls, BATCH, f"devices phase, config 1 solve({N_ITER})",
                 card)
+    unseeded_split(torch, pt, dev, [dev, dev],
+                   "devices phase, config 3 unseeded")
     entry = layout_entry(torch, selfcol, engine.pairs,
                          engine.n_spheres_active, len(engine._sphere_order),
                          "selfcol_layout", card)
@@ -3518,14 +3539,14 @@ def guard_phase(torch, pt, card, last):
 
 def cards_phase(torch, pt, card, ncards):
     """The port's BatchSolver over every card of the machine in one
-    process (its default), against devices=[cuda:0]: config 1's B = 256
-    solve(100), config 3's seeded HMC batch (seeds arange(256)) with
-    best_of_batch, each row bit-equal to one card and K1 / K2 counted per
-    replica; config 5 at B = 10,240, iterate(100), likewise; config 1's
-    float64 B = 4 batch over two cards within F64_TRAJ_BAR of the CPU's
-    float64; then solves/s for one card, for every card from a thread
-    each (BatchSolver) and from this thread alone (one_thread_iterate),
-    in turns."""
+    process (devices=[cuda:0, ..., cuda:N-1]; its default is the engine's
+    card alone), against devices=[cuda:0]: config 1's B = 256 solve(100),
+    config 3's seeded HMC batch (seeds arange(256)) with best_of_batch,
+    each row bit-equal to one card and K1 / K2 counted per replica;
+    config 3's unseeded batch (unseeded_split); config 5 at B = 10,240,
+    iterate(100), likewise; config 1's float64 B = 4 batch over two cards
+    within F64_TRAJ_BAR of the CPU's float64; then solves/s for one card
+    and for every card, in turns."""
     import numpy as np
 
     from or_cdchomp_tpu_torch.chomp import cost_soa
@@ -3540,13 +3561,14 @@ def cards_phase(torch, pt, card, ncards):
     eng = run.engine
     starts, goals = bench_endpoints(BATCH)
     probs = problem_batch_from_grid(run.problem, starts, goals, eng)
-    one = BatchSolver(eng, devices=[dev])
+    one = BatchSolver(eng)
+    check(one.devices == [dev], f"cards: default devices {one.devices}")
     ref = one.solve(probs, N_ITER)
     many, got, _, _ = replica_solve(
-        torch, sdf_lookup, selfcol, cost_soa, lambda: BatchSolver(eng),
+        torch, sdf_lookup, selfcol, cost_soa,
+        lambda: BatchSolver(eng, devices=devs),
         lambda s: s.solve(probs, N_ITER), N_ITER + 1,
         f"cards, config 1 solve({N_ITER}) at B={BATCH}")
-    check(many.devices == devs, f"cards: default devices {many.devices}")
     same_solve(torch, "cards, config 1", got[:2], ref[:2])
 
     eng3, probs3 = seeded_hmc_batch(pt, f32, dev)
@@ -3554,7 +3576,8 @@ def cards_phase(torch, pt, card, ncards):
     ref3 = one3.solve(probs3, N_ITER)
     draw.LAUNCHES = 0
     many3, got3, _, _ = replica_solve(
-        torch, sdf_lookup, selfcol, cost_soa, lambda: BatchSolver(eng3),
+        torch, sdf_lookup, selfcol, cost_soa,
+        lambda: BatchSolver(eng3, devices=devs),
         lambda s: s.solve(probs3, N_ITER), N_ITER + 1,
         f"cards, config 3 seeded solve({N_ITER}) at B={BATCH}")
     check(draw.LAUNCHES == ncards * N_ITER,
@@ -3564,6 +3587,7 @@ def cards_phase(torch, pt, card, ncards):
     print(f"cards, config 3: best_of_batch index {int(idx)} (one card "
           f"{int(idx1)}), {draw.LAUNCHES} draw launches")
     check(int(idx) == int(idx1), "cards, config 3: best index")
+    unseeded_split(torch, pt, dev, devs, "cards, config 3 unseeded")
 
     starts5, goals5 = bench_endpoints(BATCH_POD)
     probs5 = problem_batch_from_grid(run.problem, starts5, goals5, eng)
@@ -3607,14 +3631,9 @@ def cards_phase(torch, pt, card, ncards):
           f"{F64_TRAJ_BAR})")
     check(d <= F64_TRAJ_BAR, f"cards, float64: max |Δtraj| {d}")
 
-    seq = one_thread_iterate(many, probs, N_ITER)
-    check(torch.equal(seq.traj, ref[0].traj),
-          "cards: one thread over every card differs from one card")
     walls = in_turns(torch, {
         "one card": lambda: one.iterate(probs, N_ITER),
-        f"{ncards} cards, a thread each": lambda: many.iterate(probs, N_ITER),
-        f"{ncards} cards from one thread":
-            lambda: one_thread_iterate(many, probs, N_ITER)}, CARD_REPS)
+        f"{ncards} cards": lambda: many.iterate(probs, N_ITER)}, CARD_REPS)
     print_rates(walls, BATCH, f"cards, config 1 iterate({N_ITER}) at "
                 f"B={BATCH}", card)
     walls = in_turns(torch, {
@@ -3624,10 +3643,7 @@ def cards_phase(torch, pt, card, ncards):
                 f"B={BATCH}", card)
     walls = in_turns(torch, {
         "one card": lambda: one.iterate(probs5, N_ITER),
-        f"{ncards} cards, a thread each": lambda: many.iterate(probs5,
-                                                              N_ITER),
-        f"{ncards} cards from one thread":
-            lambda: one_thread_iterate(many, probs5, N_ITER)}, CARD_REPS)
+        f"{ncards} cards": lambda: many.iterate(probs5, N_ITER)}, CARD_REPS)
     print_rates(walls, BATCH_POD, f"cards, config 5 iterate({N_ITER}) at "
                 f"B={BATCH_POD}", card)
 

@@ -21,7 +21,6 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -72,10 +71,6 @@ _SIGNATURES.update({f"{name}_f64": _SIGNATURES[name] for name in (
 _SUFFIX = {"float32": "", "float64": "_f64"}
 
 _lib = None
-_LOAD = threading.Lock()   # one build and load, whichever thread comes first
-# held while a wrapper adds to its launch count: BatchSolver drives several
-# devices from threads of one process
-COUNTS = threading.Lock()
 BUILD_LOG = ""   # nvcc/ptxas output of the build this process ran
 
 
@@ -129,14 +124,13 @@ def build():
 def library():
     """The loaded kernel library (built on first use)."""
     global _lib
-    with _LOAD:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, args in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = args
-                fn.restype = ctypes.c_int
-            _lib = lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, args in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+        _lib = lib
     return _lib
 
 
@@ -169,19 +163,13 @@ def stream_ptr(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def on_card(device):
-    """A context in which ``device`` (a CUDA device or its index; None
-    for the current one) is the CUDA runtime's current device."""
-    import torch
-
-    return torch.cuda.device(device)
-
-
 def launch(t, name, fn, *args):
     """Call the entry point ``fn(*args, stream)`` on ``t``'s card: that
     card current for the call, the stream PyTorch's current one there.
     Raises if the call returned a CUDA error code."""
-    with on_card(t.device):
+    import torch
+
+    with torch.cuda.device(t.device):
         check(fn(*args, stream_ptr(t)), name)
 
 

@@ -89,8 +89,7 @@ def sdf_cell_lookup(data, sub, nbr):
                    kernels.entry("cdx_sdf_cell_lookup", dt), data.data_ptr(),
                    F, mx, my, mz, sub.data_ptr(), nbr.data_ptr(), Q,
                    out.data_ptr())
-    with kernels.COUNTS:
-        LOOKUP_LAUNCHES += 1
+    LOOKUP_LAUNCHES += 1
     return out[0], out[1], out[2], out[3]
 
 
@@ -273,7 +272,7 @@ def launch_info(smem, dtype=torch.float32, device_index=None):
     resident blocks per SM, registers and local (spill) bytes per
     thread."""
     info = (ctypes.c_int * 3)()
-    with kernels.on_card(device_index):
+    with torch.cuda.device(device_index):
         kernels.check(kernels.entry("cdx_obstacle_launch_info", dtype)(
             THREADS, smem, info), "obstacle launch_info")
     return dict(blocks_per_sm=info[0], registers=info[1],
@@ -390,8 +389,7 @@ def obstacle_launch(geom, x, vel, acc, data, sizes, lengths,
         cost.data_ptr(), wgrad.data_ptr(),
         dirs.data_ptr() if want_dirs else None, geom.grid, geom.threads,
         geom.per, geom.smem_bytes)
-    with kernels.COUNTS:
-        LAUNCHES += 1
+    LAUNCHES += 1
     if want_dirs:
         return cost, wgrad, dirs
     return cost, wgrad

@@ -150,8 +150,7 @@ def pair_layout(pair_i, pair_j, rsum, Sa, So):
                    kernels.entry("cdx_selfcol_layout", dt), pair_i.data_ptr(),
                    pair_j.data_ptr(), rsum.data_ptr(), P, Sa, So,
                    masks.data_ptr(), partners.data_ptr(), rs.data_ptr())
-    with kernels.COUNTS:
-        LAYOUT_LAUNCHES += 1
+    LAYOUT_LAUNCHES += 1
     return PairLayout(masks, partners, rs)
 
 
@@ -260,8 +259,7 @@ def selfcol_pairs(xi, vel, xo, pair_i, pair_j, rsum, eps_self, obs_self,
         pair_i.data_ptr(), pair_j.data_ptr(), rsum.data_ptr(), P,
         eps_self.data_ptr(), obs_self.data_ptr(), net.data_ptr(),
         cost.data_ptr(), *ptrs)
-    with kernels.COUNTS:
-        LAUNCHES += 1
+    LAUNCHES += 1
     return net, cost
 
 
@@ -375,7 +373,7 @@ def launch_info(Sa, SI, dtype=torch.float32, device_index=None):
     registers and local (spill) bytes per thread, and the path taken
     ("staged" or "tiled")."""
     info = (ctypes.c_int * 6)()
-    with kernels.on_card(device_index):
+    with torch.cuda.device(device_index):
         kernels.check(kernels.entry("cdx_selfcol_launch_info", dtype)(
             Sa, SI, info), "selfcol launch_info")
     out = dict(zip(("threads", "smem_bytes", "blocks_per_sm", "registers",

@@ -7,8 +7,8 @@ terms (``stack_problems`` stacks given problems, ``pad_problems`` pads a
 batch to a multiple); ``BatchSolver`` runs the batch-native step on it:
 a fixed number of steps (``iterate``, ``iterate_masked``), a
 convergence-checked chunk (``iterate_until``) or a chunked solve
-(``solve``).  In one process it spreads the batch over every visible
-card, as the JAX package's over every chip; with a ``DeviceMesh`` it
+(``solve``).  In one process it runs the batch on the engine's device,
+or spreads it over the devices it is given; with a ``DeviceMesh`` it
 holds one rank's rows of a global batch (parallel/multihost.py).
 ``best_of_batch`` picks the lowest-cost problem of a batch.
 """
@@ -17,7 +17,6 @@ from __future__ import annotations
 
 import contextlib
 import math
-import threading
 import types
 from typing import Optional
 
@@ -107,34 +106,33 @@ class BatchSolver:
     device: the TPU build's problem-axis chunking (sized for its 128-lane
     vector tiles) has no counterpart here.
 
-    **One process, several devices** (``mesh=None``; JAX batch.py:116-147
-    builds a mesh over ``jax.devices()``).  ``devices`` (the port's own
-    parameter) lists the devices the batch spreads over; by default every
-    visible card for a CUDA engine, the engine's first, and the engine's
-    device alone for a CPU one.  A list may repeat a device: each entry
-    is a replica of its own (``ChompEngine._replica``, built here once
-    per engine and device entry and cached on the engine).  Each call
-    places the rows by JAX's ``shard`` rule: split evenly when the batch
-    size B divides by the device count k, over the first gcd(B, k)
-    devices when it does not, on the first device alone when the gcd is
-    1 (where JAX replicates the batch).  Each device steps its rows on its
-    replica, with its card current, one host thread per device, all
-    driven at once; two replicas on one card share its stream.  The step
-    is host-bound, and the threads' Python-level issue contends for the
-    GIL: on four H100s the default ran far below one card's solves/s
-    (PERF.md §6), so a caller after throughput names one card.  Results
-    come back on the engine's device in the batch's order.  Every row
-    steps on its own, so the result is the one-device result: bit-equal
-    where each operation's rounding does not depend on the batch width.
-    An ``extra_cost`` hook runs on each device's rows: it must not
-    capture tensors on a fixed card.
+    **One process, several devices** (``mesh=None``).  ``devices`` (the
+    port's own parameter) lists the devices the batch spreads over; by
+    default the engine's device alone.  That is not the JAX package's
+    default, a mesh over every chip of ``jax.devices()`` (JAX
+    batch.py:116-147): here the step is host-bound, with a host sync per
+    step in the joint-limit repair, so the devices' steps, issued in turn
+    from one thread, serialise, and on four H100s a batch spread over every
+    card ran at a quarter to a half of one card's solves/s (PERF.md §6).
+    A list may repeat a device: each entry is a replica of its own
+    (``ChompEngine._replica``, built here once per engine and device entry
+    and cached on the engine).  Each call places the rows by JAX's
+    ``shard`` rule: split evenly when the batch size B divides by the
+    device count k, over the first gcd(B, k) devices when it does not, on
+    the first device alone when the gcd is 1 (where JAX replicates the
+    batch).  Each step then runs on every device in turn, on its rows and
+    replica with its card current.  Results come back on the engine's
+    device in the batch's order.  Every row steps on its own, so the result
+    is the one-device result: bit-equal where each operation's rounding
+    does not depend on the batch width.  An ``extra_cost`` hook runs on
+    each device's rows: it must not capture tensors on a fixed card.
 
     HMC over several devices: a batch with per-problem seeds draws on each
     device's own rows (``SeededDraw``).  An unseeded batch draws the whole
-    batch's ``z``, ``u`` at every step from the engine's draw source, as
-    one device would, and each device takes its rows: the threads meet at
-    a barrier once per step for it, and the draw source sees a stand-in
-    batch whose only leaf is ``AG`` (the package's sources read no other).
+    batch's ``z``, ``u`` once per step from the engine's draw source, as
+    one device would, and each device takes its rows; the draw source sees
+    a stand-in batch whose only leaf is ``AG`` (the package's sources read
+    no other).
 
     **Several processes** (``mesh``, a ``torch.distributed.device_mesh.
     DeviceMesh``; ``devices`` must then be None): the mesh splits a global
@@ -167,13 +165,8 @@ class BatchSolver:
         self.mesh = mesh
         self.group = None if mesh is None else _mesh_group(mesh, axis)
         self._home = home = engine.radii_act.device   # with its index
-        if mesh is not None:
+        if devices is None:
             devices = [home]
-        elif devices is None:
-            devices = [home] + (
-                [torch.device("cuda", i)
-                 for i in range(torch.cuda.device_count()) if i != home.index]
-                if home.type == "cuda" else [])
         self.devices = [_device(d) for d in devices]
         if not self.devices:
             raise ValueError("BatchSolver: devices is empty")
@@ -228,60 +221,50 @@ class BatchSolver:
             k: self._gather([rows.leaves()[k] for _, rows, _, _ in parts])
             for k in parts[0][1].leaves()})
 
-    def _each(self, parts, fn):
-        """``fn(replica, rows, draw)`` for every part, concurrently: one
-        host thread per part with its device current (a lone part of the
-        engine's own runs in the calling thread); the results in part
-        order.  ``draw`` is the HMC draw source to pass to the step: None
-        (the step's own choice) unless an unseeded HMC batch is split, or
-        runs on a replica, where it is a view of one whole-batch draw."""
-        eng = self.engine
-        rows0 = parts[0][1]
-        shared = None
-        if (eng.spec.use_hmc and rows0.hmc_seed is None
+    def _whole_draw(self, parts):
+        """For an unseeded HMC batch split over several parts, or on a
+        replica: a function that draws the whole batch's ``z``, ``u`` once
+        from the engine's draw source and returns each part's step draw
+        source, a view of its rows on its device.  None otherwise (each
+        step then chooses its own)."""
+        eng, rows0 = self.engine, parts[0][1]
+        if not (eng.spec.use_hmc and rows0.hmc_seed is None
                 and (len(parts) > 1 or parts[0][0] is not eng)):
-            _, m, n = rows0.AG.shape
-            shared = _SharedDraw(eng.draw, len(parts), parts[-1][3], m, n,
-                                 rows0.AG.dtype, self._home)
+            return None
+        _, m, n = rows0.AG.shape
+        stand_in = types.SimpleNamespace(AG=torch.empty(
+            (), dtype=rows0.AG.dtype, device=self._home).expand(
+                parts[-1][3], m, n))
 
-        def run(part):
-            rep, rows, lo, hi = part
-            with (torch.cuda.device(rep.device) if rep.device.type == "cuda"
-                  else contextlib.nullcontext()):
-                return fn(rep, rows, None if shared is None
-                          else shared.rows(lo, hi))
-
-        if len(parts) == 1 and shared is None:
-            return [run(parts[0])]
-        results = [None] * len(parts)
-        errors = []
-
-        def work(i):
-            try:
-                results[i] = run(parts[i])
-            except BaseException as e:  # handed to the calling thread
-                errors.append(e)
-                if shared is not None:
-                    shared.barrier.abort()
-
-        threads = [threading.Thread(target=work, args=(i,),
-                                    name=f"BatchSolver-{i}")
-                   for i in range(len(parts))]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
-        if errors:
-            raise next((e for e in errors
-                        if not isinstance(e, threading.BrokenBarrierError)),
-                       errors[0])
-        return results
+        def draw():
+            z, u = eng.draw(stand_in)
+            return [lambda probs, lo=lo, hi=hi: (
+                z[lo:hi].to(probs.AG.device), u[lo:hi].to(probs.AG.device))
+                for _, _, lo, hi in parts]
+        return draw
 
     def _iterate_parts(self, parts, n_iter):
-        out = self._each(parts, lambda eng, rows, draw:
-                         eng.iterate_batched(rows, n_iter, draw))
-        return ([(p[0], rows, p[2], p[3]) for p, (rows, _) in
-                 zip(parts, out)], [c for _, c in out])
+        """n_iter steps of every part: (parts, costs (rows, n_iter, 3) per
+        part).  Several parts step in turn, one step each per round, from
+        this thread, each with its card current."""
+        if len(parts) == 1 and parts[0][0] is self.engine:
+            eng, rows, lo, hi = parts[0]
+            rows, costs = eng.iterate_batched(rows, n_iter)
+            return [(eng, rows, lo, hi)], [costs]
+        whole = self._whole_draw(parts)
+        costs = [[] for _ in parts]
+        for _ in range(n_iter):
+            draws = [None] * len(parts) if whole is None else whole()
+            stepped = []
+            for (rep, rows, lo, hi), draw, c in zip(parts, draws, costs):
+                with _current(rep.device):
+                    rows, ci = rep.step_batched(rows, draw)
+                c.append(ci)
+                stepped.append((rep, rows, lo, hi))
+            parts = stepped
+        return parts, [torch.stack(c, dim=1) if c else
+                       rows.traj.new_zeros((hi - lo, 0, 3))
+                       for c, (_, rows, lo, hi) in zip(costs, parts)]
 
     def iterate(self, probs: ChompProblem, n_iter: int):
         """n_iter batched steps.  Returns (problems, costs (n_iter, P, 3))."""
@@ -350,33 +333,17 @@ class BatchSolver:
             parts, _, conv = self._until(parts, todo, chunk, tol)
             if bool(conv):
                 break
-        finals = self._each(parts, lambda eng, rows, _: torch.stack(
-            eng.final_costs_batch(rows), dim=-1))
+        finals = []
+        for rep, rows, _, _ in parts:
+            with _current(rep.device):
+                finals.append(torch.stack(rep.final_costs_batch(rows), -1))
         return self._gather_problems(parts), self._gather(finals), done
 
 
-class _SharedDraw:
-    """One whole-batch HMC draw per step for a batch split over devices:
-    when every part's thread has reached the step's draw (a barrier), one
-    of them calls ``inner`` (the engine's draw source) on a stand-in of
-    the (B, m, n) batch on the engine's device; each part then takes its
-    rows to its device."""
-
-    def __init__(self, inner, parties, B, m, n, dtype, home):
-        stand_in = types.SimpleNamespace(AG=torch.empty(
-            (), dtype=dtype, device=home).expand(B, m, n))
-
-        def draw():
-            self.z, self.u = inner(stand_in)
-
-        self.barrier = threading.Barrier(parties, action=draw)
-
-    def rows(self, lo, hi):
-        def draw(probs):
-            self.barrier.wait()
-            dev = probs.AG.device
-            return self.z[lo:hi].to(dev), self.u[lo:hi].to(dev)
-        return draw
+def _current(device):
+    """A context with ``device`` current where it is a card."""
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())
 
 
 def _device(d):
@@ -385,7 +352,6 @@ def _device(d):
     if d.type == "cuda" and d.index is None:
         return torch.device("cuda", torch.cuda.current_device())
     return d
-
 
 
 def _mesh_group(mesh, axis):

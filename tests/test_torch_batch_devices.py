@@ -3,11 +3,10 @@ float64: the rows each device holds against the JAX package's ``shard``
 on its 8 virtual CPU devices, a split solve against JAX's sharded
 ``BatchSolver(engine).solve`` and against one device, seeded and
 unseeded HMC split over 4 devices against one device, ``iterate_until``'s
-flag as the AND over devices, the engine replicas, and the argument
-checks.  Repeated CPU entries (``devices=["cpu"] * k``) make real
-replicas and a real split, each part on a host thread of its own."""
-
-import threading
+flag as the AND over devices, an extra-cost hook on each device's rows,
+the engine replicas, and the argument checks.  Repeated CPU entries
+(``devices=["cpu"] * k``) make real replicas and a real split, the parts
+stepped in turn."""
 
 import jax
 import jax.numpy as jnp
@@ -184,19 +183,17 @@ def hmc_run():
 
 
 class KeyedDraw:
-    """SeededDraw that keeps every row's draws by (seed, iteration), from
-    any thread."""
+    """SeededDraw that keeps every row's draws by (seed, iteration)."""
 
     def __init__(self):
-        self.seen, self.lock = {}, threading.Lock()
+        self.seen = {}
 
     def __call__(self, probs):
         z, u = SeededDraw()(probs)
-        with self.lock:
-            for key, zz, uu in zip(zip(probs.hmc_seed.tolist(),
-                                       probs.iteration.tolist()), z, u):
-                assert key not in self.seen
-                self.seen[key] = (zz.clone(), uu.clone())
+        for key, zz, uu in zip(zip(probs.hmc_seed.tolist(),
+                                   probs.iteration.tolist()), z, u):
+            assert key not in self.seen
+            self.seen[key] = (zz.clone(), uu.clone())
         return z, u
 
 
@@ -257,35 +254,34 @@ def test_split_unseeded_hmc_bit_equal_to_one_device(hmc_run, devices):
     assert torch.equal(outs[0].resample_iter, outs[1].resample_iter)
 
 
-def test_a_failing_part_raises_and_frees_the_others(hmc_run):
-    """A draw source that fails in one part's step raises in the caller;
-    the other parts' threads, waiting at the draw barrier, are released
-    (the call returns)."""
-    run, starts, goals = hmc_run
-    probs = problem_batch_from_grid(run.problem, starts, goals, run.engine)
-    own = run.engine.draw
+def test_extra_cost_hook_runs_on_each_device_rows(setup):
+    """An engine with an extra-cost hook, its batch over 4 devices: every
+    replica keeps the hook, which runs once per step on each device's
+    rows (4 calls a step against one), and the result is bit-equal to one
+    device's, the hook's cost in it."""
+    run, _, _ = setup
+    eng = port_engine(run.engine)
+    calls = []
 
-    def broken(probs):
-        raise RuntimeError("no draw")
+    def hook(T):
+        calls.append(1)
+        return 0.5 * (T * T).sum(), T
 
-    def call():
-        try:
-            BatchSolver(run.engine, devices=["cpu"] * 4).iterate(probs, 2)
-        except RuntimeError as e:
-            raised.append(e)
-
-    raised = []
-    run.engine.draw = broken
-    try:
-        caller = threading.Thread(target=call, daemon=True)
-        caller.start()
-        caller.join(60)
-    finally:
-        run.engine.draw = own
-    assert not caller.is_alive()
-    assert len(raised) == 1 and "no draw" in str(raised[0])
-    assert not any(t.name.startswith("BatchSolver-")
-                   for t in threading.enumerate())
+    eng.extra_cost = hook
+    probs = port_probs(jax_batch(run, 8, seed=6))
+    outs = []
+    for devices, want in ((["cpu"], 3), (["cpu"] * 4, 12)):
+        calls.clear()
+        solver = BatchSolver(eng, devices=devices)
+        assert all(r.extra_cost is hook for r in solver.replicas)
+        outs.append(solver.iterate(probs, 3))
+        assert len(calls) == want
+    (out, costs), (out1, costs1) = outs[1], outs[0]
+    assert torch.equal(out.traj, out1.traj)
+    close(costs, costs1.numpy(), COST_RTOL)
+    eng.extra_cost = None
+    plain = BatchSolver(eng).iterate(probs, 1)[1]
+    assert bool((costs1[0, :, 1] > plain[0, :, 1]).all())
 
 
 def test_replicas_are_copies_cached_on_the_engine(setup):
