@@ -1,11 +1,12 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-Builds the three CUDA kernels from or_cdchomp_tpu_torch/csrc (K1
-obstacle, K2 self-collision, the seeded HMC draw), holds each against
-its plain PyTorch version at the shapes of the paths below, and drives
-all five of BASELINE's configurations through CHOMPModule and
+Builds the CUDA kernels from or_cdchomp_tpu_torch/csrc (K1 obstacle, K2
+self-collision, the seeded HMC draw, the joint-limit repair), holds each
+against its plain PyTorch version at the shapes of the paths below, and
+drives all five of BASELINE's configurations through CHOMPModule and
 BatchSolver, each with the kernel launch counts set to 0 just before it
-and read just after:
+and read just after (K1, K2 and the limits kernel once a step, a CUDA
+graph's replays counted as its capture recorded them):
 
 - config 1 (the main path): the bench scene (WAM7 + hand, table + mug,
   one SDF), 256 perturbed problems, 100 iterations of
@@ -26,10 +27,20 @@ and read just after:
   are held against their plain versions again on its inputs, and K1 is
   timed there.
 
+On a card every iterate replays one CUDA graph of the step
+(ChompEngine.iterate_batched).  Configs 1, 3 (seeded), 4, 5 and the long
+batch each hold a replayed iterate(100) against 100 eager step_batched
+calls (state and costs bit-equal), count the host syncs of a replayed
+iterate(100) (none), and time both in turns with their device idle
+shares (graph_check).  The limits kernel is held against its plain
+version at config 1's shape with rows pushed out of their limits, in
+float32 and float64, and at m = 999 (the semiseparable metric).
+
 Config 1's B = 256 solve also runs over two replicas on the one card
 (``BatchSolver(engine, devices=[card, card])``: the engine and a copy,
-one layout-kernel launch, 128 rows each, stepped in turn), K1 and K2
-counted per replica and every row bit-equal to ``devices=[card]``, the
+one layout-kernel launch, 128 rows each, stepped in turn), K1, K2 and
+the limits kernel counted by the profiler on the card (launches_by_card)
+and every row bit-equal to ``devices=[card]``, the
 two walls in turns; config 3's unseeded HMC batch the same way, its
 whole-batch draws bit-equal; and the layout kernel timed at its pair
 table (config 1's 207 pairs; the grab's 3,617 in the grab phase).
@@ -122,10 +133,12 @@ Any failed phase exits non-zero.
 
 ``--cards N`` (a machine of N >= 2 cards): every kernel launched on the
 last card with cuda:0 current against its plain version; then
-BatchSolver over all N cards in one process (``devices=`` every card: a
-replica per card, stepped in turn) against one card, its default:
+BatchSolver over all N cards in one process (its default, every card: a
+replica per card, each step one graph replay per card, issued in turn)
+against one card:
 config 1's B = 256 solve, config 3's seeded batch (best_of_batch) and
-its unseeded one, every row bit-equal, K1 and K2 counted per replica;
+its unseeded one, every row bit-equal, K1, K2, the limits kernel and
+the draw counted per card by the profiler;
 config 5 at B = 10,240; config 1's float64 B = 4
 batch over two cards against the CPU's float64; solves/s of one card
 and of N in turns; and the ``--split N`` reading (split_solve).
@@ -238,6 +251,10 @@ F64_BATCH = 4
 CARD_REPS = 4
 # a split batch's costs against one device's (float32 on the card)
 SPLIT_COST_RTOL = 1e-6
+# replayed iterate against eager steps: warm walls of each, in turns
+GRAPH_REPS = 3
+# steps of an iterate whose launches the profiler counts by kernel name
+PROBE_STEPS = 10
 
 # the port's scripts, each run in a child process at its own defaults
 SCRIPTS = ("drive_torch.py", "examples/torch_wam7_demo.py",
@@ -805,13 +822,14 @@ def graph_ms(torch, fn, reps=20):
     return time_ms(torch, g.replay, reps=5) / reps
 
 
-def timings(torch, kernel, plain):
+def timings(torch, kernel, plain, plain_reps=20):
     """(kernel ms, plain ms) per call from CUDA events, and the same pair
     as device time: from the profiler, or where it records no device
-    activity from a CUDA graph's replay (graph_ms)."""
-    out = [time_ms(torch, kernel), time_ms(torch, plain)]
-    for fn in (kernel, plain):
-        ms = device_ms(torch, fn)
+    activity from a CUDA graph's replay (graph_ms); the plain version
+    over ``plain_reps`` calls."""
+    out = [time_ms(torch, kernel), time_ms(torch, plain, plain_reps)]
+    for fn, reps in ((kernel, 20), (plain, plain_reps)):
+        ms = device_ms(torch, fn, reps)
         if ms is None:
             ms = graph_ms(torch, fn)
             print(f"timings: device time from a CUDA graph's replay: {ms}")
@@ -966,9 +984,271 @@ def warm_walls(torch, fn, reps):
     return statistics.median(walls), walls
 
 
+def eager_iterate(torch, eng, probs, n, draw=None):
+    """n eager step_batched calls (no CUDA graph): (probs, costs (B, n,
+    3)), as iterate_batched returns them."""
+    costs = []
+    for _ in range(n):
+        probs, c = eng.step_batched(probs, draw)
+        costs.append(c)
+    return probs, torch.stack(costs, dim=1)
+
+
+# the kernels of a step, each by its wrapper's count and by a pattern of
+# the name the profiler gives it, mangled or not (K2 has a staged and a
+# tiled kernel; the layout kernel is not a step's)
+STEP_KERNELS = (("obstacle", r"obstacle_kernel"),
+                ("selfcol", r"selfcol(_tiled)?_kernel"),
+                ("limits", r"limit_repair_kernel"),
+                ("draw", r"hmc_draw_kernel"))
+# those a CUDA graph of the step replays
+REPLAYED_KERNELS = ("obstacle", "selfcol", "limits")
+
+
+def wrapper_counts():
+    """The step kernels' wrapper counts (a replay adds the launches its
+    capture recorded; ops/kernels.py)."""
+    from or_cdchomp_tpu_torch.ops import draw, limits, sdf_lookup, selfcol
+
+    return {"obstacle": sdf_lookup.LAUNCHES, "selfcol": selfcol.LAUNCHES,
+            "limits": limits.LAUNCHES, "draw": draw.LAUNCHES}
+
+
+def launches_by_card(torch, fn, label):
+    """The step kernels that fn() launches, measured: fn runs under
+    torch.profiler and its device events are counted by kernel name and
+    card; beside them, what the wrappers counted over the same call.
+    Returns ({card index: {kernel: events}}, {kernel: wrapper count}).
+
+    Held equal: the kernels of REPLAYED_KERNELS, whose wrapper counts a
+    replay infers from its capture.  The draw runs eagerly before each
+    replay and its wrapper counts each real launch; its events are
+    returned, not held: on an H100 late in this script's run the profiler
+    loses eager launches (device_ms), and it recorded 9 of a seeded
+    batch's 10 draws in five profiles running, and again after a few
+    warm-up kernels in each profile, while it recorded every replayed
+    kernel.  A profile that records fewer replayed launches than the
+    wrappers counted is taken again, up to PROFILE_TRIES in all."""
+    import re
+    from collections import Counter, defaultdict
+
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(PROFILE_TRIES):
+        before = wrapper_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync_all(torch)
+        counted = {k: v - before[k] for k, v in wrapper_counts().items()}
+        cards = defaultdict(Counter)
+        for e in device_events(torch, prof):
+            for k, pattern in STEP_KERNELS:
+                if re.search(pattern, e.name):
+                    cards[e.device_index][k] += 1
+        seen = sum(cards.values(), Counter())
+        if all(seen[k] >= counted[k] for k in REPLAYED_KERNELS):
+            break
+        print(f"{label}: the profile recorded {dict(seen)} launches, the "
+              f"wrappers counted {counted}; taking it again")
+    check(all(seen[k] == counted[k] for k in REPLAYED_KERNELS),
+          f"{label}: the profile recorded {dict(seen)} launches, the "
+          f"wrappers counted {counted}")
+    return ({i: {k: c.get(k, 0) for k, _ in STEP_KERNELS}
+             for i, c in cards.items()}, counted)
+
+
+STATE_LEAVES = ("traj", "AG", "iteration", "resample_iter", "leapfrog_first")
+
+
+def graph_check(torch, label, eng, probs, card, reps=GRAPH_REPS):
+    """A batch's replayed iterate(100) (ChompEngine.iterate_batched: one
+    CUDA graph of the step, replayed) against 100 eager step_batched
+    calls: every state leaf and cost bit-equal; no host sync in a
+    replayed iterate(100); solves/s of each in turns (reps each, with
+    the spread); aten calls, device kernels, busy and idle share per step
+    of each, from the profiler over 10 steps.  Returns (solves/s
+    replayed, solves/s eager)."""
+    B = probs.traj.shape[0]
+    t0 = time.perf_counter()
+    want, wcosts = eager_iterate(torch, eng, probs, N_ITER)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    got, gcosts = eng.iterate_batched(probs, N_ITER)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    print(f"{label}: eager {N_ITER} steps {t1 - t0:.3f} s, replayed "
+          f"iterate({N_ITER}) {t2 - t1:.3f} s (first call, its capture "
+          f"included unless an earlier call captured it)")
+    for k in STATE_LEAVES:
+        a, b = getattr(got, k), getattr(want, k)
+        check(torch.equal(a, b), f"{label}: replayed {k} differs from the "
+              f"eager steps (max {float((a.double() - b.double()).abs().max())})")
+    check(torch.equal(gcosts, wcosts), f"{label}: replayed costs differ "
+          f"(max {float((gcosts - wcosts).abs().max())})")
+    syncs = host_syncs(torch, lambda: eng.iterate_batched(probs, N_ITER))
+    print(f"{label}: replayed iterate({N_ITER}) bit-equal to the eager "
+          f"steps (state and costs); {len(syncs)} host syncs in a replayed "
+          f"iterate({N_ITER}) at {sync_sites(syncs)}")
+    check(not syncs, f"{label}: host syncs in a replayed iterate")
+    walls = in_turns(torch, {
+        "eager": lambda: eager_iterate(torch, eng, probs, N_ITER),
+        "replayed": lambda: eng.iterate_batched(probs, N_ITER)}, reps)
+    print_rates(walls, B, f"{label} {N_ITER} steps", card)
+    for arm, fn in (("eager", lambda: eager_iterate(torch, eng, probs, 10)),
+                    ("replayed", lambda: eng.iterate_batched(probs, 10))):
+        calls, kern, busy, wall, _ = profile_calls(torch, fn, 2)
+        print(f"{label} {arm} step (profiler, 2 x 10 steps): "
+              f"{calls / 10:.1f} aten calls, {kern / 10:.1f} device kernels, "
+              f"device busy {busy / 10:.4f} ms of a {wall / 10:.4f} ms wall, "
+              f"device idle {1.0 - busy / wall:.4f} on {card}")
+        check(kern > 0 and 0.0 <= 1.0 - busy / wall <= 1.0,
+              f"{label} {arm}: {kern} device kernels, busy {busy} of {wall}")
+    # the wrappers' counts of a replay are its capture's, added again: the
+    # profiler's events show what each replay launched
+    steps = PROBE_STEPS
+    seeded = eng.spec.use_hmc and probs.hmc_seed is not None
+    want = {"obstacle": steps, "selfcol": steps, "limits": steps,
+            "draw": steps if seeded else 0}
+    cards, counted = launches_by_card(
+        torch, lambda: eng.iterate_batched(probs, steps),
+        f"{label} replayed launches")
+    seen = cards.get(probs.traj.device.index, {})
+    print(f"{label}: a replayed iterate({steps}) launched {seen} on its "
+          f"card (profiler events by kernel name; expected {want}, the "
+          f"draw's eager launches not held), the wrappers counted "
+          f"{counted}")
+    check(len(cards) <= 1 and counted == want
+          and all(seen.get(k, 0) == want[k] for k in REPLAYED_KERNELS),
+          f"{label}: replayed launches {cards}, counted {counted}, "
+          f"expected {want}")
+    return tuple(B / statistics.median(walls[k])
+                 for k in ("replayed", "eager"))
+
+
+def pushed_out(torch, T, lo, hi, seed=5):
+    """T (B, m, n) with rows pushed out of their finite limits (lo, hi
+    (B, n)) as a step's update pushes them: in every row but each eighth,
+    1–2 excursions of one joint past one of its limits, a triangle over
+    3–15 consecutive points peaking 0.01–0.3 beyond it (seeded); a copy.
+    (Independent entries past opposite limits of one joint at adjacent
+    points make the repair run its 1,000 rounds and end on a chaotic
+    path: the plain version in float32 and float64 then differ by O(1),
+    so no kernel can be held to it there.)"""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    B, m, n = T.shape
+    lo_h, hi_h = lo.double().cpu().numpy(), hi.double().cpu().numpy()
+    out = T.double().cpu().numpy().copy()
+    for b in range(B):
+        if b % 8 == 0:
+            continue
+        joints = [j for j in range(n)
+                  if np.isfinite(lo_h[b, j]) and np.isfinite(hi_h[b, j])]
+        for j in rng.choice(joints, size=min(1 + b % 2, len(joints)),
+                            replace=False):
+            w = int(rng.integers(3, 16))
+            i0 = int(rng.integers(m))
+            over = rng.uniform(0.01, 0.3)
+            up = rng.random() < 0.5
+            for i in range(max(0, i0 - w + 1), min(m, i0 + w)):
+                dv = over * (1.0 - abs(i - i0) / w)
+                if up:
+                    out[b, i, j] = max(out[b, i, j], hi_h[b, j] + dv)
+                else:
+                    out[b, i, j] = min(out[b, i, j], lo_h[b, j] - dv)
+    return torch.as_tensor(out, dtype=T.dtype, device=T.device)
+
+
+def limits_entry(torch, name, T, lo, hi, metric, card, max_ill):
+    """The limits kernel on T against its plain version on the card:
+    every row but the plain version's ill-conditioned ones (at most
+    ``max_ill``, counted, printed and kept in the entry) within rtol
+    KERNEL_RTOL in float32, F64_KERNEL_RTOL in float64, with the plain
+    version's rounds; two launches bit-equal; timed; its entry (launches
+    unset)."""
+    from or_cdchomp_tpu_torch.ops import limits
+
+    f64 = T.dtype == torch.float64
+    got, stats = limits.limit_repair(T, lo, hi, metric, want_stats=True)
+    want, wstats = limits.limit_repair_ref(T, lo, hi, metric,
+                                           want_stats=True)
+    # Some rows are ill-conditioned: one that reaches the round cap has
+    # bounced between two entries at opposite limits, an ulp or so out,
+    # for most of its 1,000 rounds, and one with a long tail of rounds
+    # (tens, at m = 999) amplifies each rounding.  Where such a row ends
+    # depends on every rounding on the way, so no other sum order can be
+    # held to the plain version's there: in float32 the plain version's
+    # own float64 run strays from it too.  Which rows these are is read
+    # from the plain version alone: those it leaves at the cap and, in
+    # float32, those where it strays from its own float64 run beyond the
+    # tolerance.  They are counted (at most max_ill, the count this
+    # input has shown) and printed, each version's distance from the
+    # float64 run beside the other's; every other row is held to the
+    # tolerance and to the plain version's rounds.
+    rtol = F64_KERNEL_RTOL if f64 else KERNEL_RTOL
+    cap = limits._MAX_LIMIT_FIXES
+    ill = wstats[:, 0] >= cap
+    want64 = want.double()
+    if not f64:
+        metric64 = (metric.double() if isinstance(metric, torch.Tensor)
+                    else metric)
+        want64 = limits.limit_repair_ref(T.double(), lo.double(),
+                                         hi.double(), metric64)
+        scale = float(want64.abs().max())
+        ill |= ((want.double() - want64).abs().amax(dim=(1, 2))
+                > rtol * scale)
+    n_ill = int(ill.sum())
+    check(n_ill <= max_ill, f"{name}: {n_ill} rows ill-conditioned in the "
+          f"plain version, expected at most {max_ill}")
+    err = compare(torch, name, got[~ill], want[~ill], rtol=rtol)
+    other = int((stats[~ill, 0] != wstats[~ill, 0]).sum())
+    check(other == 0, f"{name}: {other} of the compared rows took other "
+          f"rounds than the plain version")
+    ill_err = [0.0, 0.0]
+    if n_ill:
+        ill_err = [float((x[ill].double() - want64[ill]).abs().max())
+                   for x in (got, want)]
+    check(torch.equal(limits.limit_repair(T, lo, hi, metric), got),
+          f"{name}: two launches differ")
+    # the plain version syncs once a round, up to 1,000 rounds a call
+    t = timings(torch, lambda: limits.limit_repair(T, lo, hi, metric),
+                lambda: limits.limit_repair_ref(T, lo, hi, metric), 5)
+    B, m, n = T.shape
+    rounds = stats[:, 0].cpu()
+    # no PyTorch call computes the repair (a data-dependent loop of an
+    # argmax, a sparse A⁻¹ product and an update per problem)
+    entry = kernel_entry(
+        name, "or_cdchomp_tpu_torch/csrc/limits.cu",
+        "or_cdchomp_tpu/chomp/solver.py:400", err, t,
+        limits.traffic_bytes(B, m, n, T.element_size()),
+        limits.flops(m, n, stats.cpu()),
+        FP64_FLOPS_PER_S if f64 else FP32_FLOPS_PER_S)
+    entry["ill_conditioned_rows"] = n_ill
+    print(f"{name} (B={B}, m={m}, n={n}, "
+          f"{'dense' if isinstance(metric, torch.Tensor) else 'sep'}): "
+          f"max_abs_err {err} over the well-conditioned rows, each with "
+          f"the plain version's rounds; {n_ill} ill-conditioned rows (at "
+          f"most {max_ill}; rounds {stats[ill, 0].tolist()}, the plain "
+          f"version's {wstats[ill, 0].tolist()}), max |Δ| from the plain "
+          f"version's float64 run there: kernel {ill_err[0]}, plain "
+          f"{ill_err[1]}; rounds per problem {int(rounds.min())}-"
+          f"{int(rounds.max())} (sum {int(rounds.sum())}; the plain "
+          f"version's sum {int(wstats[:, 0].sum())}); per call "
+          f"{t[0]:.4f} ms vs plain {t[1]:.4f} ms; "
+          f"device {entry['ms']} ms vs plain {entry['plain_ms']} ms, bound "
+          f"{entry['bound_ms']} ms ({entry['bound_by']}), share "
+          f"{entry['bound_share']:.4f} on {card}")
+    return entry
+
+
 def counts_zero(sdf_lookup, selfcol, draw=None):
+    from or_cdchomp_tpu_torch.ops import limits
+
     sdf_lookup.LAUNCHES = 0
     selfcol.LAUNCHES = 0
+    limits.LAUNCHES = 0
     if draw is not None:
         draw.LAUNCHES = 0
 
@@ -977,9 +1257,16 @@ def counts(sdf_lookup, selfcol):
     return {"obstacle": sdf_lookup.LAUNCHES, "selfcol": selfcol.LAUNCHES}
 
 
-def check_launches(got, want, label):
+def check_launches(got, want, label, steps=None):
+    """K1 and K2 launched ``want`` times each; with ``steps``, the limits
+    kernel once a step (counted since counts_zero)."""
+    from or_cdchomp_tpu_torch.ops import limits
+
     for k, v in got.items():
         check(v == want, f"{label}: {k} launched {v} times, expected {want}")
+    if steps is not None:
+        check(limits.LAUNCHES == steps, f"{label}: the limits kernel "
+              f"launched {limits.LAUNCHES} times, expected {steps}")
 
 
 def max_dtraj(out, ref):
@@ -1110,12 +1397,10 @@ def config4_phase(torch, pt, card, dev):
 
     time_projection(torch, constraints, eng, probs, fk_out, card)
     step_profile(torch, eng, probs, "config 4", card)
-    # the limit repair's test (one per round) is the step's only sync
+    # the limits kernel loops on the card: the step makes no host sync
     syncs = host_syncs(torch, lambda: eng.step_batched(probs))
     print(f"config 4 step: {len(syncs)} host syncs, at {syncs}")
-    check(bool(syncs) and all(" _limit_repair_batched" in st[0]
-                              for st in syncs),
-          "config 4: a host sync outside the limit repair")
+    check(not syncs, "config 4: a host sync in the step")
     res0 = float(eng.constraint_values(probs).abs().max())
 
     counts_zero(sdf_lookup, selfcol)
@@ -1129,7 +1414,8 @@ def config4_phase(torch, pt, card, dev):
     print(f"config 4: iterate({N_ITER}) + final costs at B={BATCH} in "
           f"{first_wall:.3f} s (first call), launches {launches} "
           f"(expected {N_ITER} + 1 each)")
-    check_launches(launches, N_ITER + 1, "config 4")
+    check_launches(launches, N_ITER + 1, "config 4",
+                   steps=N_ITER)
     k1["launches"], k2["launches"] = launches["obstacle"], launches["selfcol"]
     check(tuple(costs.shape) == (N_ITER, BATCH, 3)
           and tuple(out.traj.shape) == (BATCH, CONFIG4_POINTS, 14),
@@ -1152,6 +1438,7 @@ def config4_phase(torch, pt, card, dev):
                              WARM_REPS)
     print(f"config 4 iterate({N_ITER}) at B={BATCH}: median warm wall {wall} "
           f"s of {walls}, {BATCH / wall} solves/s on {card}")
+    graph_check(torch, "config 4", eng, probs, card)
     return out, starts, goals, [k1, k2]
 
 
@@ -1230,14 +1517,14 @@ def module_phase(torch, pt, card, dev, out1, out5):
     launches = counts(sdf_lookup, selfcol)
     print(f"B=1 create + iterate({N_ITER}): launches {launches} (expected "
           f"{N_ITER} + 1 each, the final cost report's)")
-    check_launches(launches, N_ITER + 1, "B=1 iterate")
+    check_launches(launches, N_ITER + 1, "B=1 iterate",
+                   steps=N_ITER)
     steps = solver_mod.ChompEngine.ITER_CHUNK
     syncs = host_syncs(torch, lambda: mod.iterate(run=h, n_iter=steps))
     print(f"B=1 iterate({steps}): {len(syncs)} host syncs "
           f"({len(syncs) / steps:.4f} per step) at {sync_sites(syncs)}")
-    check(all(" _limit_repair_batched" in st[0] or " iterate" in st[0]
-              for st in syncs), "B=1 iterate: a host sync outside the limit "
-          "repair and the cost reads")
+    check(all(" iterate" in st[0] for st in syncs),
+          "B=1 iterate: a host sync outside the cost reads")
     t_get = []
     for _ in range(LATENCY_REPS + 1):
         t0 = time.perf_counter()
@@ -1489,7 +1776,8 @@ def grab_phase(torch, pt, card, dev):
     print(f"grab: iterate({N_ITER}) at B={BATCH} in {wall:.3f} s (first "
           f"call), {BATCH / wall} solves/s, launches {launches}, layout "
           f"kernel {selfcol.LAYOUT_LAUNCHES} on {card}")
-    check_launches(launches, N_ITER, "grab")
+    check_launches(launches, N_ITER, "grab",
+                   steps=N_ITER)
     check(selfcol.LAYOUT_LAUNCHES == 0, "grab: the step built a pair layout")
     entry["launches"] = launches["selfcol"]
     # the layout kernel at the grab's pair table: the engine builds its
@@ -1577,7 +1865,8 @@ def front_door_phase(torch, pt, card, dev):
           f"{after64}); max |Δtraj| against the CPU float64 strings {d_str} "
           f"(bar {TRAJ_BAR}, {wall64:.2f} s on the CPU)")
     check(spec.start_tsr and spec.m == N_POINTS - 1, f"front door {spec}")
-    check_launches(launches, N_ITER + 1, "front door strings")
+    check_launches(launches, N_ITER + 1, "front door strings",
+                   steps=N_ITER)
     check(len(out["positions"]) == N_POINTS
           and np.isfinite(np.array(out["positions"])).all(),
           "front door gettraj")
@@ -1605,7 +1894,8 @@ def front_door_phase(torch, pt, card, dev):
         batch_launches[k] = counts(sdf_lookup, selfcol)
         print(f"front door {k}: iterate({N_ITER}) at B={BATCH} in {wall:.3f} "
               f"s (first call), launches {batch_launches[k]}")
-        check_launches(batch_launches[k], N_ITER, f"front door {k}")
+        check_launches(batch_launches[k], N_ITER, f"front door {k}",
+                       steps=N_ITER)
         check(bool(torch.isfinite(costs).all()
                    and torch.isfinite(outs[k].traj).all()),
               f"front door {k}: non-finite costs or trajectories")
@@ -1771,12 +2061,13 @@ def long_phase(torch, pt, card, dev):
     """Long trajectories: config 1's world at n_points 1001 (m = 999, the
     semiseparable metric, no m×m tensor), B = 256, K1 and K2 held against
     their plain versions and timed, iterate(100) with its launches, step
-    profile and warm walls; runchomp at n_points 258 (the first
+    profile and warm walls, the limits kernel with rows pushed out, the
+    replayed iterate against eager steps; runchomp at n_points 258 (the first
     semiseparable shape); then the first 8 problems and the runchomp on
     the CPU in float64.  Returns the kernel entries."""
     import numpy as np
 
-    from or_cdchomp_tpu_torch.ops import sdf_lookup, selfcol
+    from or_cdchomp_tpu_torch.ops import limits, sdf_lookup, selfcol
     from or_cdchomp_tpu_torch.parallel.batch import (BatchSolver,
                                                      problem_batch_from_grid)
 
@@ -1801,6 +2092,12 @@ def long_phase(torch, pt, card, dev):
     check(not square, f"long batch: m x m tensors {square}")
     entries = kernels_at(torch, sdf_lookup, selfcol, eng, probs, "m999",
                          card)
+    T, lo, hi = probs.traj[:, 1:-1], probs.jlimit_lower, probs.jlimit_upper
+    # this seeded input leaves two rows at the cap and one with a 45-round
+    # tail in the plain version (PERF.md §6)
+    entries.append(limits_entry(torch, "limit_repair_m999",
+                                pushed_out(torch, T, lo, hi), lo, hi,
+                                eng.spec.dt, card, max_ill=3))
 
     counts_zero(sdf_lookup, selfcol)
     solver = BatchSolver(eng)
@@ -1814,8 +2111,10 @@ def long_phase(torch, pt, card, dev):
     print(f"long batch: iterate({N_ITER}) at B={BATCH}, m={m} in {wall:.3f} "
           f"s (first call), launches {launches}, peak device memory {peak} "
           f"B on {card}")
-    check_launches(launches, N_ITER, "long batch")
-    for e, k in zip(entries, ("obstacle", "selfcol")):
+    check_launches(launches, N_ITER, "long batch",
+                   steps=N_ITER)
+    launches["limits"] = limits.LAUNCHES
+    for e, k in zip(entries, ("obstacle", "selfcol", "limits")):
         e["launches"] = launches[k]
     check(tuple(out.traj.shape) == (BATCH, LONG_POINTS, 7)
           and bool(torch.isfinite(costs).all())
@@ -1829,6 +2128,7 @@ def long_phase(torch, pt, card, dev):
     wall, walls = warm_walls(torch, lambda: solver.iterate(probs, N_ITER), 3)
     print(f"long batch iterate({N_ITER}) at B={BATCH}: median warm wall "
           f"{wall} s of {walls}, {BATCH / wall} solves/s on {card}")
+    graph_check(torch, "long batch (m = 999)", eng, probs, card)
 
     kw258 = dict(run_kw(), n_points=SEP_FIRST_POINTS)
     h = mod.create(**kw258)
@@ -2002,7 +2302,8 @@ def mesh_phase(torch, pt, card, dev):
     launches = counts(sdf_lookup, selfcol)
     print(f"mesh batch: iterate({N_ITER}) at B={BATCH} in {wall:.3f} s "
           f"(first call), launches {launches}")
-    check_launches(launches, N_ITER, "mesh batch")
+    check_launches(launches, N_ITER, "mesh batch",
+                   steps=N_ITER)
     entries[0]["launches"] = launches["obstacle"]
     check(bool(torch.isfinite(costs).all()
                and torch.isfinite(out.traj).all()),
@@ -2080,7 +2381,8 @@ def mesh_phase(torch, pt, card, dev):
     print(f"large grid batch: iterate({N_ITER}) at B={BATCH} in "
           f"{time.perf_counter() - t0:.3f} s (first call), launches "
           f"{launches}")
-    check_launches(launches, N_ITER, "large grid batch")
+    check_launches(launches, N_ITER, "large grid batch",
+                   steps=N_ITER)
     eL["launches"] = launches["obstacle"]
     check(bool(torch.isfinite(costsL).all()
                and torch.isfinite(outL.traj).all()),
@@ -2150,7 +2452,8 @@ def seeded_phase(torch, pt, card, dev):
     launches = dict(counts(sdf_lookup, selfcol), hmc_draw=draw.LAUNCHES)
     print(f"seeded HMC: iterate({N_ITER}) at B={BATCH} in {wall:.3f} s "
           f"(first call), launches {launches} on {card}")
-    check_launches(launches, N_ITER, "seeded HMC")
+    check_launches(launches, N_ITER, "seeded HMC",
+                   steps=N_ITER)
     entry["launches"] = launches["hmc_draw"]
     check(bool(torch.isfinite(costs).all())
           and bool(torch.isfinite(out.traj).all()),
@@ -2173,6 +2476,7 @@ def seeded_phase(torch, pt, card, dev):
     check(len(rec.z) == len(rec8.z) == N_ITER and same,
           "seeded HMC: rows draw differently in a batch of 8")
     check(d <= SEEDED_BAR, f"seeded HMC: rows moved {d} in a batch of 8")
+    graph_check(torch, "config 3 seeded", eng, probs, card)
     return entry
 
 
@@ -2355,7 +2659,8 @@ def distributed_phase(torch, pt, card, dev):
                                 "broadcast": 1},
           f"distributed: solve collectives {solve_calls.calls}, "
           f"{chunks} chunks")
-    check_launches(launches, done_d + 1, "distributed solve")
+    check_launches(launches, done_d + 1, "distributed solve",
+                   steps=done_d)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out_p, fin_p, done_p = plain.solve(probs, N_ITER, tol=DIST_TOL)
@@ -2612,7 +2917,7 @@ def range_cost_us(torch, n=20_000):
 def profile_phase(torch, pt, card, dev):
     """The phase ranges on the card: configs 1 and 4 profiled 5 steps each
     (device and host ms per phase, K1 in obstacle, K2 in selfcol); config
-    1's warm iterate(100) with the ranges as shipped and with ``phase``
+    1's 100 warm eager steps with the ranges as shipped and with ``phase``
     swapped for a null context, in turns; the 0.0025 m mesh field's build
     split into voxelize, flood and edt."""
     import contextlib
@@ -2620,8 +2925,7 @@ def profile_phase(torch, pt, card, dev):
     from torch.profiler import ProfilerActivity, profile
 
     from or_cdchomp_tpu_torch.chomp import cost_soa, solver as solver_mod
-    from or_cdchomp_tpu_torch.parallel.batch import (BatchSolver,
-                                                     problem_batch_from_grid)
+    from or_cdchomp_tpu_torch.parallel.batch import problem_batch_from_grid
     from or_cdchomp_tpu_torch.utils.profiling import (BUILD_PHASES,
                                                       format_phase_report,
                                                       phase_host_report,
@@ -2640,12 +2944,12 @@ def profile_phase(torch, pt, card, dev):
     probs4 = problem_batch_from_grid(run4.problem, s4, g4, run4.engine)
     phase_profile(torch, run4.engine, probs4, "config 4", card)
 
-    solver = BatchSolver(eng)
     shipped = (cost_soa.phase, solver_mod.phase)
 
     def null(name):
         return contextlib.nullcontext()
 
+    # the eager steps: a replayed iterate enters no range
     walls = {"ranges": [], "null": []}
     try:
         for arm in ("ranges", "null", "null", "ranges") * 2 + ("ranges",
@@ -2653,12 +2957,13 @@ def profile_phase(torch, pt, card, dev):
             cost_soa.phase = solver_mod.phase = (
                 shipped[0] if arm == "ranges" else null)
             walls[arm].append(warm_walls(
-                torch, lambda: solver.iterate(probs, N_ITER), 1)[0])
+                torch, lambda: eager_iterate(torch, eng, probs, N_ITER),
+                1)[0])
     finally:
         cost_soa.phase, solver_mod.phase = shipped
     print(f"host µs per range after them: {range_cost_us(torch)}")
     wr, wn = statistics.median(walls["ranges"]), statistics.median(walls["null"])
-    print(f"phase ranges' cost: config 1 warm iterate({N_ITER}) at "
+    print(f"phase ranges' cost: config 1 warm eager steps ({N_ITER}) at "
           f"B={BATCH}, in turns: ranges {walls['ranges']} (median {wr} s), "
           f"null context {walls['null']} (median {wn} s): "
           f"{(wr - wn) / wn:+.4f} of the wall on {card}")
@@ -3081,11 +3386,12 @@ def float64_phase(torch, pt, card, dev):
     the raw lookup's float64 kernels (counts zeroed just before the
     card's calls, read just after: one K1 and one K2 launch per step,
     one lookup launch); then each kernel is held to its plain version
-    on the batch's inputs and timed.  Returns the three kernel
+    on the batch's inputs and timed, and the limits kernel at config 1's
+    shape (B = 256) with rows pushed out.  Returns the four kernel
     entries."""
     import numpy as np
 
-    from or_cdchomp_tpu_torch.ops import grid, sdf_lookup, selfcol
+    from or_cdchomp_tpu_torch.ops import grid, limits, sdf_lookup, selfcol
     from or_cdchomp_tpu_torch.parallel.batch import (BatchSolver,
                                                      problem_batch_from_grid)
 
@@ -3129,16 +3435,18 @@ def float64_phase(torch, pt, card, dev):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         launches = dict(counts(sdf_lookup, selfcol),
-                        lookup=sdf_lookup.LOOKUP_LAUNCHES)
+                        lookup=sdf_lookup.LOOKUP_LAUNCHES,
+                        limits=limits.LAUNCHES)
         res.append((traj, cost[0], out, costs, (v, g, inb), walls,
-                    launches, (run.engine, p)))
-    (traj, cost, out, costs, grid_out, walls, launches, (eng, p)) = res[0]
+                    launches, (run, p)))
+    (traj, cost, out, costs, grid_out, walls, launches, (run, p)) = res[0]
+    eng = run.engine
     (traj_c, cost_c, out_c, costs_c, grid_c, walls_c, _, _) = res[1]
     steps = launches["obstacle"]
     print(f"float64 on the card: launches {launches} (runchomp's and the "
           f"batch's {2 * N_ITER} steps and checks, one lookup)")
     check(steps >= 2 * N_ITER and launches["selfcol"] == steps
-          and launches["lookup"] == 1,
+          and launches["lookup"] == 1 and launches["limits"] == 2 * N_ITER,
           f"float64 on the card: launches {launches}")
     d_run = float(np.abs(traj.positions - traj_c.positions).max())
     d_cost = abs(cost - cost_c) / abs(cost_c)
@@ -3176,7 +3484,14 @@ def float64_phase(torch, pt, card, dev):
     entries = kernels_at(torch, sdf_lookup, selfcol, eng, out, "f64", card)
     entries.append(multigrid_on_card(torch, grid, sdf_lookup, eng.fields, p,
                                      "sdf_cell_lookup_f64", card))
-    for e, k in zip(entries, ("obstacle", "selfcol", "lookup")):
+    s256, g256 = bench_endpoints(BATCH)
+    p256 = problem_batch_from_grid(run.problem, s256, g256, eng)
+    T = p256.traj[:, 1:-1]
+    lo, hi = p256.jlimit_lower, p256.jlimit_upper
+    entries.append(limits_entry(torch, "limit_repair_f64",
+                                pushed_out(torch, T, lo, hi), lo, hi,
+                                eng.Ainv, card, max_ill=0))
+    for e, k in zip(entries, ("obstacle", "selfcol", "lookup", "limits")):
         e["launches"] = launches[k]
     return entries
 
@@ -3235,46 +3550,6 @@ def scripts_phase(card):
 
 # ---- one process over several devices ---------------------------------------
 
-class ReplicaLaunches:
-    """While entered, counts the K1 and K2 launches of each replica of a
-    BatchSolver (``solver.replicas``), told apart by the field stack (K1)
-    and the pair table (K2) each launch reads: every replica holds its
-    own.  The wrappers' own counts are not touched."""
-
-    def __init__(self, sdf_lookup, cost_soa, solver):
-        self.mods = sdf_lookup, cost_soa
-        self.k1 = {r.fields.data.data_ptr(): i
-                   for i, r in enumerate(solver.replicas)}
-        self.k2 = {r.pairs[2].data_ptr(): i
-                   for i, r in enumerate(solver.replicas)}
-        check(len(self.k1) == len(self.k2) == len(solver.replicas),
-              "replicas share a field stack or a pair table")
-        self.counts = [{"obstacle": 0, "selfcol": 0}
-                       for _ in solver.replicas]
-
-    def __enter__(self):
-        sdf_lookup, cost_soa = self.mods
-        self.inner = sdf_lookup.obstacle_launch, cost_soa.selfcol_pairs
-        k1, k2 = self.inner
-
-        def obstacle_launch(geom, x, vel, acc, data, *args, **kw):
-            self.counts[self.k1[data.data_ptr()]]["obstacle"] += 1
-            return k1(geom, x, vel, acc, data, *args, **kw)
-
-        def selfcol_pairs(*args, **kw):
-            self.counts[self.k2[args[5].data_ptr()]]["selfcol"] += 1
-            return k2(*args, **kw)
-
-        sdf_lookup.obstacle_launch = obstacle_launch
-        cost_soa.selfcol_pairs = selfcol_pairs
-        return self
-
-    def __exit__(self, *exc):
-        sdf_lookup, cost_soa = self.mods
-        sdf_lookup.obstacle_launch, cost_soa.selfcol_pairs = self.inner
-        return False
-
-
 def sync_all(torch):
     for i in range(torch.cuda.device_count()):
         torch.cuda.synchronize(i)
@@ -3327,33 +3602,66 @@ def layout_entry(torch, selfcol, pairs, Sa, So, name, card):
     return entry
 
 
-def replica_solve(torch, sdf_lookup, selfcol, cost_soa, make_solver, fn,
-                  steps, label):
+def replica_solve(torch, sdf_lookup, selfcol, make_solver, fn, steps,
+                  label, limit_steps, probs):
     """Counts zeroed, then ``make_solver()`` (building any replica it
-    lacks: one layout launch each) and ``fn(solver)`` under
-    ReplicaLaunches: every replica launches K1 and K2 ``steps`` times, and
-    the wrappers' counts are the replicas' sums.  Returns (solver, fn's
-    result, the wrappers' counts, wall)."""
-    counts_zero(sdf_lookup, selfcol)
+    lacks: one layout launch each) and ``fn(solver)``: the wrappers count
+    K1 and K2 ``steps`` times and the limits kernel ``limit_steps`` times
+    for every replica.  Then, measured, the solver's iterate(PROBE_STEPS)
+    of ``probs`` under the profiler (launches_by_card): on each card, K1,
+    K2 and the limits kernel PROBE_STEPS times for each part there, and
+    the draw as often on a seeded HMC batch; and each replica with rows
+    holds its own step graphs.  Returns (solver, fn's result, the
+    wrappers' counts of fn (K1, K2, layout, draw), wall)."""
+    from or_cdchomp_tpu_torch.ops import draw
+
+    counts_zero(sdf_lookup, selfcol, draw)
     selfcol.LAYOUT_LAUNCHES = 0
     sync_all(torch)
     t0 = time.perf_counter()
     solver = make_solver()
-    with ReplicaLaunches(sdf_lookup, cost_soa, solver) as tally:
-        out = fn(solver)
+    out = fn(solver)
     sync_all(torch)
     wall = time.perf_counter() - t0
     launches = dict(counts(sdf_lookup, selfcol),
-                    selfcol_layout=selfcol.LAYOUT_LAUNCHES)
+                    selfcol_layout=selfcol.LAYOUT_LAUNCHES,
+                    draw=draw.LAUNCHES)
     devs = [str(d) for d in solver.devices]
     print(f"{label}: {len(devs)} replicas on {devs}, launches {launches}, "
-          f"per replica {tally.counts}, {wall:.3f} s (first call, replicas "
-          f"built)")
-    for i, c in enumerate(tally.counts):
-        check(c == {"obstacle": steps, "selfcol": steps},
-              f"{label}: replica {i} launched {c}, expected {steps} each")
+          f"{wall:.3f} s (first call, replicas built)")
     check(launches["obstacle"] == launches["selfcol"] == steps * len(devs),
           f"{label}: launches {launches}")
+    check_launches({}, steps, label, steps=limit_steps * len(devs))
+
+    parts = [i for i, _, _ in solver._placement(int(probs.traj.shape[0]))]
+    seeded = solver.engine.spec.use_hmc and probs.hmc_seed is not None
+    want = {}
+    for i in parts:
+        n = want.setdefault(solver.devices[i].index, {
+            "obstacle": 0, "selfcol": 0, "limits": 0, "draw": 0})
+        for k in n:
+            n[k] += PROBE_STEPS if k != "draw" or seeded else 0
+    cards, counted = launches_by_card(
+        torch, lambda: solver.iterate(probs, PROBE_STEPS),
+        f"{label} iterate({PROBE_STEPS})")
+    graphs = [id(solver.replicas[i].__dict__.get("_graphs")) for i in parts]
+    print(f"{label}: iterate({PROBE_STEPS}) launched {cards} by card "
+          f"(profiler events by kernel name; expected {want}, the draw's "
+          f"eager launches not held), the wrappers counted {counted}; "
+          f"{len(set(graphs))} replicas' own step graphs for {len(parts)} "
+          f"parts")
+
+    def replayed(by_card):
+        return {i: {k: c[k] for k in REPLAYED_KERNELS}
+                for i, c in by_card.items()}
+
+    total = {k: sum(c[k] for c in want.values()) for k, _ in STEP_KERNELS}
+    check(replayed(cards) == replayed(want) and counted == total,
+          f"{label}: launches by card {cards}, counted {counted}, expected "
+          f"{want}")
+    check(len(set(graphs)) == len(parts)
+          and all(solver.replicas[i].__dict__.get("_graphs") for i in parts),
+          f"{label}: the parts' replicas do not each hold their own graphs")
     return solver, out, launches, wall
 
 
@@ -3412,22 +3720,22 @@ def unseeded_split(torch, pt, dev, devices, label):
 def devices_phase(torch, pt, card, dev, engine, probs):
     """Config 1's B = 256 solve(100) on devices=[dev, dev]: two replicas
     (the engine and a copy, built here: one layout launch) stepping 128
-    rows each in turn on one card, K1 and K2 counted per replica (101
-    each), every row bit-equal to devices=[dev]; the two walls in turns;
+    rows each in turn on one card, K1 and K2 counted (101 each a replica)
+    and measured by the profiler (replica_solve), every row bit-equal to
+    devices=[dev]; the two walls in turns;
     config 3's unseeded HMC batch on devices=[dev, dev] (unseeded_split);
     the layout kernel at config 1's pair table against its plain
     version, timed.  Returns the layout kernel's entry."""
-    from or_cdchomp_tpu_torch.chomp import cost_soa
     from or_cdchomp_tpu_torch.ops import sdf_lookup, selfcol
     from or_cdchomp_tpu_torch.parallel.batch import BatchSolver
 
     one = BatchSolver(engine, devices=[dev])
     out1, fin1, _ = one.solve(probs, N_ITER)
     solver, (out2, fin2, done2), launches, _ = replica_solve(
-        torch, sdf_lookup, selfcol, cost_soa,
+        torch, sdf_lookup, selfcol,
         lambda: BatchSolver(engine, devices=[dev, dev]),
         lambda s: s.solve(probs, N_ITER), N_ITER + 1,
-        "devices phase, config 1 solve")
+        "devices phase, config 1 solve", N_ITER, probs)
     check(solver.replicas[0] is engine and solver.replicas[1] is not engine,
           "devices phase: replicas")
     check(launches["selfcol_layout"] == 1 and done2 == N_ITER,
@@ -3456,12 +3764,13 @@ def guard_phase(torch, pt, card, last):
     through CHOMPModule(device=last), K1 (both paths) and K2's staged
     path at its B = 256 batch, K2's tiled path and K1 in float64 on the
     same inputs, the layout kernel on its pair table, the raw lookup at
-    random cells, the draw on seeds arange(256); then two steps of the
-    engine there."""
+    random cells, the draw on seeds arange(256), the limits kernel in
+    float32 and float64 with rows pushed out; then two steps of the
+    engine there (its first step eager, the second a graph replay)."""
     import numpy as np
 
     from or_cdchomp_tpu_torch.chomp import cost_soa
-    from or_cdchomp_tpu_torch.ops import draw, sdf_lookup, selfcol
+    from or_cdchomp_tpu_torch.ops import draw, limits, sdf_lookup, selfcol
     from or_cdchomp_tpu_torch.parallel.batch import problem_batch_from_grid
 
     torch.cuda.set_device(0)
@@ -3474,7 +3783,8 @@ def guard_phase(torch, pt, card, last):
           f"guard: inputs on {x.device}, current "
           f"{torch.cuda.current_device()}")
     before = (sdf_lookup.LAUNCHES, sdf_lookup.LOOKUP_LAUNCHES,
-              selfcol.LAUNCHES, selfcol.LAYOUT_LAUNCHES, draw.LAUNCHES)
+              selfcol.LAUNCHES, selfcol.LAYOUT_LAUNCHES, draw.LAUNCHES,
+              limits.LAUNCHES)
     oargs = obstacle_args(eng, probs, x, vel, acc)
     check_obstacle(torch, sdf_lookup, oargs, "guard obstacle")
     xo = probs.inactive_pos.permute(2, 1, 0).contiguous()
@@ -3520,37 +3830,47 @@ def guard_phase(torch, pt, card, last):
                              torch.float32, want_words=True)
     for g, w, k in zip(got[2:], want[2:], ("z words", "u words")):
         compare(torch, f"guard draw {k}", g, w, exact=True)
+    T, lo, hi = probs.traj[:, 1:-1], probs.jlimit_lower, probs.jlimit_upper
+    T = pushed_out(torch, T, lo, hi)
+    for dt, rtol in ((torch.float32, KERNEL_RTOL),
+                     (torch.float64, F64_KERNEL_RTOL)):
+        a = (T.to(dt), lo.to(dt), hi.to(dt), eng.Ainv.to(dt))
+        compare(torch, f"guard limit_repair {dt}", limits.limit_repair(*a),
+                limits.limit_repair_ref(*a), rtol=rtol)
     out, costs = eng.iterate_batched(probs, 2)
     torch.cuda.synchronize(last)
     after = (sdf_lookup.LAUNCHES, sdf_lookup.LOOKUP_LAUNCHES,
-             selfcol.LAUNCHES, selfcol.LAYOUT_LAUNCHES, draw.LAUNCHES)
+             selfcol.LAUNCHES, selfcol.LAYOUT_LAUNCHES, draw.LAUNCHES,
+             limits.LAUNCHES)
     made = [a - b for a, b in zip(after, before)]
     print(f"guard: on {last} with cuda:{torch.cuda.current_device()} "
-          f"current, launches (K1, raw lookup, K2, layout, draw) {made}: "
+          f"current, launches (K1, raw lookup, K2, layout, draw, limits) "
+          f"{made}: "
           f"K1 both paths and float64 bit-equal, K2 staged within "
           f"{KERNEL_RTOL} and tiled (float64) within {F64_KERNEL_RTOL}, "
           f"layout, lookup and draw words bit-equal to their plain "
-          f"versions; two steps there, costs finite "
-          f"{bool(torch.isfinite(costs).all())}")
-    check(made == [5, 1, 4, 2, 1], f"guard: launches {made}")
+          f"versions, limits within {KERNEL_RTOL} / {F64_KERNEL_RTOL}; two "
+          f"steps there, costs finite {bool(torch.isfinite(costs).all())}")
+    check(made == [5, 1, 4, 2, 1, 4], f"guard: launches {made}")
     check(out.traj.device == last and bool(torch.isfinite(costs).all())
           and torch.cuda.current_device() == 0, "guard: the steps")
 
 
 def cards_phase(torch, pt, card, ncards):
     """The port's BatchSolver over every card of the machine in one
-    process (devices=[cuda:0, ..., cuda:N-1]; its default is the engine's
-    card alone), against devices=[cuda:0]: config 1's B = 256 solve(100),
+    process (devices=[cuda:0, ..., cuda:N-1], its default), each part a
+    replayed CUDA graph a step, against devices=[cuda:0]: config 1's
+    B = 256 solve(100),
     config 3's seeded HMC batch (seeds arange(256)) with best_of_batch,
-    each row bit-equal to one card and K1 / K2 counted per replica;
+    each row bit-equal to one card and the step's kernels counted per card
+    by the profiler (replica_solve);
     config 3's unseeded batch (unseeded_split); config 5 at B = 10,240,
     iterate(100), likewise; config 1's float64 B = 4 batch over two cards
     within F64_TRAJ_BAR of the CPU's float64; then solves/s for one card
     and for every card, in turns."""
     import numpy as np
 
-    from or_cdchomp_tpu_torch.chomp import cost_soa
-    from or_cdchomp_tpu_torch.ops import draw, sdf_lookup, selfcol
+    from or_cdchomp_tpu_torch.ops import sdf_lookup, selfcol
     from or_cdchomp_tpu_torch.parallel.batch import (BatchSolver,
                                                      best_of_batch,
                                                      problem_batch_from_grid)
@@ -3561,31 +3881,36 @@ def cards_phase(torch, pt, card, ncards):
     eng = run.engine
     starts, goals = bench_endpoints(BATCH)
     probs = problem_batch_from_grid(run.problem, starts, goals, eng)
-    one = BatchSolver(eng)
-    check(one.devices == [dev], f"cards: default devices {one.devices}")
+    default = BatchSolver(eng)
+    print(f"cards: BatchSolver(engine) spreads over "
+          f"{[str(d) for d in default.devices]}")
+    check(default.devices == devs, f"cards: default devices "
+          f"{default.devices}")
+    del default
+    one = BatchSolver(eng, devices=[dev])
     ref = one.solve(probs, N_ITER)
     many, got, _, _ = replica_solve(
-        torch, sdf_lookup, selfcol, cost_soa,
+        torch, sdf_lookup, selfcol,
         lambda: BatchSolver(eng, devices=devs),
         lambda s: s.solve(probs, N_ITER), N_ITER + 1,
-        f"cards, config 1 solve({N_ITER}) at B={BATCH}")
+        f"cards, config 1 solve({N_ITER}) at B={BATCH}", N_ITER, probs)
     same_solve(torch, "cards, config 1", got[:2], ref[:2])
 
     eng3, probs3 = seeded_hmc_batch(pt, f32, dev)
     one3 = BatchSolver(eng3, devices=[dev])
     ref3 = one3.solve(probs3, N_ITER)
-    draw.LAUNCHES = 0
-    many3, got3, _, _ = replica_solve(
-        torch, sdf_lookup, selfcol, cost_soa,
+    many3, got3, launches3, _ = replica_solve(
+        torch, sdf_lookup, selfcol,
         lambda: BatchSolver(eng3, devices=devs),
         lambda s: s.solve(probs3, N_ITER), N_ITER + 1,
-        f"cards, config 3 seeded solve({N_ITER}) at B={BATCH}")
-    check(draw.LAUNCHES == ncards * N_ITER,
-          f"cards, config 3: {draw.LAUNCHES} draw launches")
+        f"cards, config 3 seeded solve({N_ITER}) at B={BATCH}", N_ITER,
+        probs3)
+    check(launches3["draw"] == ncards * N_ITER,
+          f"cards, config 3: {launches3['draw']} draw launches")
     same_solve(torch, "cards, config 3 seeded", got3[:2], ref3[:2])
     idx, idx1 = best_of_batch(*got3[:2])[1], best_of_batch(*ref3[:2])[1]
     print(f"cards, config 3: best_of_batch index {int(idx)} (one card "
-          f"{int(idx1)}), {draw.LAUNCHES} draw launches")
+          f"{int(idx1)}), {launches3['draw']} draw launches")
     check(int(idx) == int(idx1), "cards, config 3: best index")
     unseeded_split(torch, pt, dev, devs, "cards, config 3 unseeded")
 
@@ -3593,9 +3918,9 @@ def cards_phase(torch, pt, card, ncards):
     probs5 = problem_batch_from_grid(run.problem, starts5, goals5, eng)
     ref5 = one.iterate(probs5, N_ITER)
     _, got5, _, _ = replica_solve(
-        torch, sdf_lookup, selfcol, cost_soa, lambda: many,
+        torch, sdf_lookup, selfcol, lambda: many,
         lambda s: s.iterate(probs5, N_ITER), N_ITER,
-        f"cards, config 5 iterate({N_ITER}) at B={BATCH_POD}")
+        f"cards, config 5 iterate({N_ITER}) at B={BATCH_POD}", N_ITER, probs5)
     check(bool(torch.isfinite(got5[1]).all()), "cards, config 5: costs")
     same_solve(torch, "cards, config 5", (got5[0], got5[1][-1]),
                (ref5[0], ref5[1][-1]))
@@ -3620,10 +3945,10 @@ def cards_phase(torch, pt, card, ncards):
             outs.append(BatchSolver(r64.engine).iterate(p64, N_ITER)[0])
             continue
         _, (o64, _), _, _ = replica_solve(
-            torch, sdf_lookup, selfcol, cost_soa,
+            torch, sdf_lookup, selfcol,
             lambda: BatchSolver(r64.engine, devices=devs[:2]),
             lambda s: s.iterate(p64, N_ITER), N_ITER,
-            f"cards, float64 B={F64_BATCH} over two cards")
+            f"cards, float64 B={F64_BATCH} over two cards", N_ITER, p64)
         outs.append(o64)
     d = float((outs[0].traj.cpu() - outs[1].traj).abs().max())
     print(f"cards, float64 B={F64_BATCH} over two cards (K1<double>, K2 "
@@ -3633,17 +3958,21 @@ def cards_phase(torch, pt, card, ncards):
 
     walls = in_turns(torch, {
         "one card": lambda: one.iterate(probs, N_ITER),
-        f"{ncards} cards": lambda: many.iterate(probs, N_ITER)}, CARD_REPS)
+        f"{ncards} cards (the default)": lambda: many.iterate(probs, N_ITER)},
+        CARD_REPS)
     print_rates(walls, BATCH, f"cards, config 1 iterate({N_ITER}) at "
                 f"B={BATCH}", card)
     walls = in_turns(torch, {
         "one card": lambda: one3.solve(probs3, N_ITER),
-        f"{ncards} cards": lambda: many3.solve(probs3, N_ITER)}, CARD_REPS)
+        f"{ncards} cards (the default)": lambda: many3.solve(probs3, N_ITER)},
+        CARD_REPS)
     print_rates(walls, BATCH, f"cards, config 3 seeded solve({N_ITER}) at "
                 f"B={BATCH}", card)
     walls = in_turns(torch, {
         "one card": lambda: one.iterate(probs5, N_ITER),
-        f"{ncards} cards": lambda: many.iterate(probs5, N_ITER)}, CARD_REPS)
+        f"{ncards} cards (the default)": lambda: many.iterate(probs5,
+                                                              N_ITER)},
+        CARD_REPS)
     print_rates(walls, BATCH_POD, f"cards, config 5 iterate({N_ITER}) at "
                 f"B={BATCH_POD}", card)
 
@@ -3733,7 +4062,7 @@ def main():
     import or_cdchomp_tpu_torch as pt
     from or_cdchomp_tpu_torch.chomp import cost_soa
     from or_cdchomp_tpu_torch.chomp.solver import RecordingDraw, ReplayDraw
-    from or_cdchomp_tpu_torch.ops import kernels, sdf_lookup, selfcol
+    from or_cdchomp_tpu_torch.ops import kernels, limits, sdf_lookup, selfcol
     from or_cdchomp_tpu_torch.parallel.batch import (BatchSolver,
                                                      best_of_batch,
                                                      problem_batch_from_grid)
@@ -3843,6 +4172,13 @@ def main():
         print(f"{r['name']}: device {r['ms']} ms, bound {r['bound_ms']} ms "
               f"({r['bound_by']}), share {r['bound_share']:.4f} on {card}")
 
+    # the limits kernel at config 1's shape, rows pushed out of their limits
+    T1 = probs.traj[:, 1:-1]
+    lo1, hi1 = probs.jlimit_lower, probs.jlimit_upper
+    results.append(limits_entry(torch, "limit_repair",
+                                pushed_out(torch, T1, lo1, hi1), lo1, hi1,
+                                engine.Ainv, card, max_ill=0))
+
     # -- the main path --------------------------------------------------------
     counts_zero(sdf_lookup, selfcol)
     solver = BatchSolver(engine)
@@ -3850,10 +4186,11 @@ def main():
     out, costs = solver.iterate(probs, N_ITER)
     torch.cuda.synchronize()
     first_wall = time.perf_counter() - t0
-    launches = counts(sdf_lookup, selfcol)
+    launches = dict(counts(sdf_lookup, selfcol), limit_repair=limits.LAUNCHES)
     print(f"main path: {N_ITER} iterations at B={BATCH} in {first_wall:.3f} s "
-          f"(first call), launches {launches}")
-    check_launches(launches, N_ITER, "config 1")
+          f"(first call, the step's capture included), launches {launches}")
+    check_launches(counts(sdf_lookup, selfcol), N_ITER, "config 1",
+                   steps=N_ITER)
     for r in results:
         r["launches"] = launches[r["name"]]
     check(tuple(costs.shape) == (N_ITER, BATCH, 3), f"costs {costs.shape}")
@@ -3872,6 +4209,7 @@ def main():
     wall, walls = warm_walls(torch, lambda: solver.iterate(probs, N_ITER), 7)
     print(f"flagship iterate({N_ITER}) at B={BATCH}: median warm wall "
           f"{wall} s of {walls}, {BATCH / wall} solves/s on {card}")
+    graph_check(torch, "config 1", engine, probs, card)
 
     # -- config 1 over two replicas on this card ------------------------------
     entry_layout = devices_phase(torch, pt, card, dev, engine, probs)
@@ -3941,7 +4279,8 @@ def main():
     print(f"config 2: solve({N_ITER}) + final costs at B={BATCH} in "
           f"{first_wall:.3f} s (first call), launches {launches2} "
           f"(expected {N_ITER} + 1 each)")
-    check_launches(launches2, N_ITER + 1, "config 2")
+    check_launches(launches2, N_ITER + 1, "config 2",
+                   steps=N_ITER)
     entry_f3["launches"] = launches2["obstacle"]
     check(done2 == N_ITER and tuple(fin2.shape) == (BATCH, 3),
           f"config 2: done {done2}, finals {tuple(fin2.shape)}")
@@ -3978,7 +4317,8 @@ def main():
     print(f"config 3: solve({N_ITER}) + final costs at B={BATCH} in "
           f"{first_wall:.3f} s (first call), launches {launches3} "
           f"(expected {N_ITER} + 1 each), {len(rec.z)} draws")
-    check_launches(launches3, N_ITER + 1, "config 3")
+    check_launches(launches3, N_ITER + 1, "config 3",
+                   steps=N_ITER)
     check(len(rec.z) == N_ITER, f"config 3: {len(rec.z)} draws")
     check(bool(torch.isfinite(fin3).all())
           and bool(torch.isfinite(out3.traj).all()),
@@ -4022,7 +4362,8 @@ def main():
     print(f"config 5: iterate({N_ITER}) at B={BATCH_POD}: wall {wall5} s, "
           f"{BATCH_POD / wall5} solves/s, peak device memory {peak} B "
           f"({peak / 2**30:.3f} GiB), launches {launches5} on {card}")
-    check_launches(launches5, N_ITER, "config 5")
+    check_launches(launches5, N_ITER, "config 5",
+                   steps=N_ITER)
     check(bool(torch.isfinite(costs5).all())
           and bool(torch.isfinite(out5.traj).all()),
           "config 5: non-finite costs or trajectories")
@@ -4055,6 +4396,7 @@ def main():
     err5 = max(compare(torch, "config 5 selfcol net", net_k, net_r),
                compare(torch, "config 5 selfcol cost", c_k, c_r))
     print(f"config 5 selfcol: max_abs_err {err5} (rtol {KERNEL_RTOL})")
+    graph_check(torch, f"config 5 (B={BATCH_POD})", engine, probs5, card)
     del probs5, costs5, x5, v5, a5, oargs5, xo5, sargs5, t
     del net_k, c_k, net_r, c_r
 

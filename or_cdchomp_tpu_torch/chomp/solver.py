@@ -17,7 +17,9 @@ mod::iterate, orcdchomp_mod.cpp:2752-2768) on a (B,)-batched problem:
 The metric is dense (m×m A/A⁻¹ matmuls shared across the batch) or, for
 long trajectories, semiseparable (chomp/metric.py: a stencil and two
 cumsums, no m×m tensor), by the JAX engine's ``metric_mode`` rule;
-iterations are a Python loop.  The HMC resample is split into a random
+on a card, ``iterate_batched`` replays the step as a CUDA graph (the
+counterpart of JAX's ``jit`` of a ``lax.scan``; :class:`StepGraph`), on
+the CPU it is a Python loop.  The HMC resample is split into a random
 draw (``HmcDraw``, ``SeededDraw`` for a batch with per-problem seeds, or
 any callable of the same contract) and a deterministic update
 (``hmc_resample``), so that a test can replay another implementation's
@@ -31,6 +33,7 @@ B = 1.
 
 from __future__ import annotations
 
+import collections
 import copy
 import dataclasses
 
@@ -41,16 +44,19 @@ from or_cdchomp_tpu_torch.chomp import cost_soa
 from or_cdchomp_tpu_torch.chomp import metric as metric_mod
 from or_cdchomp_tpu_torch.chomp.constraints import (
     ProjectionOps, TSRConstraintSet, eval_tsr_all_soa, project_constraints)
-from or_cdchomp_tpu_torch.chomp.problem import as_batch, first
+from or_cdchomp_tpu_torch.chomp.problem import ChompProblem, as_batch, first
 from or_cdchomp_tpu_torch.models.robot import CompiledFK
 from or_cdchomp_tpu_torch.ops import draw as draw_ops
+from or_cdchomp_tpu_torch.ops import kernels, limits
 from or_cdchomp_tpu_torch.ops.quat import pose_normalize
 from or_cdchomp_tpu_torch.ops.selfcol import (PairLayout, pair_layout,
                                               pair_table)
 from or_cdchomp_tpu_torch.utils.profiling import phase
 
-_MAX_LIMIT_FIXES = 1000  # chomp.c:608
 _HMC_U_MIN = 1e-12       # lower end of the uniform draw (solver.py:270)
+# captured steps (StepGraph) an engine keeps, one per batch signature; the
+# least recently used goes first
+GRAPH_CACHE_MAX = 4
 
 
 class HmcDraw:
@@ -284,6 +290,7 @@ class ChompEngine:
 
         rep = copy.copy(self)
         del rep.__dict__["_replicas"]
+        rep.__dict__.pop("_graphs", None)     # a replica captures its own
         rep.device = device
         rep.fields = type(self.fields)(**{
             f.name: mv(getattr(self.fields, f.name))
@@ -407,33 +414,14 @@ class ChompEngine:
     # -- joint limits --------------------------------------------------------
 
     def _limit_repair_batched(self, T, lo, hi):
-        """Batched joint-limit repair (chomp.c:608-655): each problem
-        repairs its own worst violation per round (first index on ties,
-        as jnp.argmax); rounds continue while any problem still violates,
-        up to 1000.
-
-        A Python loop with one host sync per round (``pred.any()``), so
-        every step pays at least one sync; the masked fixed-budget form
-        that CUDA graphs need is later work.
-        """
-        B = T.shape[0]
-        lo = lo[:, None, :]
-        hi = hi[:, None, :]
-        for _ in range(_MAX_LIMIT_FIXES):
-            Gj = torch.where(T < lo, lo - T, 0.0) + \
-                torch.where(T > hi, hi - T, 0.0)
-            Gf = Gj.reshape(B, -1)
-            amax = torch.argmax(torch.abs(Gf), dim=1, keepdim=True)  # (B, 1)
-            gmax = torch.gather(Gf, 1, amax)[:, 0]
-            pred = torch.abs(gmax) > 0.0
-            if not bool(pred.any()):   # such a round would change nothing
-                break
-            GjA = self.solve_A_b(Gj)
-            denom = torch.gather(GjA.reshape(B, -1), 1, amax)[:, 0]
-            scale = 1.01 * gmax / torch.where(denom == 0.0, 1.0, denom)
-            T_new = T + scale[:, None, None] * GjA
-            T = torch.where(pred[:, None, None], T_new, T)
-        return T
+        """Batched joint-limit repair (chomp.c:608-655, ops/limits.py):
+        each problem repairs its own worst violation per round (first index
+        on ties, as jnp.argmax), up to 1000 rounds.  A CPU batch runs the
+        plain version, a CUDA one the kernel (each problem's block loops on
+        the card until its row is clean: no host sync), any other device
+        raises."""
+        metric = self.Ainv if self.metric_mode == "dense" else self.spec.dt
+        return limits.limit_repair(T, lo, hi, metric)
 
     # -- the extra-cost hook ------------------------------------------------
 
@@ -458,6 +446,20 @@ class ChompEngine:
         the updated one (chomp.c:475-491, 658-677).  ``draw`` is the HMC
         draw source: by default :class:`SeededDraw` for a batch with
         per-problem seeds, :attr:`draw` otherwise; a run passes its own."""
+        return self._step(probs, self._draws(probs, draw))
+
+    def _draws(self, probs, draw):
+        """The step's HMC draws ``(z, u)`` from ``draw`` (or the default
+        source, as :meth:`step_batched` says), None without HMC."""
+        if not self.spec.use_hmc:
+            return None
+        if draw is None:
+            draw = self.draw if probs.hmc_seed is None else SEEDED_DRAW
+        return draw(probs)
+
+    def _step(self, probs, zu):
+        """:meth:`step_batched` on given draws ``zu`` (None without HMC):
+        the part of the step that a CUDA graph captures."""
         spec = self.spec
         lo, hi = self.mov_lo, self.mov_lo + spec.m
         lam = probs.lambda_                                 # (B,)
@@ -465,10 +467,8 @@ class ChompEngine:
 
         AG, resample_iter, leap = (probs.AG, probs.resample_iter,
                                    probs.leapfrog_first)
-        if spec.use_hmc:
-            if draw is None:
-                draw = self.draw if probs.hmc_seed is None else SEEDED_DRAW
-            AG, resample_iter, leap = hmc_resample(probs, *draw(probs))
+        if zu is not None:
+            AG, resample_iter, leap = hmc_resample(probs, *zu)
 
         # phase ranges mirror the reference's DEBUG_TIMING taxonomy
         # (chomp.h:95-100, orcdchomp_mod.cpp:2835-2847) and the JAX
@@ -520,15 +520,55 @@ class ChompEngine:
 
     def iterate_batched(self, probs, n_iter: int, draw=None):
         """n_iter steps (``draw`` as in :meth:`step_batched`); returns
-        (probs, costs (B, n_iter, 3))."""
-        costs = []
-        for _ in range(n_iter):
-            probs, c = self.step_batched(probs, draw)
-            costs.append(c)
-        if not costs:
-            B = probs.traj.shape[0]
-            return probs, probs.traj.new_zeros((B, 0, 3))
-        return probs, torch.stack(costs, dim=1)
+        (probs, costs (B, n_iter, 3)).
+
+        On a card each step is a replay of one CUDA graph of the step
+        (:meth:`stepper`, :class:`StepGraph`), the counterpart of JAX's
+        ``jit`` of a ``lax.scan``: no host sync and a few launches a step.
+        The draw source runs eagerly before each replay.  The first call
+        for a batch of this shape runs its first step eagerly, then
+        captures the step that the later ones replay; a step that cannot
+        be captured (a host sync or a host→device copy, in an
+        ``extra_cost`` hook too) raises, naming the cause, and nothing runs
+        eagerly in its place.  The replays keep the float32 matmul
+        precision in force at the capture (PyTorch's TF32 setting), as
+        the eager step uses the one in force at each call.  On the CPU the
+        steps are :meth:`step_batched` calls."""
+        B = probs.traj.shape[0]
+        costs = probs.traj.new_empty((B, n_iter, 3))
+        if n_iter == 0:
+            return probs, costs
+        run = self.stepper(probs)
+        for i in range(n_iter):
+            run.step(self, draw, costs[:, i])
+        return run.result(probs), costs
+
+    def stepper(self, probs):
+        """Steps of the batch ``probs``: an object whose ``step(engine,
+        draw, costs)`` takes one step of this engine (writing its (B, 3)
+        costs into ``costs``) and whose ``result(probs)`` is the batch
+        after them.  On a card it is this engine's :class:`StepGraph` for
+        the batch's leaf shapes, captured at its first step and kept (at most
+        ``GRAPH_CACHE_MAX`` per engine, the least recently used dropped;
+        they go with the engine, which holds no reference cycle, so an
+        engine the module's cache evicts and no run holds frees its graphs'
+        memory pools at once).  One engine runs one batch of a shape at a
+        time.  Elsewhere it calls :meth:`step_batched`."""
+        if probs.traj.device.type != "cuda":
+            return _EagerSteps(probs)
+        key = tuple((k, tuple(v.shape), v.dtype)
+                    for k, v in probs.leaves().items())
+        graphs = self.__dict__.setdefault("_graphs",
+                                          collections.OrderedDict())
+        graph = graphs.pop(key, None)
+        if graph is None:
+            graph = StepGraph(self, probs)
+        else:
+            graph.load(probs)
+        graphs[key] = graph
+        while len(graphs) > GRAPH_CACHE_MAX:
+            graphs.popitem(last=False)
+        return graph
 
     # -- per-problem entry points (JAX solver.py:244, 304, 578) --------------
 
@@ -587,3 +627,125 @@ class ChompEngine:
                                   self.cons, fk_out)
         flat = [c * 6 + d for c, d in self.cons.rows]
         return val.reshape(val.shape[0], -1)[:, flat]
+
+
+# -- iterations as replays of a captured step --------------------------------
+
+class _EagerSteps:
+    """:meth:`ChompEngine.stepper` off the card: step_batched calls."""
+
+    def __init__(self, probs):
+        self.probs = probs
+
+    def step(self, engine, draw, costs):
+        self.probs, c = engine.step_batched(self.probs, draw)
+        costs.copy_(c)
+
+    def result(self, probs):
+        """The batch after the steps (``probs``, the batch they started
+        from, is not needed here)."""
+        return self.probs
+
+
+class StepGraph:
+    """One engine's step captured in a CUDA graph on static buffers (the
+    counterpart of JAX's ``jit`` of the scan body): the batch's leaves
+    (``leaves``) and, with HMC, the draws ``z`` and ``u`` (``zu``).  A
+    replay reads them, writes the next state back into them and its
+    (B, 3) costs into ``costs``, in one launch from the host.
+
+    The draw source stays outside the graph: it keeps host state (a
+    recording, a replay counter, a generator's offset) that a replay would
+    not advance, so each step calls it eagerly and copies its ``z`` and
+    ``u`` into ``zu``.  The first :meth:`step` runs that step eagerly on
+    a side stream (a hook may make its constants there), and then
+    captures the step in torch.cuda's sync debug mode "error" (a host
+    sync raises at its own line); every later one replays.  The capture
+    keeps the float32 matmul precision in force when it ran (TF32 or
+    not), whatever the setting at a replay.  The launches counted while
+    capturing (``records``) are counted again at each replay
+    (ops/kernels.py).  Replays need the engine's card current;
+    :meth:`step` makes it so."""
+
+    def __init__(self, engine, probs):
+        self.device = probs.traj.device
+        self.leaves = {k: v.clone(memory_format=torch.contiguous_format)
+                       for k, v in probs.leaves().items()}
+        self.probs = ChompProblem(**self.leaves)
+        self.zu = None
+        if engine.spec.use_hmc:
+            self.zu = (torch.empty_like(self.probs.AG),
+                       self.probs.AG.new_empty(self.probs.AG.shape[:1]))
+        self.graph = self.records = self.costs = None
+        self.changed = ()
+
+    def load(self, probs):
+        """Copy the batch ``probs`` (same leaf shapes) into the buffers."""
+        for k, v in probs.leaves().items():
+            self.leaves[k].copy_(v)
+
+    def _store(self, new):
+        """Copy the leaves of ``new`` that the step replaced into the
+        buffers; returns their names."""
+        changed = []
+        for k, v in new.leaves().items():
+            if v is not self.leaves[k]:
+                self.leaves[k].copy_(v)
+                changed.append(k)
+        return tuple(changed)
+
+    def step(self, engine, draw, costs):
+        """One step of ``engine`` (the one this graph was made for): the
+        draw, then a replay (or, the first time, the step run eagerly and
+        then captured); its costs into ``costs``."""
+        with torch.cuda.device(self.device):
+            zu = engine._draws(self.probs, draw)
+            if self.graph is None:
+                self._capture(engine, zu, costs)
+                return
+            if zu is not None:
+                self.zu[0].copy_(zu[0])
+                self.zu[1].copy_(zu[1])
+            self.graph.replay()
+            costs.copy_(self.costs)
+        kernels.replay_counts(self.records)
+
+    def _capture(self, engine, zu, costs):
+        cur = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(cur)
+        graph = torch.cuda.CUDAGraph()
+        what = "running the step eagerly before its capture"
+        try:
+            with torch.cuda.stream(side):
+                new, c = engine._step(self.probs, zu)
+                self.changed = self._store(new)
+                costs.copy_(c)
+                del new, c
+            cur.wait_stream(side)
+            what = "capturing the step"
+            with kernels.recording() as records, \
+                    torch.cuda.graph(graph, stream=side):
+                # a host sync raises here, at its own line, before it
+                # reaches the capture
+                mode = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    new, c = engine._step(self.probs, self.zu)
+                    self._store(new)
+                finally:
+                    torch.cuda.set_sync_debug_mode(mode)
+        except RuntimeError as e:
+            raise RuntimeError(
+                f"iterate_batched: the step on {self.device} cannot run as a "
+                f"CUDA graph ({what} failed): {e}.  A step must make no host "
+                f"sync and copy nothing from the host (an extra_cost hook "
+                f"included); there is no eager fallback on the card") from e
+        self.graph, self.records, self.costs = graph, records, c
+
+    def result(self, probs):
+        """The batch after the steps: copies of the leaves the step
+        replaces, ``probs``' own tensors for the others."""
+        return ChompProblem(**{
+            k: self.leaves[k].clone() if k in self.changed else v
+            for k, v in probs.leaves().items()})

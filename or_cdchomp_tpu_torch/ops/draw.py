@@ -27,10 +27,13 @@ launches.
 from __future__ import annotations
 
 import math
+import sys
 
 import torch
 
 from or_cdchomp_tpu_torch.ops import kernels
+
+_THIS = sys.modules[__name__]
 
 LAUNCHES = 0
 U_MIN = 1e-12                     # lower end of u (JAX solver.py:270)
@@ -121,7 +124,6 @@ def hmc_draw(seed, iteration, m, n, dtype, want_words=False):
     [1e-12, 1), in ``dtype`` (float32 or float64) on the seeds' device.
     ``want_words`` also returns the generator's words (stream 0 (B,
     ⌈m·n/4⌉, 4), stream 1 (B, 4), int64 in [0, 2³²)), for checks."""
-    global LAUNCHES
     if seed.device.type == "cpu":
         return hmc_draw_ref(seed, iteration, m, n, dtype, want_words)
     if seed.device.type != "cuda":
@@ -141,7 +143,7 @@ def hmc_draw(seed, iteration, m, n, dtype, want_words=False):
                    seed.data_ptr(), iteration.data_ptr(), B, m * n,
                    _DTYPE_CODES[dtype], z.data_ptr(), u.data_ptr(),
                    None if words is None else words.data_ptr())
-    LAUNCHES += 1
+    kernels.count(_THIS, "LAUNCHES")
     if not want_words:
         return z, u
     w = words.to(torch.int64) & _M32

@@ -12,6 +12,12 @@ points launch on, read the attributes of and set the shared-memory limit
 of the CUDA runtime's current device, so the wrapper makes that card
 current for the call.  Nothing here runs at import time: the CPU tests
 import every module.
+
+Launches are counted through :func:`count`: each wrapper's count is a
+module global (``sdf_lookup.LAUNCHES`` and the like).  While a CUDA
+graph captures (:func:`recording`), nothing launches, so nothing is
+counted: the graph keeps what it captured, and each replay counts it
+again (:func:`replay_counts`).
 """
 
 from __future__ import annotations
@@ -21,12 +27,14 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
+from contextlib import contextmanager
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "build"
-_SOURCES = ("obstacle.cu", "selfcol.cu", "draw.cu")
+_SOURCES = ("obstacle.cu", "selfcol.cu", "draw.cu", "limits.cu")
 # -fmad=false: the obstacle kernel must round every product and sum the
 # way the plain PyTorch version does, or a query sitting on a cell
 # centre picks the other one-sided neighbour (csrc/obstacle.cu).  The
@@ -37,6 +45,7 @@ _FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-fmad=false",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_D = ctypes.c_double
 _SIGNATURES = {
     # data, F, mx, my, mz, sub, nbr, Q, out, stream
     "cdx_sdf_cell_lookup": (_P, _I, _I, _I, _I, _P, _P, _I, _P, _P),
@@ -59,19 +68,53 @@ _SIGNATURES = {
     "cdx_selfcol_launch_info": (_I, _I, _P),
     # seed, iteration, B, m*n, dtype code, z, u, words, stream
     "cdx_hmc_draw": (_P, _P, _I, _I, _I, _P, _P, _P, _P),
+    # t_in, lo, hi, ainv, dt², B, m, n, max_rounds, t_out, idx, val, stats,
+    # stream
+    "cdx_limit_repair": (_P, _P, _P, _P, _D, _I, _I, _I, _I, _P, _P, _P, _P,
+                         _P),
 }
 # the float64 twins (suffix _f64) take the same arguments, with double
 # pointers in place of float ones
 _SIGNATURES.update({f"{name}_f64": _SIGNATURES[name] for name in (
     "cdx_sdf_cell_lookup", "cdx_obstacle", "cdx_obstacle_launch_info",
     "cdx_obstacle_smem_bytes", "cdx_selfcol", "cdx_selfcol_layout",
-    "cdx_selfcol_launch_info")})
+    "cdx_selfcol_launch_info", "cdx_limit_repair")})
 
 # the kernels' scalar types: the suffix of each one's entry points
 _SUFFIX = {"float32": "", "float64": "_f64"}
 
 _lib = None
 BUILD_LOG = ""   # nvcc/ptxas output of the build this process ran
+
+_capture = threading.local()
+
+
+def count(owner, attr):
+    """One launch of a kernel, counted in ``owner.attr``; recorded instead
+    while this thread captures a graph."""
+    rec = getattr(_capture, "records", None)
+    if rec is not None:
+        rec.append((owner, attr))
+        return
+    setattr(owner, attr, getattr(owner, attr) + 1)
+
+
+@contextmanager
+def recording():
+    """While entered (around a CUDA graph's capture), :func:`count` adds
+    to the list this yields and to no count."""
+    saved = getattr(_capture, "records", None)
+    _capture.records = records = []
+    try:
+        yield records
+    finally:
+        _capture.records = saved
+
+
+def replay_counts(records):
+    """Count the launches a graph recorded: once per replay."""
+    for owner, attr in records:
+        count(owner, attr)
 
 
 def _nvcc():

@@ -21,10 +21,13 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import sys
 
 import torch
 
 from or_cdchomp_tpu_torch.ops import kernels, soa
+
+_THIS = sys.modules[__name__]
 
 LAUNCHES = 0          # fused obstacle kernel launches
 LOOKUP_LAUNCHES = 0   # raw sdf_cell_lookup kernel launches
@@ -69,7 +72,6 @@ def sdf_cell_lookup(data, sub, nbr):
     tensors (``data`` float32 or float64), which takes Q < 2**31
     (ValueError past it).
     """
-    global LOOKUP_LAUNCHES
     if data.device.type == "cpu":
         return sdf_cell_lookup_ref(data, sub, nbr)
     if data.device.type != "cuda":
@@ -89,7 +91,7 @@ def sdf_cell_lookup(data, sub, nbr):
                    kernels.entry("cdx_sdf_cell_lookup", dt), data.data_ptr(),
                    F, mx, my, mz, sub.data_ptr(), nbr.data_ptr(), Q,
                    out.data_ptr())
-    LOOKUP_LAUNCHES += 1
+    kernels.count(_THIS, "LOOKUP_LAUNCHES")
     return out[0], out[1], out[2], out[3]
 
 
@@ -355,7 +357,6 @@ def obstacle_launch(geom, x, vel, acc, data, sizes, lengths,
     """One launch of the kernel with the given :class:`Geometry` (from
     :func:`device_geometry`; a test may give another grid).  Same
     arguments and results as :func:`obstacle`, CUDA tensors only."""
-    global LAUNCHES
     _, m, S, B = x.shape
     F, mx, my, mz = data.shape
     dev = x.device
@@ -389,7 +390,7 @@ def obstacle_launch(geom, x, vel, acc, data, sizes, lengths,
         cost.data_ptr(), wgrad.data_ptr(),
         dirs.data_ptr() if want_dirs else None, geom.grid, geom.threads,
         geom.per, geom.smem_bytes)
-    LAUNCHES += 1
+    kernels.count(_THIS, "LAUNCHES")
     if want_dirs:
         return cost, wgrad, dirs
     return cost, wgrad

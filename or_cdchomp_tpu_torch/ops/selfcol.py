@@ -26,12 +26,15 @@ takes the tiled path.  Another dtype on CUDA raises.
 from __future__ import annotations
 
 import ctypes
+import sys
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from or_cdchomp_tpu_torch.ops import kernels
+
+_THIS = sys.modules[__name__]
 
 LAUNCHES = 0
 LAYOUT_LAUNCHES = 0   # launches of the pair-layout kernel (pair_layout)
@@ -131,7 +134,6 @@ def pair_layout(pair_i, pair_j, rsum, Sa, So):
     radius sums of (i, j) and of (j, i) by lane (0 where no pair).  A CPU
     rsum runs the plain version, a CUDA one the layout kernel (one
     launch)."""
-    global LAYOUT_LAUNCHES
     if rsum.device.type == "cpu":
         return pair_layout_ref(pair_i, pair_j, rsum, Sa, So)
     if rsum.device.type != "cuda":
@@ -150,7 +152,7 @@ def pair_layout(pair_i, pair_j, rsum, Sa, So):
                    kernels.entry("cdx_selfcol_layout", dt), pair_i.data_ptr(),
                    pair_j.data_ptr(), rsum.data_ptr(), P, Sa, So,
                    masks.data_ptr(), partners.data_ptr(), rs.data_ptr())
-    LAYOUT_LAUNCHES += 1
+    kernels.count(_THIS, "LAYOUT_LAUNCHES")
     return PairLayout(masks, partners, rs)
 
 
@@ -221,7 +223,6 @@ def selfcol_pairs(xi, vel, xo, pair_i, pair_j, rsum, eps_self, obs_self,
     The kernel takes float32 or float64 tensors (another dtype raises
     ValueError); every tensor of floats has xi's dtype.
     """
-    global LAUNCHES
     if xi.device.type == "cpu":
         return selfcol_pairs_ref(xi, vel, xo, pair_i, pair_j, rsum,
                                  eps_self, obs_self)
@@ -259,7 +260,7 @@ def selfcol_pairs(xi, vel, xo, pair_i, pair_j, rsum, eps_self, obs_self,
         pair_i.data_ptr(), pair_j.data_ptr(), rsum.data_ptr(), P,
         eps_self.data_ptr(), obs_self.data_ptr(), net.data_ptr(),
         cost.data_ptr(), *ptrs)
-    LAUNCHES += 1
+    kernels.count(_THIS, "LAUNCHES")
     return net, cost
 
 

@@ -7,8 +7,9 @@ terms (``stack_problems`` stacks given problems, ``pad_problems`` pads a
 batch to a multiple); ``BatchSolver`` runs the batch-native step on it:
 a fixed number of steps (``iterate``, ``iterate_masked``), a
 convergence-checked chunk (``iterate_until``) or a chunked solve
-(``solve``).  In one process it runs the batch on the engine's device,
-or spreads it over the devices it is given; with a ``DeviceMesh`` it
+(``solve``).  In one process it spreads the batch over every card of
+the host (or the devices it is given), each step a replayed CUDA graph
+per card; with a ``DeviceMesh`` it
 holds one rank's rows of a global batch (parallel/multihost.py).
 ``best_of_batch`` picks the lowest-cost problem of a batch.
 """
@@ -108,13 +109,12 @@ class BatchSolver:
 
     **One process, several devices** (``mesh=None``).  ``devices`` (the
     port's own parameter) lists the devices the batch spreads over; by
-    default the engine's device alone.  That is not the JAX package's
-    default, a mesh over every chip of ``jax.devices()`` (JAX
-    batch.py:116-147): here the step is host-bound, with a host sync per
-    step in the joint-limit repair, so the devices' steps, issued in turn
-    from one thread, serialise, and on four H100s a batch spread over every
-    card ran at a quarter to a half of one card's solves/s (PERF.md §6).
-    A list may repeat a device: each entry is a replica of its own
+    default, as JAX's mesh over every chip of ``jax.devices()`` (JAX
+    batch.py:116-147), every visible card of a CUDA engine, its own
+    first, and a CPU engine's device alone.  Each part's step on a card
+    is one CUDA graph replay (``ChompEngine.stepper``) with no host sync,
+    so the cards' steps, issued in turn from one thread, run side by
+    side.  A list may repeat a device: each entry is a replica of its own
     (``ChompEngine._replica``, built here once per engine and device entry
     and cached on the engine).  Each call places the rows by JAX's
     ``shard`` rule: split evenly when the batch size B divides by the
@@ -166,7 +166,7 @@ class BatchSolver:
         self.group = None if mesh is None else _mesh_group(mesh, axis)
         self._home = home = engine.radii_act.device   # with its index
         if devices is None:
-            devices = [home]
+            devices = [home] if mesh is not None else _every_card(home)
         self.devices = [_device(d) for d in devices]
         if not self.devices:
             raise ValueError("BatchSolver: devices is empty")
@@ -245,26 +245,27 @@ class BatchSolver:
 
     def _iterate_parts(self, parts, n_iter):
         """n_iter steps of every part: (parts, costs (rows, n_iter, 3) per
-        part).  Several parts step in turn, one step each per round, from
-        this thread, each with its card current."""
+        part).  Each part steps through its replica's
+        :meth:`ChompEngine.stepper` (on a card, one CUDA graph replay a
+        step); several parts step in turn, one step each per round, from
+        this thread.  A replay is one asynchronous launch, so the cards run
+        side by side."""
         if len(parts) == 1 and parts[0][0] is self.engine:
             eng, rows, lo, hi = parts[0]
             rows, costs = eng.iterate_batched(rows, n_iter)
             return [(eng, rows, lo, hi)], [costs]
+        costs = [rows.traj.new_empty((hi - lo, n_iter, 3))
+                 for _, rows, lo, hi in parts]
+        if n_iter == 0:
+            return parts, costs
         whole = self._whole_draw(parts)
-        costs = [[] for _ in parts]
-        for _ in range(n_iter):
+        runs = [rep.stepper(rows) for rep, rows, _, _ in parts]
+        for i in range(n_iter):
             draws = [None] * len(parts) if whole is None else whole()
-            stepped = []
-            for (rep, rows, lo, hi), draw, c in zip(parts, draws, costs):
-                with _current(rep.device):
-                    rows, ci = rep.step_batched(rows, draw)
-                c.append(ci)
-                stepped.append((rep, rows, lo, hi))
-            parts = stepped
-        return parts, [torch.stack(c, dim=1) if c else
-                       rows.traj.new_zeros((hi - lo, 0, 3))
-                       for c, (_, rows, lo, hi) in zip(costs, parts)]
+            for run, (rep, *_), draw, c in zip(runs, parts, draws, costs):
+                run.step(rep, draw, c[:, i])
+        return [(rep, run.result(rows), lo, hi)
+                for run, (rep, rows, lo, hi) in zip(runs, parts)], costs
 
     def iterate(self, probs: ChompProblem, n_iter: int):
         """n_iter batched steps.  Returns (problems, costs (n_iter, P, 3))."""
@@ -344,6 +345,16 @@ def _current(device):
     """A context with ``device`` current where it is a card."""
     return (torch.cuda.device(device) if device.type == "cuda"
             else contextlib.nullcontext())
+
+
+def _every_card(home):
+    """JAX's default device list: every visible card, ``home`` first, for
+    an engine on a card; ``home`` alone elsewhere."""
+    if home.type != "cuda":
+        return [home]
+    return [home] + [torch.device("cuda", i)
+                     for i in range(torch.cuda.device_count())
+                     if i != home.index]
 
 
 def _device(d):

@@ -1334,3 +1334,169 @@ def test_kernels_refuse_tensors_on_two_cards(other_card):
     with pytest.raises(ValueError, match="expected"):
         selfcol.selfcol_pairs(*sargs)
     assert sdf_lookup.LAUNCHES == n0
+
+
+# ---- the joint-limit repair, and the step replayed as a CUDA graph ---------
+
+def _limit_case(dev, dtype, B=37, m=99, n=7, seed=5):
+    """(T, lo, hi) with rows pushed out of their limits: a few entries of
+    most rows by up to 0.3, every eighth row left clean."""
+    rng = np.random.default_rng(seed)
+    lo = np.full((B, n), -1.0)
+    hi = np.full((B, n), 1.0)
+    lo[:, 6], hi[:, 6] = -2.5, 0.75
+    T = rng.uniform(-0.3, 0.3, size=(B, m, n))
+    for b in range(B):
+        if b % 8 == 0:
+            continue
+        for _ in range(1 + b % 4):
+            i, j = rng.integers(m), rng.integers(n)
+            side = rng.choice([-1.0, 1.0])
+            T[b, i, j] = (hi[b, j] if side > 0 else lo[b, j]) \
+                + side * rng.uniform(0.01, 0.3)
+    t = (lambda a: torch.as_tensor(a, dtype=dtype, device=dev))  # noqa: E731
+    return t(T), t(lo), t(hi)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("metric", ["dense", "sep"])
+def test_limit_repair_kernel_matches_plain(cuda, dtype, metric):
+    """The limits kernel against its plain version on the machine's last
+    card with cuda:0 current (on a one-card machine, that card): one
+    launch, float32 within rtol 1e-5 and float64 within 1e-12 of max |T|,
+    every clean row untouched, the same rounds per problem, and two
+    launches bit-equal."""
+    from or_cdchomp_tpu_torch.chomp import metric as metric_mod
+    from or_cdchomp_tpu_torch.ops import limits
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", torch.cuda.device_count() - 1)
+    m = 99 if metric == "dense" else 300
+    T, lo, hi = _limit_case(dev, dtype, m=m)
+    dt = 1.0 / (m + 1)
+    met = (torch.as_tensor(metric_mod.build_metric(m, dt).Ainv, dtype=dtype,
+                           device=dev) if metric == "dense" else dt)
+    want, wstats = limits.limit_repair_ref(T, lo, hi, met, want_stats=True)
+    n0 = limits.LAUNCHES
+    got, stats = limits.limit_repair(T, lo, hi, met, want_stats=True)
+    assert limits.LAUNCHES == n0 + 1
+    again = limits.limit_repair(T, lo, hi, met)
+    torch.cuda.synchronize(dev)
+    assert got.device == dev and torch.cuda.current_device() == 0
+    rtol = RTOL if dtype == torch.float32 else RTOL64
+    np.testing.assert_allclose(got.double().cpu().numpy(),
+                               want.double().cpu().numpy(), rtol=rtol,
+                               atol=rtol * float(want.abs().max()))
+    assert torch.equal(got[::8], T[::8])
+    assert torch.equal(stats.cpu(), wstats.cpu())
+    assert int(stats[:, 0].max()) >= 1
+    assert torch.equal(again, got)
+
+
+def _graph_run(device, kind, B=4):
+    """A run and its B-problem batch for the replay tests: config 1 at
+    n_points 11 (``config1``), the same with HMC (``seeded``: seeds per
+    problem; ``unseeded``, ``recorded``: the engine's draw source), or
+    config 4 (``config4``)."""
+    from or_cdchomp_tpu_torch.parallel.batch import problem_batch_from_grid
+    import or_cdchomp_tpu_torch as pt
+
+    if kind == "config4":
+        return _config4_run(device, torch.float32, B=B)
+    mod = pt.CHOMPModule(dtype=torch.float32, device=device)
+    mod.add_kinbody(pt.KinBody("table", pt.Scene.build(
+        boxes=[((0.75, 0.0, 0.5, 0, 0, 0, 1), (0.25, 0.4, 0.02))])))
+    start = np.array([2.5, -1.8, 0.0, 2.0, 0.0, 0.2, 0.0])
+    goal = np.array([0.4, 0.6, 0.1, 1.3, 0.0, -0.5, 0.0])
+    robot = pt.Robot("wam", pt.wam7(), q_active=start)
+    mod.add_robot(robot)
+    robot.enabled = False
+    mod.computedistancefield(kinbody="table", cube_extent=0.04)
+    robot.enabled = True
+    hmc = kind != "config1"
+    run = mod.runs[mod.create(robot="wam", adofgoal=goal, lambda_=100.0,
+                              obs_factor=500.0, n_points=11, use_hmc=hmc,
+                              hmc_resample_lambda=2.0, seed=3)]
+    rng = np.random.default_rng(0)
+    starts = start + 0.02 * rng.normal(size=(B, 7))
+    goals = goal + 0.02 * rng.normal(size=(B, 7))
+    starts[0, 0] = 2.75             # problem 0 starts past J1's limit (2.6)
+    return run, problem_batch_from_grid(
+        run.problem, starts, goals, run.engine,
+        seeds=np.arange(B) + 7 if kind == "seeded" else None)
+
+
+def _launch_counts():
+    from or_cdchomp_tpu_torch.ops import draw, limits
+
+    return (sdf_lookup.LAUNCHES, selfcol.LAUNCHES, limits.LAUNCHES,
+            draw.LAUNCHES)
+
+
+@pytest.mark.parametrize("kind", ["config1", "config4", "seeded",
+                                  "unseeded", "recorded"])
+def test_iterate_replays_match_eager_steps(cuda, kind):
+    """iterate_batched on the card (its first step eager, the rest
+    replays of one captured step; then a second call, all replays)
+    against a loop of eager step_batched calls: every leaf and every cost
+    bit-equal, K1, K2 and the limits kernel counted once a step either
+    way, the seeded draw kernel once a step; unseeded HMC from two fresh
+    generators of one seed, and a recording's draws replayed (ReplayDraw
+    called once a step)."""
+    from or_cdchomp_tpu_torch.chomp.solver import (HmcDraw, RecordingDraw,
+                                                   ReplayDraw)
+
+    run, probs = _graph_run(cuda, kind)
+    eng, n = run.engine, 6
+
+    def draws():
+        if kind in ("unseeded", "recorded"):
+            return HmcDraw(5, cuda)
+        return None
+
+    rec = RecordingDraw(draws()) if kind == "recorded" else draws()
+    eager, costs = probs, []
+    c0 = _launch_counts()
+    for _ in range(n):
+        eager, c = eng.step_batched(eager, rec)
+        costs.append(c)
+    c1 = _launch_counts()
+    per_call = tuple(b - a for a, b in zip(c0, c1))
+    for call in range(2):
+        draw = ReplayDraw(rec.z, rec.u) if kind == "recorded" else draws()
+        out, got = eng.iterate_batched(probs, n, draw)
+        c2 = _launch_counts()
+        assert tuple(b - a for a, b in zip(c1, c2)) == per_call, \
+            (call, per_call, c1, c2)
+        c1 = c2
+        for k, v in eager.leaves().items():
+            assert torch.equal(out.leaves()[k], v), (call, k)
+        assert torch.equal(got, torch.stack(costs, dim=1)), call
+        if kind == "recorded":
+            assert draw.calls == n
+    assert c1[0] - c0[0] == 3 * n and c1[2] - c0[2] == 3 * n
+    if kind != "config4":          # the repair held J1 below its limit
+        assert float(eager.traj[0, 1:-1, 0].max()) <= 2.6 + 1e-6
+
+
+def test_iterate_refuses_a_syncing_hook(cuda):
+    """An extra_cost hook that synchronises the card: step_batched runs it
+    eagerly, iterate_batched raises naming the capture (no eager
+    fallback); the engine's next capture, of a hook-free engine, works."""
+    from or_cdchomp_tpu_torch.chomp.solver import ChompEngine
+    import or_cdchomp_tpu_torch as pt
+
+    run, probs = _graph_run(cuda, "config1")
+
+    def hook(T):
+        torch.cuda.synchronize()
+        return 0.5 * (T * T).sum(), T
+
+    e = run.engine
+    eng = ChompEngine(e.spec, pt.wam7(), e.fields, extra_cost=hook,
+                      dtype=torch.float32, device=cuda)
+    eng.step_batched(probs)
+    with pytest.raises(RuntimeError, match="capturing the step failed"):
+        eng.iterate_batched(probs, 3)
+    out, costs = e.iterate_batched(probs, 3)
+    assert bool(torch.isfinite(costs).all())
