@@ -2860,6 +2860,7 @@ def phase_profile(torch, eng, probs, label, card, reps=5):
     from torch.profiler import ProfilerActivity, profile
 
     from or_cdchomp_tpu_torch.utils.profiling import (format_phase_report,
+                                                      phase_device_report,
                                                       phase_host_report,
                                                       phase_kernels)
 
@@ -2888,6 +2889,28 @@ def phase_profile(torch, eng, probs, label, card, reps=5):
           f"{label}: K1 launches charged to {set(k1)}")
     check(k2 and set(k2) == {"selfcol"},
           f"{label}: K2 launches charged to {set(k2)}")
+    # the replayed path: each replay's kernels charged by the step graph's
+    # node map (a replay the profiler lost an event of matches none)
+    eng.iterate_batched(state[0], 2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        settle = torch.zeros(8, device=probs.traj.device)
+        for _ in range(8):
+            settle.add_(1)
+        torch.cuda.synchronize()
+        eng.iterate_batched(state[0], reps)
+        torch.cuda.synchronize()
+    graph = eng.stepper(state[0]).node_map
+    replayed = phase_device_report(prof, maps=[graph] if graph else [])
+    if replayed is None:
+        print(f"{label} replayed steps: a replay lost an event; no split")
+    else:
+        replayed = {ph: ms / reps for ph, ms in replayed.items()}
+        print(format_phase_report(replayed, "device ms per replayed step"))
+        check(replayed.get("fk", 0.0) > 0.0 and
+              replayed.get("obstacle", 0.0) > 0.0,
+              f"{label}: replayed phases {sorted(replayed)}")
     return dev_ms, host_ms
 
 
@@ -2946,7 +2969,7 @@ def profile_phase(torch, pt, card, dev):
 
     shipped = (cost_soa.phase, solver_mod.phase)
 
-    def null(name):
+    def null(name, *args):
         return contextlib.nullcontext()
 
     # the eager steps: a replayed iterate enters no range

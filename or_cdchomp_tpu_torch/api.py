@@ -49,7 +49,9 @@ from or_cdchomp_tpu_torch.ops.voxelize import (Scene, scene_distance,
                                                voxelize_scene)
 from or_cdchomp_tpu_torch.transport import send_command
 from or_cdchomp_tpu_torch.utils import np_pose
-from or_cdchomp_tpu_torch.utils.profiling import PhaseTimers, phase
+from or_cdchomp_tpu_torch.utils import profiling
+from or_cdchomp_tpu_torch.utils.profiling import (PhaseTimers, command, phase,
+                                                  to_device, to_host)
 
 _DEFAULTS = dict(  # orcdchomp_mod.cpp:1840-1875
     n_points=101, lambda_=10.0, epsilon=0.1, epsilon_self=0.04,
@@ -261,9 +263,9 @@ class Robot:
                                         self.pose),
                     np.asarray(self.model.sphere_radius))
         opts = dict(dtype=fk.dtype, device=fk.device)
-        x = fk.sphere_positions_jit(torch.as_tensor(self.q_active, **opts),
-                                    torch.as_tensor(self.pose, **opts))
-        return (x.cpu().numpy(),
+        x = fk.sphere_positions_jit(to_device(self.q_active, **opts),
+                                    to_device(self.pose, **opts))
+        return (to_host(x).numpy(),
                 np.asarray(self.model.sphere_radius[fk.sphere_subset]))
 
     def aabb_at_origin(self, padding=0.0):
@@ -331,6 +333,9 @@ class Run:
     no_report_cost: bool = False
     dat_rows: list = dataclasses.field(default_factory=list)
     start_time: float = dataclasses.field(default_factory=time.time)
+    # the request id its commands' spans share (utils/profiling.py), set
+    # by a create that ran while something recorded
+    trace_id: Optional[int] = None
 
 
 class CheckResult(NamedTuple):
@@ -367,11 +372,11 @@ def voxelize_chunked(placed, centers, cube_extent, centers64=None):
                       device=centers.device)
     for sc, pose in placed:
         inv = np_pose.invert(pose)
-        local = pose_apply(torch.as_tensor(inv, dtype=centers.dtype,
-                                           device=centers.device), centers)
+        local = pose_apply(to_device(inv, dtype=centers.dtype,
+                                     device=centers.device), centers)
         local64 = None
         if centers64 is not None and sc.tri_verts.shape[0]:
-            local64 = pose_apply(torch.as_tensor(
+            local64 = pose_apply(to_device(
                 inv, dtype=torch.float64, device=centers.device), centers64)
         step = max(1, VOXEL_CHUNK_BYTES // (72 * max(sc.n_primitives, 1)))
         for lo in range(0, centers.shape[0], step):
@@ -392,6 +397,12 @@ def _retime(q, vmax):
     times = np.concatenate([np.zeros((q.shape[0], 1)),
                             np.cumsum(seg, axis=1)], axis=1)
     return times, seg
+
+
+def _request_of_run(module, run=None, *_, **__):
+    """The request id of a module command's run (its create's span's)."""
+    rn = module.runs.get(run)
+    return None if rn is None else rn.trace_id
 
 
 class CHOMPModule:
@@ -530,9 +541,10 @@ class CHOMPModule:
         ``self.sdf_timers`` (a ``PhaseTimers``) holds this call's host
         walls of ``cache_read``, ``sdf_build`` (which ends in a device
         sync, so it holds the build's device time) and ``cache_write``
-        (the reference times the build, orcdchomp_mod.cpp:459-565);
-        inside the build, profiler ranges ``voxelize``, ``flood`` and
-        ``edt`` split it without a sync."""
+        (the reference times the build, orcdchomp_mod.cpp:459-565), each
+        a span recorded whether or not a profile records; inside the
+        build, spans ``voxelize``, ``flood`` and ``edt`` split it without
+        a sync."""
         name, body = self._check_new_field(kinbody)
         lo, hi = body.aabb_at_origin()
         center = 0.5 * (lo + hi)
@@ -548,9 +560,9 @@ class CHOMPModule:
                 data = _cache_read(cache_filename, sizes)
             if data is not None:
                 grid = Grid3D(
-                    data=torch.as_tensor(data, device=self.device),
-                    lengths=torch.as_tensor(lengths, dtype=torch.float32,
-                                            device=self.device))
+                    data=to_device(data, device=self.device),
+                    lengths=to_device(lengths, dtype=torch.float32,
+                                      device=self.device))
         if grid is None:
             if require_cache:
                 raise RuntimeError(
@@ -559,10 +571,11 @@ class CHOMPModule:
                 grid = self._build_sdf_grid(body, grid_pose, sizes, lengths,
                                             float(cube_extent))
                 if grid.data.is_cuda:
+                    profiling.host_sync()
                     torch.cuda.synchronize(grid.data.device)
             if cache_filename:
                 with timers.tic("cache_write"):
-                    grid.data.cpu().numpy().astype(np.float32).tofile(
+                    to_host(grid.data).numpy().astype(np.float32).tofile(
                         cache_filename)
         self.sdfs.append(SdfEntry(kinbody_name=name, grid=grid,
                                   pose=grid_pose))
@@ -579,17 +592,17 @@ class CHOMPModule:
         pose_world_gsdf = np_pose.compose(self._body_world_pose(body),
                                           grid_pose)
         grid = Grid3D.create(sizes, lengths, device=self.device)
-        centers_w = pose_apply(torch.as_tensor(pose_world_gsdf, **f32),
+        centers_w = pose_apply(to_device(pose_world_gsdf, **f32),
                                grid.all_centers()).reshape(-1, 3)
         scenes, poses = self._world_occupancy_scene()
         scenes = [sc.to(self.device) for sc in scenes]
         centers64 = None
         if any(sc.tri_verts.shape[0] for sc in scenes):
-            g64 = Grid3D(data=grid.data, lengths=torch.as_tensor(
+            g64 = Grid3D(data=grid.data, lengths=to_device(
                 lengths, dtype=torch.float64, device=self.device))
             centers64 = pose_apply(
-                torch.as_tensor(pose_world_gsdf, dtype=torch.float64,
-                                device=self.device),
+                to_device(pose_world_gsdf, dtype=torch.float64,
+                          device=self.device),
                 g64.all_centers()).reshape(-1, 3)
         with phase("voxelize"):
             occ = voxelize_chunked(list(zip(scenes, poses)), centers_w,
@@ -612,9 +625,9 @@ class CHOMPModule:
         lengths = np.asarray(lengths, dtype=np.float64)
         pose = (np_pose.normalize(pose) if pose is not None
                 else np_pose.POSE_ID.copy())
-        data = signed_edt(torch.as_tensor(obsarray != 0, device=self.device),
+        data = signed_edt(to_device(obsarray != 0, device=self.device),
                           lengths)
-        grid = Grid3D(data=data, lengths=torch.as_tensor(
+        grid = Grid3D(data=data, lengths=to_device(
             lengths, dtype=torch.float32, device=self.device))
         self.sdfs.append(SdfEntry(kinbody_name=name, grid=grid, pose=pose))
         self._fields_changed()
@@ -629,9 +642,9 @@ class CHOMPModule:
             body = self._get_body(s.kinbody_name)
             pw = np_pose.compose(self._body_world_pose(body), s.pose)
             pts = s.grid.all_centers()[s.grid.data <= 0.0]
-            out[s.kinbody_name] = pose_apply(
-                torch.as_tensor(pw, dtype=torch.float32, device=pts.device),
-                pts).cpu().numpy()
+            out[s.kinbody_name] = to_host(pose_apply(
+                to_device(pw, dtype=torch.float32, device=pts.device),
+                pts)).numpy()
         return out
 
     def removefield(self, kinbody=None, **_):
@@ -645,6 +658,7 @@ class CHOMPModule:
 
     # ----- create ---------------------------------------------------------
 
+    @command("module.create")
     def create(self, robot=None, adofgoal=None, basegoal=None,
                floating_base=False, lambda_=None, starttraj=None,
                n_points=None, con_tsr=None, con_tsrs=None, start_tsr=None,
@@ -806,13 +820,17 @@ class CHOMPModule:
         key = (spec, id(r.model), self._fields_version, cons,
                None if start_cost is None else id(start_cost))
         engine = self._engine_cache.pop(key, None)
+        profiling.count("engine_cache.hit" if engine is not None
+                        else "engine_cache.miss")
         if engine is None:
-            engine = ChompEngine(
-                spec, r.model, pad_stack_grids([s.grid for s in self.sdfs],
-                                               self.device, self.dtype),
-                dtype=self.dtype, device=self.device, metric_ops=ops,
-                seed=seed, cons=cons, extra_cost=start_cost,
-                metric_mode="sep" if use_sep else "dense")
+            with phase("module.engine_build"):
+                engine = ChompEngine(
+                    spec, r.model,
+                    pad_stack_grids([s.grid for s in self.sdfs],
+                                    self.device, self.dtype),
+                    dtype=self.dtype, device=self.device, metric_ops=ops,
+                    seed=seed, cons=cons, extra_cost=start_cost,
+                    metric_mode="sep" if use_sep else "dense")
         self._engine_cache[key] = engine   # at the back: most recent
         self._evict_engines()
         B, trC, Evels = engine.build_affine(init0, traj[-1], n)
@@ -829,7 +847,7 @@ class CHOMPModule:
         opts = dict(dtype=self.dtype, device=self.device)
 
         def t(x):
-            return torch.as_tensor(np.asarray(x, np.float64), **opts)
+            return to_device(np.asarray(x, np.float64), **opts)
 
         problem = ChompProblem(
             traj=t(traj), robot_pose=t(r.pose),
@@ -857,11 +875,13 @@ class CHOMPModule:
             engine=engine, problem=problem, spec=spec, robot=r,
             fk=CompiledFK(r.model, dtype=torch.float64, device=self.device),
             n_points=n_points, draw=HmcDraw(seed, self.device),
-            dat_filename=dat_filename, no_report_cost=bool(no_report_cost))
+            dat_filename=dat_filename, no_report_cost=bool(no_report_cost),
+            trace_id=profiling.current_request())
         return handle
 
     # ----- iterate --------------------------------------------------------
 
+    @command("module.iterate", _request_of_run)
     def iterate(self, run=None, n_iter=1, max_time=None,
                 trajs_fileformstr=None, cost=None, verbose=False, **_):
         """Run n_iter CHOMP iterations (orcdchomp_mod.cpp:2690-2852).
@@ -885,10 +905,11 @@ class CHOMPModule:
             todo = min(chunk, n_iter - done)
             if trajs_fileformstr:
                 np.savetxt(trajs_fileformstr % rn.iteration,
-                           rn.problem.traj.cpu().numpy())
+                           to_host(rn.problem.traj).numpy())
             probs, costs = rn.engine.iterate_batched(probs, todo, rn.draw)
             rn.problem = first(probs)
-            costs = costs[0].cpu().numpy()                 # (todo, 3)
+            with phase("module.fetch"):
+                costs = to_host(costs[0]).numpy()          # (todo, 3)
             # no_report_cost suppresses the per-iteration cost report
             # (README.md:137); the .dat rows do not depend on it: the
             # reference's fprintf to fp_dat is unconditional
@@ -907,8 +928,10 @@ class CHOMPModule:
             rn.iteration += todo
             if max_time is not None and time.time() - t0 > max_time:
                 break
-        total, c_obs, c_smooth = torch.stack(
-            rn.engine.final_costs_batch(probs))[:, 0].tolist()
+        with phase("module.final_costs"):
+            profiling.host_sync()
+            total, c_obs, c_smooth = torch.stack(
+                rn.engine.final_costs_batch(probs))[:, 0].tolist()
         if verbose:
             print(f"iter:{rn.iteration:2d} cost_total:{total:f} "
                   f"cost_obs:{c_obs:f} cost_smooth:{c_smooth:f} [FINAL]")
@@ -922,6 +945,7 @@ class CHOMPModule:
 
     # ----- gettraj --------------------------------------------------------
 
+    @command("module.gettraj", _request_of_run)
     def gettraj(self, run=None, no_collision_check=False,
                 no_collision_exception=False, no_collision_details=False,
                 **_):
@@ -929,12 +953,14 @@ class CHOMPModule:
         (orcdchomp_mod.cpp:2854-3011): the batched check at one
         problem."""
         rn = self.runs[run]
-        (out,) = self._retimed(rn, rn.problem.traj[None])
+        with phase("gettraj.retime"):
+            (out,) = self._retimed(rn, rn.problem.traj[None])
         if not no_collision_check:
-            res = self._check_traj_collision_batch(
-                rn, out.positions[None],
-                None if out.base_poses is None else out.base_poses[None],
-                out.times[None])
+            with phase("gettraj.check"):
+                res = self._check_traj_collision_batch(
+                    rn, out.positions[None],
+                    None if out.base_poses is None else out.base_poses[None],
+                    out.times[None])
             if not no_collision_details:
                 for name, hit in zip(res.names, res.env_hits[:, 0]):
                     if hit:
@@ -952,7 +978,7 @@ class CHOMPModule:
         the reference's affine_velocities, Δpose over the active DOFs'
         segment times (orcdchomp_mod.cpp:2914-2956).  Returns a list of
         B Trajectory."""
-        traj = traj.double().cpu().numpy()
+        traj = to_host(traj.double()).numpy()
         if rn.spec.floating_base:
             base, q = traj[:, :, :7], traj[:, :, 7:]
         else:
@@ -1025,26 +1051,26 @@ class CHOMPModule:
             if not b.enabled or b.grabbed_by == rn.robot.name:
                 continue
             scenes.append(b.scene.to(**f64))
-            invs.append(torch.as_tensor(
+            invs.append(to_device(
                 np_pose.invert(self._body_world_pose(b)), **f64))
             names.append(b.name)
-        rad = torch.as_tensor(rn.robot.model.sphere_radius, **f64)
-        pair_ok = ~torch.as_tensor(rn.robot.check_exclude_mask(), device=dev)
+        rad = to_device(rn.robot.model.sphere_radius, **f64)
+        pair_ok = ~to_device(rn.robot.check_exclude_mask(), device=dev)
         rsum = rad[:, None] + rad[None, :]
         S = rad.shape[0]
         tris = max([sc.tri_verts.shape[0] for sc in scenes], default=0)
         chunk = check_chunk(T_s, S, device_chunk, tris)
         self.last_check = dict(samples=T_s, spheres=S, triangles=tris,
                                chunk=chunk)
-        fixed_base = torch.as_tensor(rn.robot.pose, **f64)
+        fixed_base = to_device(rn.robot.pose, **f64)
 
         hits = np.zeros((len(scenes) + 1, B), dtype=bool)
         si = torch.arange(T_s, **f64)[None, :]
         for lo in range(0, B, chunk):
             hi = min(lo + chunk, B)
-            tt = torch.as_tensor(times[lo:hi], **f64)           # (nb, P)
-            stp = torch.as_tensor(step[lo:hi], **f64)[:, None]
-            ns = torch.as_tensor(n_samp[lo:hi], **f64)[:, None]
+            tt = to_device(times[lo:hi], **f64)                 # (nb, P)
+            stp = to_device(step[lo:hi], **f64)[:, None]
+            ns = to_device(n_samp[lo:hi], **f64)[:, None]
             # uniform-in-time samples; indices past a problem's own count
             # collapse to t = 0 (a sample it checks anyway)
             ts = torch.minimum(torch.where(si < ns, si * stp, 0.0),
@@ -1058,7 +1084,7 @@ class CHOMPModule:
                             0.0)[..., None]
 
             def lerp(v):                                        # (nb, P, c)
-                v = torch.as_tensor(v[lo:hi], **f64)
+                v = to_device(v[lo:hi], **f64)
                 at = idx[..., None].expand(-1, -1, v.shape[-1])
                 return ((1 - a) * torch.gather(v, 1, at)
                         + a * torch.gather(v, 1, at + 1))       # (nb, T_s, c)
@@ -1080,7 +1106,7 @@ class CHOMPModule:
             pair = torch.linalg.norm(x[:, :, :, None] - x[:, :, None],
                                      dim=-1)                    # (nb,T_s,S,S)
             flags.append(torch.any((pair < rsum) & pair_ok, dim=(1, 2, 3)))
-            hits[:, lo:hi] = torch.stack(flags).cpu().numpy()
+            hits[:, lo:hi] = to_host(torch.stack(flags)).numpy()
         hits &= active[None, :]
         return CheckResult(collides=hits.any(axis=0), env_hits=hits[:-1],
                            self_hit=hits[-1], names=names)
@@ -1094,6 +1120,7 @@ class CHOMPModule:
 
     # ----- destroy / runchomp --------------------------------------------
 
+    @command("module.destroy", _request_of_run)
     def destroy(self, run=None, **_):
         del self.runs[run]
         return ""

@@ -36,6 +36,7 @@ from __future__ import annotations
 import collections
 import copy
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -51,7 +52,8 @@ from or_cdchomp_tpu_torch.ops import kernels, limits
 from or_cdchomp_tpu_torch.ops.quat import pose_normalize
 from or_cdchomp_tpu_torch.ops.selfcol import (PairLayout, pair_layout,
                                               pair_table)
-from or_cdchomp_tpu_torch.utils.profiling import phase
+from or_cdchomp_tpu_torch.utils import profiling
+from or_cdchomp_tpu_torch.utils.profiling import phase, to_device
 
 _HMC_U_MIN = 1e-12       # lower end of the uniform draw (solver.py:270)
 # captured steps (StepGraph) an engine keeps, one per batch signature; the
@@ -233,8 +235,8 @@ class ChompEngine:
             self._ainv64 = (Ainv.detach().double().cpu().numpy()
                             if isinstance(Ainv, torch.Tensor)
                             else np.asarray(Ainv, dtype=np.float64))
-            self.A = torch.as_tensor(A, dtype=dtype, device=device)
-            self.Ainv = torch.as_tensor(Ainv, dtype=dtype, device=device)
+            self.A = to_device(A, dtype=dtype, device=device)
+            self.Ainv = to_device(Ainv, dtype=dtype, device=device)
         self.cons = cons if cons is not None else TSRConstraintSet.build(())
         # A⁻¹ at the constraint points, on the device once
         # (solver.py:132-149)
@@ -249,8 +251,7 @@ class ChompEngine:
         self._sphere_order = order
         n_act = int(act.sum())
         radii = model.sphere_radius[order]
-        self.radii_act = torch.as_tensor(radii[:n_act], dtype=dtype,
-                                         device=device)
+        self.radii_act = to_device(radii[:n_act], dtype=dtype, device=device)
         same = model.sphere_same_link()[order][:, order][:n_act, :]
         pi, pj, rsum = pair_table(same, radii[:n_act], radii)
         pairs = (torch.as_tensor(pi), torch.as_tensor(pj),
@@ -259,8 +260,9 @@ class ChompEngine:
         # once (on the host, from the host table), as the Pallas kernel
         # compiles its pair matrices in
         layout = pair_layout(*pairs, n_act, len(radii))
-        self.pairs = tuple(t.to(device) for t in pairs)
-        self.pair_layout = PairLayout(*(t.to(device) for t in layout))
+        self.pairs = tuple(to_device(t, device=device) for t in pairs)
+        self.pair_layout = PairLayout(*(to_device(t, device=device)
+                                        for t in layout))
         self.n_spheres_active = n_act
         # FK restricted to the active spheres, in active-first order
         self.fk = CompiledFK(model, dtype=dtype, device=device,
@@ -344,14 +346,14 @@ class ChompEngine:
         """Ainv[pts, pts] (K, K) on the device in the engine's dtype, for
         the constraint-projection system (JAX solver.py:132-140)."""
         pts = np.asarray(pts, dtype=np.int64)
-        return torch.as_tensor(self._ainv_host(pts, pts), dtype=self.dtype,
-                               device=self.device)
+        return to_device(self._ainv_host(pts, pts), dtype=self.dtype,
+                         device=self.device)
 
     def ainv_cols(self, pts):
         """Ainv[:, pts] (m, K) on the device in the engine's dtype, for
         spreading constraint corrections (JAX solver.py:142-149)."""
         pts = np.asarray(pts, dtype=np.int64)
-        return torch.as_tensor(
+        return to_device(
             self._ainv_host(np.arange(self.spec.m), pts), dtype=self.dtype,
             device=self.device)
 
@@ -568,6 +570,7 @@ class ChompEngine:
         graphs[key] = graph
         while len(graphs) > GRAPH_CACHE_MAX:
             graphs.popitem(last=False)
+            profiling.count("graph.evict")
         return graph
 
     # -- per-problem entry points (JAX solver.py:244, 304, 578) --------------
@@ -638,8 +641,13 @@ class _EagerSteps:
         self.probs = probs
 
     def step(self, engine, draw, costs):
-        self.probs, c = engine.step_batched(self.probs, draw)
-        costs.copy_(c)
+        zu = None
+        if engine.spec.use_hmc:
+            with phase("step.draw"):
+                zu = engine._draws(self.probs, draw)
+        self.probs, c = engine._step(self.probs, zu)
+        with phase("step.costs"):
+            costs.copy_(c)
 
     def result(self, probs):
         """The batch after the steps (``probs``, the batch they started
@@ -665,7 +673,12 @@ class StepGraph:
     not), whatever the setting at a replay.  The launches counted while
     capturing (``records``) are counted again at each replay
     (ops/kernels.py).  Replays need the engine's card current;
-    :meth:`step` makes it so."""
+    :meth:`step` makes it so.  ``node_map`` (utils/profiling.py NodeMap)
+    charges each node of the graph a profiler reports to the step's
+    innermost phase open when it was captured (None where the capture's
+    nodes could not be read); a recorded replay hands it to the
+    recording.  Spans: ``step.draw`` (with HMC), ``step.replay`` (the
+    host's ``graph.replay()`` call) and ``step.costs``."""
 
     def __init__(self, engine, probs):
         self.device = probs.traj.device
@@ -676,7 +689,7 @@ class StepGraph:
         if engine.spec.use_hmc:
             self.zu = (torch.empty_like(self.probs.AG),
                        self.probs.AG.new_empty(self.probs.AG.shape[:1]))
-        self.graph = self.records = self.costs = None
+        self.graph = self.records = self.costs = self.node_map = None
         self.changed = ()
 
     def load(self, probs):
@@ -699,15 +712,20 @@ class StepGraph:
         draw, then a replay (or, the first time, the step run eagerly and
         then captured); its costs into ``costs``."""
         with torch.cuda.device(self.device):
-            zu = engine._draws(self.probs, draw)
+            zu = None
+            if engine.spec.use_hmc:
+                with phase("step.draw"):
+                    zu = engine._draws(self.probs, draw)
+                    if self.graph is not None:
+                        self.zu[0].copy_(zu[0])
+                        self.zu[1].copy_(zu[1])
             if self.graph is None:
                 self._capture(engine, zu, costs)
                 return
-            if zu is not None:
-                self.zu[0].copy_(zu[0])
-                self.zu[1].copy_(zu[1])
-            self.graph.replay()
-            costs.copy_(self.costs)
+            with phase("step.replay", None, self.node_map):
+                self.graph.replay()
+            with phase("step.costs"):
+                costs.copy_(self.costs)
         kernels.replay_counts(self.records)
 
     def _capture(self, engine, zu, costs):
@@ -725,7 +743,10 @@ class StepGraph:
             cur.wait_stream(side)
             what = "capturing the step"
             with kernels.recording() as records, \
-                    torch.cuda.graph(graph, stream=side):
+                    torch.cuda.graph(graph, stream=side), \
+                    profiling.node_map(
+                        functools.partial(kernels.capture_nodes, side),
+                        self.device.index) as nodes:
                 # a host sync raises here, at its own line, before it
                 # reaches the capture
                 mode = torch.cuda.get_sync_debug_mode()
@@ -735,6 +756,7 @@ class StepGraph:
                     self._store(new)
                 finally:
                     torch.cuda.set_sync_debug_mode(mode)
+                node_map = nodes.finish()
         except RuntimeError as e:
             raise RuntimeError(
                 f"iterate_batched: the step on {self.device} cannot run as a "
@@ -742,6 +764,8 @@ class StepGraph:
                 f"sync and copy nothing from the host (an extra_cost hook "
                 f"included); there is no eager fallback on the card") from e
         self.graph, self.records, self.costs = graph, records, c
+        self.node_map = node_map
+        profiling.count("graph.capture")
 
     def result(self, probs):
         """The batch after the steps: copies of the leaves the step

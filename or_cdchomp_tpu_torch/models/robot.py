@@ -23,6 +23,7 @@ import torch
 from or_cdchomp_tpu_torch.ops import quat as qt
 from or_cdchomp_tpu_torch.ops import soa
 from or_cdchomp_tpu_torch.ops.spatial import SpatialMats
+from or_cdchomp_tpu_torch.utils.profiling import to_device
 
 FIXED, REVOLUTE, PRISMATIC = 0, 1, 2
 _POSE_ID = np.array([0, 0, 0, 0, 0, 0, 1.0])
@@ -466,54 +467,54 @@ class CompiledFK:
 
     def _to_device(self):
         dev, dt = self.device, self.dtype
-        self.sphere_radius = torch.as_tensor(
+        self.sphere_radius = to_device(
             self.model.sphere_radius[self.sphere_subset], dtype=dt,
             device=dev)
-        self._sphere_slot = torch.as_tensor(self._sphere_red_slot_np,
-                                            dtype=torch.long, device=dev)
+        self._sphere_slot = to_device(self._sphere_red_slot_np,
+                                      dtype=torch.long, device=dev)
         # folded sphere offsets as (S, 1) columns: broadcast over batch
         self._sphere_folded = tuple(
-            torch.as_tensor(self._sphere_folded_np[:, c:c + 1], dtype=dt,
-                            device=dev) for c in range(3))
+            to_device(self._sphere_folded_np[:, c:c + 1], dtype=dt,
+                      device=dev) for c in range(3))
         if self._jt_suffix is not None:
             order, start = self._jt_suffix
             identity = np.array_equal(order, np.arange(len(order)))
             self._jt_order = (None if identity
-                              else torch.as_tensor(order, device=dev))
-            self._jt_start = torch.as_tensor(start, device=dev)
-        self._jt_mask = torch.as_tensor(
+                              else to_device(order, device=dev))
+            self._jt_start = to_device(start, device=dev)
+        self._jt_mask = to_device(
             self._sphere_dof_mask_np[None, :, :, None], dtype=dt, device=dev)
-        self._jt_rev = torch.as_tensor(
+        self._jt_rev = to_device(
             (self._jtype_per_dof_np == REVOLUTE)[None, :, None], device=dev)
         # the TSR chain's constants: stacked small-matrix tables, the
         # end effector's offset (position, quaternion) and its DOF mask
         self.mats = SpatialMats(dev, dt)
         self.ee_offset = None if self._ee_offset_np is None else (
-            torch.as_tensor(self._ee_offset_np[:3], dtype=dt, device=dev),
-            torch.as_tensor(self._ee_offset_np[3:], dtype=dt, device=dev))
+            to_device(self._ee_offset_np[:3], dtype=dt, device=dev),
+            to_device(self._ee_offset_np[3:], dtype=dt, device=dev))
         self.ee_dof_mask_np = self.model.ancestor_dof_mask()[
             self.model.ee_link]
-        self.ee_dof_mask = torch.as_tensor(self.ee_dof_mask_np, device=dev)
+        self.ee_dof_mask = to_device(self.ee_dof_mask_np, device=dev)
         # the per-problem FK's tables: per link its reduced slot and
         # offset, per sphere its link, offset, reduced slot and folded
         # offset, per DOF its joint axis (in the joint frame), revolute
         # or not, and which spheres it moves
         model, subset = self.model, self.sphere_subset
-        self._red_slot_links = torch.as_tensor(self._red_slot, device=dev)
-        self._off_p = torch.as_tensor(self._off64[:, :3], dtype=dt, device=dev)
-        self._off_q = torch.as_tensor(self._off64[:, 3:], dtype=dt, device=dev)
-        self._sphere_link = torch.as_tensor(model.sphere_link[subset],
-                                            dtype=torch.long, device=dev)
-        self._sphere_pos = torch.as_tensor(model.sphere_pos[subset],
-                                           dtype=dt, device=dev)
-        self._sphere_folded_pos = torch.as_tensor(self._sphere_folded_np,
-                                                  dtype=dt, device=dev)
-        self._dof_axis = torch.as_tensor(
+        self._red_slot_links = to_device(self._red_slot, device=dev)
+        self._off_p = to_device(self._off64[:, :3], dtype=dt, device=dev)
+        self._off_q = to_device(self._off64[:, 3:], dtype=dt, device=dev)
+        self._sphere_link = to_device(model.sphere_link[subset],
+                                      dtype=torch.long, device=dev)
+        self._sphere_pos = to_device(model.sphere_pos[subset],
+                                     dtype=dt, device=dev)
+        self._sphere_folded_pos = to_device(self._sphere_folded_np,
+                                            dtype=dt, device=dev)
+        self._dof_axis = to_device(
             model.axis[self._dof_link].reshape(-1, 3), dtype=dt, device=dev)
-        self._dof_rev = torch.as_tensor(self._jtype_per_dof_np == REVOLUTE,
-                                        dtype=torch.bool, device=dev)
-        self._sphere_dof_mask = torch.as_tensor(self._sphere_dof_mask_np,
-                                                device=dev)
+        self._dof_rev = to_device(self._jtype_per_dof_np == REVOLUTE,
+                                  dtype=torch.bool, device=dev)
+        self._sphere_dof_mask = to_device(self._sphere_dof_mask_np,
+                                          device=dev)
 
     # ----- per-problem FK (layout (..., n_dof); robot.py:444-738) ----------
 
@@ -522,12 +523,12 @@ class CompiledFK:
         n_dof).  Returns (red (..., n_red, 7), anchors (..., n_dof, 7)):
         red[..., 0, :] the base pose, then one per active joint; anchors
         are the joint frames before the joint's motion."""
-        q = torch.as_tensor(q, dtype=self.dtype, device=self.device)
+        q = to_device(q, dtype=self.dtype, device=self.device)
         batch = q.shape[:-1]
         if base_pose is None:
             base_pose = qt.pose_identity(self.dtype, self.device)
-        base_pose = torch.as_tensor(base_pose, dtype=self.dtype,
-                                    device=self.device)
+        base_pose = to_device(base_pose, dtype=self.dtype,
+                              device=self.device)
         half = 0.5 * q
         s, c = torch.sin(half), torch.cos(half)
         red = [base_pose.expand(batch + (7,))]

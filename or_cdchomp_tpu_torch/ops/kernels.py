@@ -34,7 +34,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "build"
-_SOURCES = ("obstacle.cu", "selfcol.cu", "draw.cu", "limits.cu")
+_SOURCES = ("obstacle.cu", "selfcol.cu", "draw.cu", "limits.cu",
+            "capture.cu")
 # -fmad=false: the obstacle kernel must round every product and sum the
 # way the plain PyTorch version does, or a query sitting on a cell
 # centre picks the other one-sided neighbour (csrc/obstacle.cu).  The
@@ -72,6 +73,8 @@ _SIGNATURES = {
     # stream
     "cdx_limit_repair": (_P, _P, _P, _P, _D, _I, _I, _I, _I, _P, _P, _P, _P,
                          _P),
+    # stream, kinds (or null), cap, count (out)
+    "cdx_capture_nodes": (_P, _P, ctypes.c_longlong, _P),
 }
 # the float64 twins (suffix _f64) take the same arguments, with double
 # pointers in place of float ones
@@ -204,6 +207,28 @@ def stream_ptr(t):
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def capture_nodes(stream, kinds=False):
+    """The nodes of the CUDA graph that ``stream`` (a torch.cuda.Stream)
+    is capturing: their number, or with ``kinds`` one letter a node in the
+    order a replay runs them, "k" kernel, "c" memcpy, "s" memset, "-"
+    another kind (csrc/capture.cu).  Raises if the stream is not
+    capturing, or if the nodes are not one chain in that order."""
+    fn = library().cdx_capture_nodes
+    n = ctypes.c_longlong(0)
+    err = fn(stream.cuda_stream, None, 0, ctypes.byref(n))
+    buf = None
+    if kinds and err == 0:
+        buf = ctypes.create_string_buffer(max(n.value, 1))
+        err = fn(stream.cuda_stream, buf, n.value, ctypes.byref(n))
+    if err == -1:
+        raise RuntimeError("cdx_capture_nodes: the stream is not capturing")
+    if err == -2:
+        raise RuntimeError("cdx_capture_nodes: the captured nodes are not "
+                           "one chain in creation order")
+    check(err, "cdx_capture_nodes")
+    return buf.raw[:n.value].decode() if kinds else n.value
 
 
 def launch(t, name, fn, *args):

@@ -33,6 +33,7 @@ import torch
 from or_cdchomp_tpu_torch.ops.quat import (
     pose_invert, quat_compose, quat_from_axisangle, quat_from_R, quat_invert,
     quat_rotate, quat_to_R)
+from or_cdchomp_tpu_torch.utils.profiling import to_device
 
 # Each table is a list of rows; an entry is a source name, optionally
 # with a leading '-', or "0" / "1".  The source vector of a table lists
@@ -132,8 +133,8 @@ class SpatialMats:
 
         def table(rows, src):
             idx, sign = _gather_table(rows, src)
-            return (torch.as_tensor(idx, device=self.device),
-                    torch.as_tensor(sign, dtype=dtype, device=self.device),
+            return (to_device(idx, device=self.device),
+                    to_device(sign, dtype=dtype, device=self.device),
                     (len(rows), len(rows[0])))
 
         self._qleft = table(_QLEFT, _QLEFT_SRC)
@@ -147,7 +148,7 @@ class SpatialMats:
         rot = np.asarray(_ROT)
 
         def col(i, dt):
-            return torch.as_tensor(rot[:, i].astype(dt), device=self.device)
+            return to_device(rot[:, i].astype(dt), device=self.device)
 
         self._rot = (col(0, np.int64), col(1, np.int64),
                      col(2, np.float64).to(dtype), col(3, np.float64).to(dtype),

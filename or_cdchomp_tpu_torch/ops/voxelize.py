@@ -35,6 +35,7 @@ import torch
 
 from or_cdchomp_tpu_torch.ops.quat import pose_apply, pose_invert, quat_to_R
 from or_cdchomp_tpu_torch.utils import np_pose
+from or_cdchomp_tpu_torch.utils.profiling import to_device
 
 
 class Scene(NamedTuple):
@@ -97,7 +98,8 @@ class Scene(NamedTuple):
                 + self.cyl_pose.shape[0] + self.tri_verts.shape[0])
 
     def to(self, device=None, dtype=None):
-        return Scene(*(t.to(device=device, dtype=dtype) for t in self))
+        return Scene(*(to_device(t, device=device, dtype=dtype)
+                       for t in self))
 
     def bounding_spheres(self):
         """(centers (N, 3), radii (N,)) float64 numpy covering every

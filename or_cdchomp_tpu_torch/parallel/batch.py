@@ -27,6 +27,8 @@ import torch.distributed as dist
 
 from or_cdchomp_tpu_torch.chomp.problem import ChompProblem
 from or_cdchomp_tpu_torch.parallel import multihost
+from or_cdchomp_tpu_torch.utils import profiling
+from or_cdchomp_tpu_torch.utils.profiling import command, phase, to_device
 
 
 def stack_problems(problems) -> ChompProblem:
@@ -50,6 +52,7 @@ def pad_problems(probs: ChompProblem, multiple: int):
         for k, v in probs.leaves().items()}), P_
 
 
+@command("batch.build")
 def problem_batch_from_grid(problem: ChompProblem, starts, goals, engine,
                             metric_ops=None, seeds=None):
     """(P,)-batched problem on the engine's device and dtype: the
@@ -69,25 +72,34 @@ def problem_batch_from_grid(problem: ChompProblem, starts, goals, engine,
     ``arange(P)``) the leaf stays None and the batch draws from the
     engine's draw source as one, as before; the JAX keys' numbers are
     not reproduced either way.
+
+    Spans (utils/profiling.py): ``batch.build``, whose id the batch's
+    ``batch.solve`` shares, and inside it ``build.rows`` (the lines and
+    affine terms in numpy), ``build.expand`` (the template's leaves
+    broadcast on the device) and ``build.copy`` (the rows' host→device
+    copies).
     """
-    starts = np.asarray(starts, dtype=np.float64)
-    goals = np.asarray(goals, dtype=np.float64)
-    P_, n = starts.shape
-    npts = engine.spec.n_points
-    a = np.linspace(0.0, 1.0, npts)[None, :, None]
-    trajs = (1 - a) * starts[:, None, :] + a * goals[:, None, :]
-    B, trC, Ev = engine.build_affine_batch(trajs[:, 0], trajs[:, -1], n)
+    with phase("build.rows"):
+        starts = np.asarray(starts, dtype=np.float64)
+        goals = np.asarray(goals, dtype=np.float64)
+        P_, n = starts.shape
+        npts = engine.spec.n_points
+        a = np.linspace(0.0, 1.0, npts)[None, :, None]
+        trajs = (1 - a) * starts[:, None, :] + a * goals[:, None, :]
+        B, trC, Ev = engine.build_affine_batch(trajs[:, 0], trajs[:, -1], n)
 
     dev, dtype = engine.device, engine.dtype
-    tmpl = problem.to(dev, dtype)
-    batched = {k: v.expand((P_,) + tuple(v.shape)).contiguous()
-               for k, v in tmpl.leaves().items()}
+    with phase("build.expand"):
+        tmpl = problem.to(dev, dtype)
+        batched = {k: v.expand((P_,) + tuple(v.shape)).contiguous()
+                   for k, v in tmpl.leaves().items()}
 
     def t(x):
-        return torch.as_tensor(x, dtype=dtype, device=dev)
+        return to_device(x, dtype=dtype, device=dev)
 
+    with phase("build.copy"):
+        batched.update(traj=t(trajs), B=t(B), trC=t(trC), Evels=t(Ev))
     batched.update(
-        traj=t(trajs), B=t(B), trC=t(trC), Evels=t(Ev),
         AG=torch.zeros((P_, engine.spec.m, n), dtype=dtype, device=dev),
         resample_iter=torch.zeros(P_, dtype=torch.int32, device=dev),
         leapfrog_first=torch.ones(P_, dtype=torch.bool, device=dev),
@@ -98,8 +110,11 @@ def problem_batch_from_grid(problem: ChompProblem, starts, goals, engine,
         if seeds.shape != (P_,):
             raise ValueError(f"seeds must have one entry per problem "
                              f"({P_}), not {seeds.shape[0]}")
-        batched["hmc_seed"] = torch.as_tensor(seeds, device=dev)
-    return ChompProblem(**batched)
+        with phase("build.copy"):
+            batched["hmc_seed"] = to_device(seeds, device=dev)
+    out = ChompProblem(**batched)
+    profiling.bind(out.traj, profiling.current_request())
+    return out
 
 
 class BatchSolver:
@@ -314,6 +329,8 @@ class BatchSolver:
                                               chunk_size, tol)
         return self._gather_problems(parts), self._gather(lasts), converged
 
+    @command("batch.solve",
+             lambda self, probs, *_, **__: profiling.request_of(probs.traj))
     def solve(self, probs: ChompProblem, n_iter: int, chunk: int = 10,
               tol: Optional[float] = None):
         """Up to n_iter steps in chunks of ``chunk``; with ``tol``, stops
@@ -322,8 +339,13 @@ class BatchSolver:
         devices or ranks, every problem of every one).  The rows stay on
         their devices from the first chunk to the final costs, each
         device's from its replica's :meth:`ChompEngine.final_costs_batch`.
-        Returns (problems, final costs (P, 3), steps done)."""
-        parts = self._scatter(probs)
+        Returns (problems, final costs (P, 3), steps done).
+
+        Spans (utils/profiling.py): ``batch.solve``, in the request of
+        the batch ``problem_batch_from_grid`` built, and inside it
+        ``solve.scatter``, ``solve.final_costs`` and ``solve.gather``."""
+        with phase("solve.scatter"):
+            parts = self._scatter(probs)
         done = 0
         while done < n_iter:
             todo = min(chunk, n_iter - done)
@@ -332,13 +354,16 @@ class BatchSolver:
                 parts, _ = self._iterate_parts(parts, todo)
                 continue
             parts, _, conv = self._until(parts, todo, chunk, tol)
+            profiling.host_sync()
             if bool(conv):
                 break
         finals = []
-        for rep, rows, _, _ in parts:
-            with _current(rep.device):
-                finals.append(torch.stack(rep.final_costs_batch(rows), -1))
-        return self._gather_problems(parts), self._gather(finals), done
+        with phase("solve.final_costs"):
+            for rep, rows, _, _ in parts:
+                with _current(rep.device):
+                    finals.append(torch.stack(rep.final_costs_batch(rows), -1))
+        with phase("solve.gather"):
+            return self._gather_problems(parts), self._gather(finals), done
 
 
 def _current(device):

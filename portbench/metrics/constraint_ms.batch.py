@@ -1,0 +1,9 @@
+"""constraint_ms.batch: device ms a replayed solver step spends in the
+graph nodes captured under ``constraint`` (the TSR evaluation and
+projection), as fk_ms.batch reads ``fk``."""
+
+from portbench.program_spans import phase_device_ms
+
+
+def read(trace):
+    return phase_device_ms(trace, ("constraint",))

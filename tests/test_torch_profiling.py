@@ -163,12 +163,19 @@ def test_phase_ranges():
 
 
 def test_phase_timers_report_matches_jax():
+    """Each tic is a span recorded with nothing else recording; the ticks
+    are the spans' seconds, and the report keeps the JAX package's
+    format."""
     t, j = PhaseTimers(), jprof.PhaseTimers()
     for timers in (t, j):
         with timers.tic("fk"):
             pass
         with timers.tic("custom"):
             pass
+    assert [s.name for s in t.spans] == ["fk", "custom"]
+    assert dict(t.ticks) == {s.name: s.seconds for s in t.spans}
+    assert all(s.parent == -1 and s.end >= s.start for s in t.spans)
+    for timers in (t, j):
         timers.ticks.update(fk=0.125, custom=2.5, smoothgrad=1e-3)
     assert t.report() == j.report()
     assert "ticks_fk" in t.report() and "ticks_custom" in t.report()
@@ -193,21 +200,35 @@ def test_format_phase_report():
 
 
 def test_sdf_timers_and_build_phases(tmp_path):
+    """computedistancefield's cache_read, sdf_build and cache_write are
+    spans: sdf_timers keeps its keys and report, derived from them, and a
+    profile's recording holds them with the build's voxelize, flood and
+    edt spans inside sdf_build."""
     cache = str(tmp_path / "sdf_table.dat")
     m = table_module(pt, dtype=torch.float64, device="cpu")
     m.robots["wam"].enabled = False
+    with prof_mod.recording() as rec:     # a new recording, for the profile
+        pass
     p = _cpu_profile(lambda: m.computedistancefield(
         kinbody="table", cube_extent=0.15, cache_filename=cache))
     assert set(m.sdf_timers.ticks) == {"cache_read", "sdf_build",
                                        "cache_write"}
     assert all(v >= 0.0 for v in m.sdf_timers.ticks.values())
+    assert dict(m.sdf_timers.ticks) == {
+        s.name: s.seconds for s in m.sdf_timers.spans}
     assert {"voxelize", "flood", "edt"} <= _names(p)
     assert "ticks_sdf_build" in m.sdf_timers.report()
+    assert prof_mod.recorded() is rec
+    build = rec.named("sdf_build")
+    assert len(build) == 1 and build[0] in m.sdf_timers.spans
+    assert [s.name for s in rec.children(build[0])] == ["voxelize", "flood",
+                                                        "edt"]
     m2 = table_module(pt, dtype=torch.float64, device="cpu")
     m2.robots["wam"].enabled = False
     m2.computedistancefield(kinbody="table", cube_extent=0.15,
                             cache_filename=cache, require_cache=True)
     assert set(m2.sdf_timers.ticks) == {"cache_read"}
+    assert [s.name for s in m2.sdf_timers.spans] == ["cache_read"]
     np.testing.assert_array_equal(m2.sdfs[0].grid.data.numpy(),
                                   m.sdfs[0].grid.data.numpy())
 
@@ -221,3 +242,255 @@ def test_capture_trace_writes_a_chrome_trace(tmp_path):
     assert files and all(f.endswith(".json") for f in files)
     text = open(os.path.join(d, files[0])).read()
     assert '"smoothcost"' in text
+
+
+# -- the recorder: spans, counters, node maps -------------------------------
+
+def _request(m, n_iter=3):
+    h = m.create(robot="wam", adofgoal=GOAL, n_points=8)
+    m.iterate(run=h, n_iter=n_iter)
+    m.gettraj(run=h, no_collision_exception=True, no_collision_details=True)
+    m.destroy(run=h)
+
+
+def test_recording_off_leaves_no_span_or_counter(mod):
+    """With nothing recording, phase is one shared null context, and a
+    whole request (spans, host syncs, the engine cache) leaves the newest
+    recording as it was."""
+    with prof_mod.recording():
+        pass
+    rec = prof_mod.recorded()
+    assert not prof_mod.recording_now()
+    assert phase("fk") is phase("module.create")
+    assert phase("fk").__enter__() is None
+    _request(mod)
+    prof_mod.count("graph.capture")
+    prof_mod.host_sync(3)
+    assert prof_mod.recorded() is rec
+    assert rec.spans == [] and not rec.counters and rec.node_maps == {}
+
+
+def test_spans_nest_and_a_request_shares_an_id(mod):
+    """A request's commands are top-level spans with their children
+    nested (the step's phases inside module.iterate), each span's parent
+    opened before it and enclosing it, one id over the whole request and
+    another for the next; a batch's build and solve share an id."""
+    from or_cdchomp_tpu_torch.parallel.batch import (BatchSolver,
+                                                     problem_batch_from_grid)
+
+    with prof_mod.recording() as rec:
+        _request(mod)
+        _request(mod)
+    top = rec.top_level()
+    assert [s.name for s in top] == ["module.create", "module.iterate",
+                                     "module.gettraj", "module.destroy"] * 2
+    assert len({s.rid for s in top[:4]}) == 1
+    assert len({s.rid for s in top[4:]}) == 1 and top[0].rid != top[4].rid
+    for i, s in enumerate(rec.spans):
+        assert s.end is not None and s.end >= s.start
+        if s.parent >= 0:
+            p = rec.spans[s.parent]
+            assert s.parent < i and p.start <= s.start and s.end <= p.end
+            assert s.rid == p.rid
+    names = [s.name for s in rec.children(top[1])]
+    assert names.count("module.fetch") == 1
+    assert names[-1] == "module.final_costs"
+    assert [s.name for s in rec.children(top[2])] == ["gettraj.retime",
+                                                      "gettraj.check"]
+    fk = rec.named("fk")
+    assert fk and all(rec.spans[s.parent].name == "callback_pre" for s in fk)
+    steps = rec.named("step.costs")
+    assert len(steps) == 6
+    assert {rec.spans[s.parent].name for s in steps} == {"module.iterate"}
+
+    run = mod.runs[mod.create(robot="wam", adofgoal=GOAL, n_points=8)]
+    starts = np.tile(run.problem.traj[0].numpy(), (3, 1))
+    goals = np.tile(run.problem.traj[-1].numpy(), (3, 1))
+    with prof_mod.recording() as rec:
+        for _ in range(2):
+            probs = problem_batch_from_grid(run.problem, starts, goals,
+                                            run.engine)
+            BatchSolver(run.engine).solve(probs, 2, tol=None)
+    top = rec.top_level()
+    assert [s.name for s in top] == ["batch.build", "batch.solve"] * 2
+    assert top[0].rid == top[1].rid != top[2].rid == top[3].rid
+    assert [s.name for s in rec.children(top[0])] == [
+        "build.rows", "build.expand", "build.copy"]
+    kids = [s.name for s in rec.children(top[1])]
+    assert kids[0] == "solve.scatter" and kids[-2:] == ["solve.final_costs",
+                                                        "solve.gather"]
+    assert kids.count("step.costs") == 2
+
+
+def test_host_sync_counts_the_chunk_fetches(mod):
+    """iterate brings its costs to the host once per ITER_CHUNK steps (a
+    host sync each) and its final costs once: 40 steps at a chunk of 16
+    are three fetches and one final read."""
+    h = mod.create(robot="wam", adofgoal=GOAL, n_points=8)
+    try:
+        assert mod.runs[h].engine.ITER_CHUNK == 16
+        with prof_mod.recording() as rec:
+            mod.iterate(run=h, n_iter=40)
+    finally:
+        mod.destroy(run=h)
+    assert len(rec.named("module.fetch")) == 3
+    assert rec.counters["host_sync"] == 4
+    assert len(rec.named("step.costs")) == 40
+
+
+def test_engine_cache_counts_hits_and_misses():
+    """A create that builds its engine counts a miss inside a
+    module.engine_build span; a second create with the same key counts a
+    hit and builds nothing."""
+    m = table_module(pt, dtype=torch.float64, device="cpu")
+    m.robots["wam"].enabled = False
+    m.computedistancefield(kinbody="table", cube_extent=0.15)
+    m.robots["wam"].enabled = True
+    with prof_mod.recording() as rec:
+        m.create(robot="wam", adofgoal=GOAL, n_points=8)
+        m.create(robot="wam", adofgoal=GOAL, n_points=8)
+    assert rec.counters["engine_cache.miss"] == 1
+    assert rec.counters["engine_cache.hit"] == 1
+    builds = rec.named("module.engine_build")
+    assert len(builds) == 1
+    assert rec.spans[builds[0].parent] is rec.top_level()[0]
+    m.create(robot="wam", adofgoal=GOAL, n_points=9)
+    assert prof_mod.recorded() is rec and \
+        rec.counters["engine_cache.miss"] == 1
+
+
+def test_profiles_add_to_the_recording_in_progress():
+    """Each profile adds its spans and counters to the recording in
+    progress, a recording context inside a profile too; a recording
+    context entered where nothing records starts a new one."""
+    with prof_mod.recording() as first:
+        pass
+    with profile(activities=[ProfilerActivity.CPU]):
+        with phase("fk"):
+            pass
+    with profile(activities=[ProfilerActivity.CPU]):
+        with prof_mod.recording() as inner:
+            with phase("jtmap"):
+                prof_mod.count("graph.evict")
+    assert inner is first and prof_mod.recorded() is first
+    assert [s.name for s in first.spans] == ["fk", "jtmap"]
+    assert first.counters == {"graph.evict": 1}
+    assert first.by_request[first.spans[1].rid] == {"graph.evict": 1}
+    with prof_mod.recording() as second:
+        prof_mod.count("graph.evict")
+    assert second is not first and prof_mod.recorded() is second
+    assert second.spans == [] and second.by_request[None] == {
+        "graph.evict": 1}
+
+
+def test_a_tic_after_a_profile_keeps_its_recording():
+    """PhaseTimers times its spans with nothing recording and leaves the
+    recording in progress as it was; inside a profile its span is
+    recorded."""
+    with prof_mod.recording() as rec:
+        pass
+    with profile(activities=[ProfilerActivity.CPU]):
+        with phase("fk"):
+            pass
+    timers = PhaseTimers()
+    with timers.tic("sdf_build"):
+        with phase("voxelize"):
+            pass
+    assert prof_mod.recorded() is rec
+    assert [s.name for s in rec.spans] == ["fk"]
+    assert timers.ticks["sdf_build"] == timers.spans[0].seconds >= 0.0
+    with profile(activities=[ProfilerActivity.CPU]):
+        with timers.tic("cache_read"):
+            pass
+    assert [s.name for s in rec.spans] == ["fk", "cache_read"]
+    assert rec.spans[1] is timers.spans[1]
+
+
+def test_node_map_charges_nodes_to_the_innermost_phase():
+    """The capture's node count at each phase edge splits its nodes: a
+    node belongs to the innermost step phase open when it was captured,
+    "other" outside them; spans of other names do not split; only the
+    kinds a profiler reports are kept."""
+    nodes = []
+
+    def count(kinds):
+        return "".join(nodes) if kinds else len(nodes)
+
+    with prof_mod.node_map(count, device=2) as b:
+        nodes += "k"
+        with phase("callbacks"):
+            nodes += "kk"
+            with phase("fk"):
+                nodes += "k-k"
+            with phase("step.replay"):
+                nodes += "s"
+        nodes += "c"
+        with phase("limits"):
+            pass
+        with phase("smoothcost"):
+            nodes += "kc"
+        m = b.finish()
+    assert m.device == 2 and m.kinds == "kkkkkscKc".replace("K", "k")
+    assert m.phases == (("other", 1), ("callbacks", 2), ("fk", 2),
+                        ("callbacks", 1), ("other", 1), ("smoothcost", 2))
+    assert m.nodes == 9 and len(m.per_node()) == 9
+    assert prof_mod.recorded().spans == [] or not prof_mod.recording_now()
+
+    def broken(kinds):
+        raise RuntimeError("not capturing")
+
+    with prof_mod.node_map(broken) as b:
+        with phase("fk"):
+            pass
+        assert b.finish() is None
+
+
+def test_replayed_kernels_split_by_the_node_map():
+    """A replay's kernels share the id of its cudaGraphLaunch: they take
+    the phases of the node map with as many nodes, in the order they ran;
+    a replay that lost one reads None, and so does the report."""
+    m = prof_mod.NodeMap(1, 0, (("fk", 2), ("obstacle", 1), ("other", 1)),
+                         "kkkc")
+    events = [_evt(7, "cudaGraphLaunch", 10, 12),
+              _evt(8, "cudaGraphLaunch", 20, 22),
+              _evt(9, "cudaLaunchKernel", 30, 31),
+              _evt(10, "fk", 29, 40)]
+    for i, name in enumerate(["a", "b", "obstacle_kernel", "Memcpy DtoD"]):
+        ev = _evt(7, name, cuda=True, us=1.0 + i)
+        ev.time_range.start = 100 + i
+        events.append(ev)
+    events.append(_evt(9, "eager_kernel", cuda=True, us=0.5))
+    fake = types.SimpleNamespace(events=lambda: events)
+    got = prof_mod.phase_kernels(fake, maps=[m])
+    assert sorted(got) == sorted([
+        ("a", "fk", 1.0), ("b", "fk", 2.0), ("obstacle_kernel", "obstacle",
+                                             3.0),
+        ("Memcpy DtoD", "other", 4.0), ("eager_kernel", "fk", 0.5)])
+    assert prof_mod.phase_device_report(fake, maps=[m]) == pytest.approx(
+        {"fk": 0.0035, "obstacle": 0.003, "other": 0.004}, rel=1e-12)
+    lost = _evt(8, "a", cuda=True, us=1.0)
+    events.append(lost)
+    got = prof_mod.phase_kernels(fake, maps=[m])
+    assert ("a", None, 1.0) in got
+    assert prof_mod.phase_device_report(fake, maps=[m]) is None
+    assert prof_mod.replay_phases(4, [m, m._replace(key=2)]) == \
+        ["fk", "fk", "obstacle", "other"]
+    assert prof_mod.replay_phases(4, [m, m._replace(
+        phases=(("fk", 4),))]) is None
+
+
+def test_eager_steps_record_draw_and_costs_spans(mod):
+    """Off the card every step is eager: its phases nest under nothing
+    but its caller; step.draw appears with HMC only, step.costs always."""
+    run = mod.runs[mod.create(robot="wam", adofgoal=GOAL, n_points=8,
+                              use_hmc=True, seed=4)]
+    probs = as_batch(run.problem)
+    with prof_mod.recording() as rec:
+        run.engine.iterate_batched(probs, 3)
+    assert len(rec.named("step.draw")) == 3
+    assert len(rec.named("step.costs")) == 3
+    assert not rec.named("step.replay")
+    run2 = mod.runs[mod.create(robot="wam", adofgoal=GOAL, n_points=8)]
+    with prof_mod.recording() as rec:
+        run2.engine.iterate_batched(as_batch(run2.problem), 2)
+    assert not rec.named("step.draw") and len(rec.named("step.costs")) == 2
