@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
 Builds the CUDA kernels from or_cdchomp_tpu_torch/csrc (K1 obstacle, K2
-self-collision, the seeded HMC draw, the joint-limit repair), holds each
+self-collision, the seeded HMC draw, the joint-limit repair, the FK of the
+step), holds each
 against its plain PyTorch version at the shapes of the paths below, and
 drives all five of BASELINE's configurations through CHOMPModule and
 BatchSolver, each with the kernel launch counts set to 0 just before it
@@ -32,7 +33,11 @@ On a card every iterate replays one CUDA graph of the step
 batch each hold a replayed iterate(100) against 100 eager step_batched
 calls (state and costs bit-equal), count the host syncs of a replayed
 iterate(100) (none), and time both in turns with their device idle
-shares (graph_check).  The limits kernel is held against its plain
+shares (graph_check).  The FK kernel is held against the plain fk_soa
+and timed with its inputs cold, beside its byte bound, at configs 1 and
+5's shapes (101 points, B = 256 and 10,240) and at the float64
+trajectory check's of a B = 1 gettraj.  The limits kernel is held
+against its plain
 version at config 1's shape with rows pushed out of their limits, in
 float32 and float64, and at m = 999 (the semiseparable metric).
 
@@ -130,6 +135,7 @@ Any failed phase exits non-zero.
     python3 chip_smoke.py --split 4   # the seeded split alone, 4 ranks
                                       # (NCCL, one per card, on 4 cards)
     python3 chip_smoke.py --cards 4   # one process over 4 cards
+    python3 chip_smoke.py --fk        # the build and the FK kernel alone
 
 ``--cards N`` (a machine of N >= 2 cards): every kernel launched on the
 last card with cuda:0 current against its plain version; then
@@ -775,15 +781,19 @@ def kernels_per_call(torch, fn, reps=20):
 def host_syncs(torch, fn):
     """Every host synchronisation that fn makes, from torch.cuda's sync
     debug mode: the innermost frames (file:line function) of the Python
-    stack at each, innermost first."""
+    stack at each, innermost first.  The port's sync counters
+    (utils/profiling.py ``to_host`` and the like) only pass the call on,
+    so the site is their caller's frame."""
     import traceback
     import warnings
 
     found = []
+    counters = str(Path("or_cdchomp_tpu_torch", "utils", "profiling.py"))
 
     def hook(message, category, filename, lineno, file=None, line=None):
         frames = [f for f in traceback.extract_stack()[:-1]
-                  if Path(f.filename).name != "warnings.py"]
+                  if Path(f.filename).name != "warnings.py"
+                  and not f.filename.endswith(counters)]
         # switching the mode itself is reported as one; it is not fn's
         if ("synchroniz" in str(message)
                 and frames[-1].name != "set_sync_debug_mode"):
@@ -1243,27 +1253,135 @@ def limits_entry(torch, name, T, lo, hi, metric, card, max_ill):
     return entry
 
 
+def fk_args(traj, base=None):
+    """fk_soa's inputs as the port builds them: qT a permuted view of traj
+    (B, n_points, n); the base the components of ``base`` ((B, 7) per
+    problem, (7,) one pose for all) or, without it, each point's first 7
+    columns (the floating base)."""
+    Tt = traj.permute(1, 2, 0)
+    if base is None:
+        return (Tt[:, 7:], tuple(Tt[:, i] for i in range(3)),
+                tuple(Tt[:, i] for i in range(3, 7)))
+    comps = base.unbind(-1)
+    return Tt, comps[:3], comps[3:]
+
+
+def fk_check(torch, name, fk, traj, base):
+    """The FK kernel on fk_args(traj, base) against its plain version:
+    every output within KERNEL_RTOL (F64_KERNEL_RTOL in float64) of the
+    plain version's; one launch, counted by the caller.  Returns the
+    largest error."""
+    args = fk_args(traj, base)
+    got = fk.fk_soa(*args)
+    want = fk.fk_soa_plain(*args)
+    rtol = F64_KERNEL_RTOL if fk.dtype == torch.float64 else KERNEL_RTOL
+    return max(compare(torch, f"{name} {f}", torch.stack(g), torch.stack(w),
+                       rtol=rtol)
+               for f, g, w in zip(("x", "anch_pos", "anch_q", "axis_w",
+                                   "red_pos", "red_q"), got, want))
+
+
+def fk_entry(torch, name, fk, traj, base, card):
+    """fk_check, checked to launch the kernel once; both versions timed
+    with traj and base cold (each call a copy from cold_ring); its entry,
+    whose launches the caller sets from a counted run of the kernel's
+    path."""
+    from or_cdchomp_tpu_torch.ops import fk as fk_kernel
+
+    f64 = fk.dtype == torch.float64
+    rtol = F64_KERNEL_RTOL if f64 else KERNEL_RTOL
+    fk_kernel.FK_LAUNCHES = 0
+    err = fk_check(torch, name, fk, traj, base)
+    check(fk_kernel.FK_LAUNCHES == 1,
+          f"{name}: {fk_kernel.FK_LAUNCHES} launches for one call")
+    args = fk_args(traj, base)
+    cold = cold_ring((traj,) if base is None else (traj, base))
+    t = timings(torch, lambda: fk.fk_soa(*fk_args(*cold())),
+                lambda: fk.fk_soa_plain(*fk_args(*cold())), 5)
+    del cold
+    P, D, B = args[0].shape
+    S = len(fk.sphere_subset)
+    n_base = P * B if base is None else base.numel() // 7
+    # no PyTorch call computes the chain: the plain version is ~650
+    # elementwise calls
+    entry = kernel_entry(
+        name, "or_cdchomp_tpu_torch/csrc/fk.cu",
+        "none (or_cdchomp_tpu/models/robot.py fk_soa is plain jnp)", err, t,
+        fk_kernel.traffic_bytes(P, B, D, S, n_base, traj.element_size()),
+        fk_kernel.flops(fk.fk_table, D, S, P, B),
+        FP64_FLOPS_PER_S if f64 else FP32_FLOPS_PER_S)
+    print(f"{name} ({fk.dtype}, n_points={P}, B={B}, D={D}, S={S}, "
+          f"{'floating' if base is None else 'fixed'} base): max_abs_err "
+          f"{err} (rtol {rtol}); inputs cold, per call {t[0]:.4f} ms vs "
+          f"plain {t[1]:.4f} ms; device {entry['ms']} ms vs plain "
+          f"{entry['plain_ms']} ms, bound {entry['bound_ms']} ms "
+          f"({entry['bound_by']}, {entry['bytes']} B), share "
+          f"{entry['bound_share']:.4f} on {card}")
+    return entry
+
+
+def fk_phase(torch, pt, card, mod, run, probs):
+    """The FK kernel (csrc/fk.cu) at the main path's shapes: config 1's
+    B = 256 and config 5's B = 10,240 (101 points, fixed base, float32),
+    and the float64 trajectory check of a B = 1 gettraj (one pose for the
+    base; its samples from the check); returns their entries.  The
+    floating base (config 4's shape) is config4_phase's, and fk_main's."""
+    import numpy as np
+
+    from or_cdchomp_tpu_torch.parallel.batch import problem_batch_from_grid
+
+    engine = run.engine
+    entries = [fk_entry(torch, "fk_soa", engine.fk, probs.traj,
+                        probs.robot_pose, card)]
+    starts5, goals5 = bench_endpoints(BATCH_POD)
+    probs5 = problem_batch_from_grid(run.problem, starts5, goals5, engine)
+    entries.append(fk_entry(torch, "fk_soa_b10240", engine.fk, probs5.traj,
+                            probs5.robot_pose, card))
+    del probs5
+    h = next(h for h, r in mod.runs.items() if r is run)
+    mod.gettraj(run=h, no_collision_exception=True)
+    T_s = mod.last_check["samples"]
+    model = run.fk.model
+    rng = np.random.default_rng(19)
+    q = rng.uniform(np.maximum(model.dof_limits_lower, -3.0),
+                    np.minimum(model.dof_limits_upper, 3.0),
+                    size=(1, T_s, model.n_dof))
+    f64 = dict(dtype=torch.float64, device=run.fk.device)
+    entries.append(fk_entry(
+        torch, "fk_soa_check_f64", run.fk, torch.as_tensor(q, **f64),
+        torch.as_tensor(run.robot.pose, **f64), card))
+    return entries
+
+
 def counts_zero(sdf_lookup, selfcol, draw=None):
-    from or_cdchomp_tpu_torch.ops import limits
+    from or_cdchomp_tpu_torch.ops import fk, limits
 
     sdf_lookup.LAUNCHES = 0
     selfcol.LAUNCHES = 0
+    fk.FK_LAUNCHES = 0
     limits.LAUNCHES = 0
     if draw is not None:
         draw.LAUNCHES = 0
 
 
 def counts(sdf_lookup, selfcol):
-    return {"obstacle": sdf_lookup.LAUNCHES, "selfcol": selfcol.LAUNCHES}
+    from or_cdchomp_tpu_torch.ops import fk
+
+    return {"obstacle": sdf_lookup.LAUNCHES, "selfcol": selfcol.LAUNCHES,
+            "fk_soa": fk.FK_LAUNCHES}
 
 
-def check_launches(got, want, label, steps=None):
-    """K1 and K2 launched ``want`` times each; with ``steps``, the limits
-    kernel once a step (counted since counts_zero)."""
+def check_launches(got, want, label, steps=None, fk=None):
+    """K1, K2 and the FK kernel launched ``want`` times each (a cost pass
+    launches each once), the FK kernel ``fk`` times where given (the FK
+    also runs without K1 and K2: constraint values, the trajectory
+    check); with ``steps``, the limits kernel once a step (counted since
+    counts_zero)."""
     from or_cdchomp_tpu_torch.ops import limits
 
     for k, v in got.items():
-        check(v == want, f"{label}: {k} launched {v} times, expected {want}")
+        w = fk if k == "fk_soa" and fk is not None else want
+        check(v == w, f"{label}: {k} launched {v} times, expected {w}")
     if steps is not None:
         check(limits.LAUNCHES == steps, f"{label}: the limits kernel "
               f"launched {limits.LAUNCHES} times, expected {steps}")
@@ -1326,10 +1444,11 @@ def time_projection(torch, constraints, eng, probs, fk_out, card):
 
 
 def config4_phase(torch, pt, card, dev):
-    """Config 4 on the card: the kernels on its inputs, the projection
-    solves, iterate(100) with the final cost report and its launches,
-    the constraint residual and the warm wall.  Returns (output
-    problems, starts, goals, [K1 entry, K2 entry])."""
+    """Config 4 on the card: the kernels on its inputs (the FK kernel
+    with each point's floating base), the projection solves, iterate(100)
+    with the final cost report and its launches, the constraint residual
+    and the warm wall.  Returns (output problems, starts, goals, [K1
+    entry, K2 entry, FK entry])."""
     from or_cdchomp_tpu_torch.chomp import constraints, cost_soa
     from or_cdchomp_tpu_torch.ops import sdf_lookup, selfcol
     from or_cdchomp_tpu_torch.parallel.batch import (BatchSolver,
@@ -1354,6 +1473,7 @@ def config4_phase(torch, pt, card, dev):
     fk_out, x, vel, acc = cost_soa.sphere_kinematics(spec, eng.fk, probs)
     m, S, B = x.shape[1:]
     check((m, S, B) == (spec.m, 16, BATCH), f"config 4 spheres {(m, S, B)}")
+    fk4 = fk_entry(torch, "fk_soa_config4", eng.fk, probs.traj, None, card)
     oargs = obstacle_args(eng, probs, x, vel, acc)
     k1_launch(torch, sdf_lookup, oargs, "config 4")
     err = check_obstacle(torch, sdf_lookup, oargs, "config 4 obstacle",
@@ -1417,6 +1537,7 @@ def config4_phase(torch, pt, card, dev):
     check_launches(launches, N_ITER + 1, "config 4",
                    steps=N_ITER)
     k1["launches"], k2["launches"] = launches["obstacle"], launches["selfcol"]
+    fk4["launches"] = launches["fk_soa"]
     check(tuple(costs.shape) == (N_ITER, BATCH, 3)
           and tuple(out.traj.shape) == (BATCH, CONFIG4_POINTS, 14),
           f"config 4: costs {tuple(costs.shape)}, traj {tuple(out.traj.shape)}")
@@ -1439,7 +1560,7 @@ def config4_phase(torch, pt, card, dev):
     print(f"config 4 iterate({N_ITER}) at B={BATCH}: median warm wall {wall} "
           f"s of {walls}, {BATCH / wall} solves/s on {card}")
     graph_check(torch, "config 4", eng, probs, card)
-    return out, starts, goals, [k1, k2]
+    return out, starts, goals, [k1, k2, fk4]
 
 
 def sync_sites(syncs):
@@ -1469,7 +1590,9 @@ def module_phase(torch, pt, card, dev, out1, out5):
     iterate(100) with its host syncs and launches, gettraj's wall, a
     colliding straight line, gettraj_batch on config 1's and config 5's
     solved batches against CPU float64 checks, the field commands, and
-    K1 through a forced split.  Returns K1's split entry."""
+    K1 through a forced split.  Returns K1's split entry and the FK
+    kernel's launches over the counted gettraj calls (the float64
+    check's)."""
     import numpy as np
 
     from or_cdchomp_tpu_torch.chomp import solver as solver_mod
@@ -1526,14 +1649,19 @@ def module_phase(torch, pt, card, dev, out1, out5):
     check(all(" iterate" in st[0] for st in syncs),
           "B=1 iterate: a host sync outside the cost reads")
     t_get = []
+    counts_zero(sdf_lookup, selfcol)
     for _ in range(LATENCY_REPS + 1):
         t0 = time.perf_counter()
         mod.gettraj(run=h)
         t_get.append(time.perf_counter() - t0)
+    launches = counts(sdf_lookup, selfcol)
     print(f"B=1 gettraj with its collision check "
           f"({mod.last_check['samples']} samples of "
           f"{mod.last_check['spheres']} spheres): warm walls {t_get[1:]} s "
-          f"on {card}")
+          f"on {card}, launches {launches} over {LATENCY_REPS + 1} calls "
+          f"(the float64 check's FK once each)")
+    check_launches(launches, 0, "B=1 gettraj", fk=LATENCY_REPS + 1)
+    f64_check_launches = launches["fk_soa"]
     mod.destroy(run=h)
 
     # -- the same problem as row 0 of a B = 256 batch -------------------------
@@ -1661,7 +1789,7 @@ def module_phase(torch, pt, card, dev, out1, out5):
         k1_bytes(sdf_lookup, oargs),
         sdf_lookup.obstacle_flops(m, S, BATCH, F))
     entry["launches"] = split_launches
-    return entry
+    return entry, f64_check_launches
 
 
 def k2_launch(torch, selfcol, sargs, label, card):
@@ -1860,13 +1988,15 @@ def front_door_phase(torch, pt, card, dev):
     print(f"front door strings (create start_tsr, n_points {N_POINTS}, m "
           f"{spec.m}; iterate {N_ITER}; gettraj; destroy): {wall:.3f} s "
           f"(first call) on {card}, launches {launches} (expected {N_ITER} "
-          f"+ 1 each); final cost {cost} (CPU float64 {cost64}); point 0's "
+          f"+ 1 each, the FK {N_ITER} + 4); final cost {cost} (CPU float64 {cost64}); point 0's "
           f"residual {before} → {after} (CPU float64 {before64} → "
           f"{after64}); max |Δtraj| against the CPU float64 strings {d_str} "
           f"(bar {TRAJ_BAR}, {wall64:.2f} s on the CPU)")
     check(spec.start_tsr and spec.m == N_POINTS - 1, f"front door {spec}")
+    # the FK also runs for the residuals before and after and for
+    # gettraj's float64 check
     check_launches(launches, N_ITER + 1, "front door strings",
-                   steps=N_ITER)
+                   steps=N_ITER, fk=N_ITER + 4)
     check(len(out["positions"]) == N_POINTS
           and np.isfinite(np.array(out["positions"])).all(),
           "front door gettraj")
@@ -3390,8 +3520,9 @@ def libcd_phase(torch, pt, card, dev, engine, probs, eng2, probs2):
                       "config 2 sphere centres", card, timed=False)
     entries.append(multigrid_on_card(torch, grid, sdf_lookup, eng2.fields,
                                      p2_in, "sdf_cell_lookup_f3", card))
-    check(counts(sdf_lookup, selfcol) == {"obstacle": 0, "selfcol": 0},
-          "multigrid_interp_grad launched K1's obstacle kernel or K2")
+    check(counts(sdf_lookup, selfcol) == {"obstacle": 0, "selfcol": 0,
+                                          "fk_soa": 0},
+          "multigrid_interp_grad launched K1's obstacle kernel, K2 or the FK")
     wall = time.perf_counter() - t0
     print(f"libcd math phase: {wall:.2f} s on {card} (functions "
           f"{t_math:.2f} s, FK {t_fk:.2f} s, lookups "
@@ -3467,8 +3598,11 @@ def float64_phase(torch, pt, card, dev):
     (traj_c, cost_c, out_c, costs_c, grid_c, walls_c, _, _) = res[1]
     steps = launches["obstacle"]
     print(f"float64 on the card: launches {launches} (runchomp's and the "
-          f"batch's {2 * N_ITER} steps and checks, one lookup)")
+          f"batch's {2 * N_ITER} steps and checks, one lookup; the FK "
+          f"besides once for runchomp's trajectory check and once for the "
+          f"lookup's queries)")
     check(steps >= 2 * N_ITER and launches["selfcol"] == steps
+          and launches["fk_soa"] == steps + 2
           and launches["lookup"] == 1 and launches["limits"] == 2 * N_ITER,
           f"float64 on the card: launches {launches}")
     d_run = float(np.abs(traj.positions - traj_c.positions).max())
@@ -3652,8 +3786,8 @@ def replica_solve(torch, sdf_lookup, selfcol, make_solver, fn, steps,
     devs = [str(d) for d in solver.devices]
     print(f"{label}: {len(devs)} replicas on {devs}, launches {launches}, "
           f"{wall:.3f} s (first call, replicas built)")
-    check(launches["obstacle"] == launches["selfcol"] == steps * len(devs),
-          f"{label}: launches {launches}")
+    check(launches["obstacle"] == launches["selfcol"] == launches["fk_soa"]
+          == steps * len(devs), f"{label}: launches {launches}")
     check_launches({}, steps, label, steps=limit_steps * len(devs))
 
     parts = [i for i, _, _ in solver._placement(int(probs.traj.shape[0]))]
@@ -3788,12 +3922,14 @@ def guard_phase(torch, pt, card, last):
     path at its B = 256 batch, K2's tiled path and K1 in float64 on the
     same inputs, the layout kernel on its pair table, the raw lookup at
     random cells, the draw on seeds arange(256), the limits kernel in
-    float32 and float64 with rows pushed out; then two steps of the
+    float32 and float64 with rows pushed out, the FK kernel in float32
+    and float64 at the batch's trajectories; then two steps of the
     engine there (its first step eager, the second a graph replay)."""
     import numpy as np
 
     from or_cdchomp_tpu_torch.chomp import cost_soa
-    from or_cdchomp_tpu_torch.ops import draw, limits, sdf_lookup, selfcol
+    from or_cdchomp_tpu_torch.models.robot import CompiledFK
+    from or_cdchomp_tpu_torch.ops import draw, fk, limits, sdf_lookup, selfcol
     from or_cdchomp_tpu_torch.parallel.batch import problem_batch_from_grid
 
     torch.cuda.set_device(0)
@@ -3807,7 +3943,7 @@ def guard_phase(torch, pt, card, last):
           f"{torch.cuda.current_device()}")
     before = (sdf_lookup.LAUNCHES, sdf_lookup.LOOKUP_LAUNCHES,
               selfcol.LAUNCHES, selfcol.LAYOUT_LAUNCHES, draw.LAUNCHES,
-              limits.LAUNCHES)
+              limits.LAUNCHES, fk.FK_LAUNCHES)
     oargs = obstacle_args(eng, probs, x, vel, acc)
     check_obstacle(torch, sdf_lookup, oargs, "guard obstacle")
     xo = probs.inactive_pos.permute(2, 1, 0).contiguous()
@@ -3860,21 +3996,27 @@ def guard_phase(torch, pt, card, last):
         a = (T.to(dt), lo.to(dt), hi.to(dt), eng.Ainv.to(dt))
         compare(torch, f"guard limit_repair {dt}", limits.limit_repair(*a),
                 limits.limit_repair_ref(*a), rtol=rtol)
+    fk64 = CompiledFK(eng.fk.model, dtype=torch.float64,
+                      sphere_subset=eng.fk.sphere_subset, device=last)
+    for f, name in ((eng.fk, "guard fk_soa"), (fk64, "guard fk_soa f64")):
+        fk_check(torch, name, f, probs.traj.to(f.dtype),
+                 probs.robot_pose.to(f.dtype))
     out, costs = eng.iterate_batched(probs, 2)
     torch.cuda.synchronize(last)
     after = (sdf_lookup.LAUNCHES, sdf_lookup.LOOKUP_LAUNCHES,
              selfcol.LAUNCHES, selfcol.LAYOUT_LAUNCHES, draw.LAUNCHES,
-             limits.LAUNCHES)
+             limits.LAUNCHES, fk.FK_LAUNCHES)
     made = [a - b for a, b in zip(after, before)]
     print(f"guard: on {last} with cuda:{torch.cuda.current_device()} "
-          f"current, launches (K1, raw lookup, K2, layout, draw, limits) "
-          f"{made}: "
+          f"current, launches (K1, raw lookup, K2, layout, draw, limits, "
+          f"FK) {made}: "
           f"K1 both paths and float64 bit-equal, K2 staged within "
           f"{KERNEL_RTOL} and tiled (float64) within {F64_KERNEL_RTOL}, "
           f"layout, lookup and draw words bit-equal to their plain "
-          f"versions, limits within {KERNEL_RTOL} / {F64_KERNEL_RTOL}; two "
+          f"versions, limits and FK within {KERNEL_RTOL} / "
+          f"{F64_KERNEL_RTOL}; two "
           f"steps there, costs finite {bool(torch.isfinite(costs).all())}")
-    check(made == [5, 1, 4, 2, 1, 4], f"guard: launches {made}")
+    check(made == [5, 1, 4, 2, 1, 4, 4], f"guard: launches {made}")
     check(out.traj.device == last and bool(torch.isfinite(costs).all())
           and torch.cuda.current_device() == 0, "guard: the steps")
 
@@ -4020,9 +4162,7 @@ def cards_main(ncards):
     import or_cdchomp_tpu_torch as pt
     from or_cdchomp_tpu_torch.ops import kernels
 
-    t0 = time.perf_counter()
-    kernels.library()
-    print(f"build: {time.perf_counter() - t0:.2f} s")
+    build_kernels(kernels)
     guard_phase(torch, pt, card, torch.device("cuda", ncards - 1))
     cards_phase(torch, pt, card, ncards)
     res, wall3 = split_solve(torch, pt, card, torch.device("cuda", 0), ncards)
@@ -4031,6 +4171,52 @@ def cards_main(ncards):
           f"{N_ITER}) + all_hosts_best over {ncards} processes, slowest "
           f"rank {slowest} s (first call), {BATCH / slowest} solves/s; one "
           f"process on one card {wall3} s (first call) on {card}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def build_kernels(kernels):
+    """Build the kernel library, printing its time and ptxas's report."""
+    t0 = time.perf_counter()
+    kernels.library()
+    print(f"build: {time.perf_counter() - t0:.2f} s")
+    for line in kernels.BUILD_LOG.splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            print(f"  ptxas: {line.strip()}")
+
+
+def fk_main():
+    """``chip_smoke.py --fk``: the build (with ptxas's report) and the FK
+    kernel's phase alone (fk_phase), with config 4's floating base."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(card)
+    import or_cdchomp_tpu_torch as pt
+    from or_cdchomp_tpu_torch.ops import kernels
+    from or_cdchomp_tpu_torch.parallel.batch import problem_batch_from_grid
+
+    build_kernels(kernels)
+    mod, run = bench_module(pt, torch.float32, torch.device("cuda"))
+    starts, goals = bench_endpoints(BATCH)
+    probs = problem_batch_from_grid(run.problem, starts, goals, run.engine)
+    entries = fk_phase(torch, pt, card, mod, run, probs)
+    CACHE_DIR.mkdir(parents=True, exist_ok=True)
+    run4 = config4_run(pt, torch.float32, torch.device("cuda"))
+    starts4, goals4 = run_endpoints(run4, BATCH)
+    probs4 = problem_batch_from_grid(run4.problem, starts4, goals4,
+                                     run4.engine)
+    entries.append(fk_entry(torch, "fk_soa_config4", run4.engine.fk,
+                            probs4.traj, None, card))
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -4091,18 +4277,13 @@ def main():
                                                      problem_batch_from_grid)
 
     # -- build ----------------------------------------------------------------
-    t0 = time.perf_counter()
-    kernels.library()
-    print(f"build: {time.perf_counter() - t0:.2f} s")
-    for line in kernels.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print(f"  ptxas: {line.strip()}")
+    build_kernels(kernels)
 
     # -- the flagship setup on the card ---------------------------------------
     dev = torch.device("cuda")
     f32 = torch.float32
     t0 = time.perf_counter()
-    _, run = bench_module(pt, f32, dev)
+    mod1, run = bench_module(pt, f32, dev)
     engine = run.engine
     starts, goals = bench_endpoints(BATCH)
     probs = problem_batch_from_grid(run.problem, starts, goals, engine)
@@ -4202,6 +4383,9 @@ def main():
                                 pushed_out(torch, T1, lo1, hi1), lo1, hi1,
                                 engine.Ainv, card, max_ill=0))
 
+    # the FK kernel at configs 1 and 5's shapes and the float64 check's
+    entries_fk = fk_phase(torch, pt, card, mod1, run, probs)
+
     # -- the main path --------------------------------------------------------
     counts_zero(sdf_lookup, selfcol)
     solver = BatchSolver(engine)
@@ -4214,7 +4398,7 @@ def main():
           f"(first call, the step's capture included), launches {launches}")
     check_launches(counts(sdf_lookup, selfcol), N_ITER, "config 1",
                    steps=N_ITER)
-    for r in results:
+    for r in results + entries_fk[:1]:
         r["launches"] = launches[r["name"]]
     check(tuple(costs.shape) == (N_ITER, BATCH, 3), f"costs {costs.shape}")
     check(tuple(out.traj.shape) == (BATCH, N_POINTS, 7), "trajectory shape")
@@ -4387,6 +4571,7 @@ def main():
           f"({peak / 2**30:.3f} GiB), launches {launches5} on {card}")
     check_launches(launches5, N_ITER, "config 5",
                    steps=N_ITER)
+    entries_fk[1]["launches"] = launches5["fk_soa"]
     check(bool(torch.isfinite(costs5).all())
           and bool(torch.isfinite(out5.traj).all()),
           "config 5: non-finite costs or trajectories")
@@ -4428,7 +4613,9 @@ def main():
                                 probs2)
 
     # -- the module commands, and a grabbed tray (K2 at S = 126) --------------
-    entry_split = module_phase(torch, pt, card, dev, out, out5)
+    entry_split, f64_check_launches = module_phase(torch, pt, card, dev, out,
+                                                   out5)
+    entries_fk[2]["launches"] = f64_check_launches
     del out5
     entry_grab, entry_layout_grab = grab_phase(torch, pt, card, dev)
     entries_front = front_door_phase(torch, pt, card, dev)
@@ -4503,7 +4690,8 @@ def main():
 
     results += [entry_layout, entry_f3, *entries4, entry_b5, *entries_libcd,
                 entry_split, entry_grab, entry_layout_grab, *entries_front,
-                *entries_long, *entries_mesh, entry_draw, *entries_f64]
+                *entries_long, *entries_mesh, entry_draw, *entries_f64,
+                *entries_fk]
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -4522,6 +4710,8 @@ if __name__ == "__main__":
             sys.exit(cards_main(int(sys.argv[2])))
         if sys.argv[1:2] == ["--script"]:
             sys.exit(script_child(sys.argv[2]))
+        if sys.argv[1:2] == ["--fk"]:
+            sys.exit(fk_main())
         sys.exit(main())
     except PhaseFailed as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)

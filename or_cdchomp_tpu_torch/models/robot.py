@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from or_cdchomp_tpu_torch.ops import fk as fk_kernel
 from or_cdchomp_tpu_torch.ops import quat as qt
 from or_cdchomp_tpu_torch.ops import soa
 from or_cdchomp_tpu_torch.ops.spatial import SpatialMats
@@ -439,6 +440,10 @@ class CompiledFK:
             [self._jtype[self._dof_link[d]] for d in range(model.n_dof)])
         (self._chain, self.n_red, red_slot, off, self._sphere_red_slot_np,
          self._sphere_folded_np) = _reduced_chain(model, origin64, subset)
+        # the chain and the spheres as the FK kernel reads them
+        self._fk_table_np = fk_kernel.pack_table(
+            self._chain, self.n_red, self._sphere_red_slot_np,
+            self._sphere_folded_np)
         # per link: its reduced slot and constant offset, a link's pose
         # being red_pose[_red_slot[l]] ∘ _off64[l] (robot.py:421-426); the
         # TSR path reads the end-effector link's
@@ -476,6 +481,7 @@ class CompiledFK:
         self._sphere_folded = tuple(
             to_device(self._sphere_folded_np[:, c:c + 1], dtype=dt,
                       device=dev) for c in range(3))
+        self.fk_table = to_device(self._fk_table_np, dtype=dt, device=dev)
         if self._jt_suffix is not None:
             order, start = self._jt_suffix
             identity = np.array_equal(order, np.arange(len(order)))
@@ -656,7 +662,21 @@ class CompiledFK:
         x sphere world centres (·=S); anch_pos / anch_q joint frames
         pre-motion (·=D); axis_w world joint axes (·=D); red_pos / red_q
         reduced-chain link poses (·=n_red).
+
+        A CPU tensor runs the plain version :meth:`fk_soa_plain`; a CUDA
+        tensor launches the FK kernel once (ops/fk.py: its inputs of the
+        FK's dtype, any strides; each output's components the slices of
+        one contiguous (c, n_points, ·, B) tensor) or raises.
         """
+        if qT.device.type == "cpu":
+            return self.fk_soa_plain(qT, base_pos, base_q)
+        return FkSoA(*fk_kernel.fk_soa(
+            self.fk_table, self.n_dof, len(self.sphere_subset), qT,
+            base_pos, base_q))
+
+    def fk_soa_plain(self, qT, base_pos, base_q):
+        """Plain PyTorch version of :meth:`fk_soa` (same contract; any
+        device): the chain walked with ops/soa.py's operators."""
         n_points, _, B = qT.shape
         half = 0.5 * qT
         s = torch.sin(half)
