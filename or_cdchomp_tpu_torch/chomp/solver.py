@@ -169,6 +169,32 @@ def hmc_resample(probs, z, u):
     return AG, nxt, leap
 
 
+def _numpy_sum(x):
+    """``np.sum(x, axis=-1)``'s value, summed in numpy's pairwise order
+    (numpy's ``pairwise_sum``: blocks of at most 128 in eight running
+    sums, shorter runs in turn), so that it rounds alike on any device;
+    ``torch.sum`` orders its sums otherwise.  A sum of zeros may differ
+    from numpy's in its sign."""
+    n = x.shape[-1]
+    if n > 128:
+        half = n // 2 - (n // 2) % 8
+        return _numpy_sum(x[..., :half]) + _numpy_sum(x[..., half:])
+    if n < 8:
+        s = x[..., 0]
+        for i in range(1, n):
+            s = s + x[..., i]
+        return s
+    r = [x[..., j] for j in range(8)]
+    i = 8
+    while i < n - n % 8:
+        r = [r[j] + x[..., i + j] for j in range(8)]
+        i += 8
+    s = ((r[0] + r[1]) + (r[2] + r[3])) + ((r[4] + r[5]) + (r[6] + r[7]))
+    for k in range(i, n):
+        s = s + x[..., k]
+    return s
+
+
 class ChompEngine:
     """Static solver context on one device: spec + robot + fields + metric
     (``metric_mode`` "dense" or "sep", chosen by "auto" as in JAX) +
@@ -293,6 +319,7 @@ class ChompEngine:
         rep = copy.copy(self)
         del rep.__dict__["_replicas"]
         rep.__dict__.pop("_graphs", None)     # a replica captures its own
+        rep.__dict__.pop("_rows", None)       # and its own row constants
         rep.device = device
         rep.fields = type(self.fields)(**{
             f.name: mv(getattr(self.fields, f.name))
@@ -370,24 +397,30 @@ class ChompEngine:
         Ev = metric_mod.build_Evels(ops, init0, final0, n)
         return B, trC, Ev
 
+    def _affine_generators(self):
+        """(binit (m,), bfinal (m,), c_ii, c_if, c_ff) of the metric's
+        endpoint-affine terms, float64 numpy (metric.affine_generators,
+        or their closed form under sep)."""
+        if self.metric_mode == "sep":
+            m, dt = self.spec.m, self.spec.dt
+            s = 1.0 / (dt * dt * (m + 1))
+            binit, bfinal = np.zeros(m), np.zeros(m)
+            binit[0] = bfinal[m - 1] = -s
+            return binit, bfinal, 0.5 * s, 0.0, 0.5 * s
+        return metric_mod.affine_generators(self.metric_ops)
+
     def build_affine_batch(self, inits, finals, n):
         """Vectorised :meth:`build_affine` over (P, n) endpoints: the
         metric terms are linear in the endpoints
         (metric.affine_generators, or their closed form under sep).
         Under start_tsr the start point moves, so ``inits`` (which may be
         None) adds nothing.  Returns float64 numpy (B (P, m, n), trC (P,),
-        Evels (P, m, n))."""
+        Evels (P, m, n)).  :meth:`build_affine_rows` is its counterpart on
+        the engine's device."""
         m, dt = self.spec.m, self.spec.dt
         finals = np.asarray(finals, dtype=np.float64)
         P = finals.shape[0]
-        if self.metric_mode == "sep":
-            s = 1.0 / (dt * dt * (m + 1))
-            binit, bfinal = np.zeros(m), np.zeros(m)
-            binit[0] = bfinal[m - 1] = -s
-            c_ii, c_if, c_ff = 0.5 * s, 0.0, 0.5 * s
-        else:
-            binit, bfinal, c_ii, c_if, c_ff = metric_mod.affine_generators(
-                self.metric_ops)
+        binit, bfinal, c_ii, c_if, c_ff = self._affine_generators()
         B = bfinal[None, :, None] * finals[:, None, :]
         trC = c_ff * np.sum(finals * finals, axis=1)
         Ev = np.zeros((P, m, n))
@@ -399,6 +432,49 @@ class ChompEngine:
                    + c_if * np.sum(inits * finals, axis=1))
             Ev[:, 0] = -0.5 / dt * inits
         return B, trC, Ev
+
+    def _row_consts(self):
+        """The constants of a batch's rows, float64 on the engine's
+        device, made at its first batch and kept: the straight line's
+        weights ``1 - a`` and ``a`` (1, n_points, 1), ``a`` being
+        ``np.linspace(0, 1, n_points)`` (``torch.linspace`` differs from
+        it in the last bit), and :meth:`_affine_generators` with binit
+        and bfinal shaped (1, m, 1)."""
+        consts = self.__dict__.get("_rows")
+        if consts is None:
+            a = np.linspace(0.0, 1.0, self.spec.n_points)[None, :, None]
+            binit, bfinal, *cs = self._affine_generators()
+            consts = self._rows = tuple(
+                to_device(x, dtype=torch.float64, device=self.device)
+                for x in (1 - a, a, binit[None, :, None],
+                          bfinal[None, :, None])) + tuple(cs)
+        return consts
+
+    def straight_lines(self, starts, goals):
+        """The straight lines ``(1 - a)·starts + a·goals`` (P, n_points, n)
+        of float64 (P, n) endpoint tensors on the engine's device, as the
+        numpy expression rounds them."""
+        oma, a = self._row_consts()[:2]
+        return oma * starts[:, None, :] + a * goals[:, None, :]
+
+    def build_affine_rows(self, inits, finals):
+        """:meth:`build_affine_batch` of float64 (P, n) endpoint tensors on
+        the engine's device, there and in float64: (B (P, m, n), trC (P,),
+        Evels (P, m, n)), bit-equal to it (each operation in its order,
+        the sums over n in numpy's pairwise order).  ``inits`` adds
+        nothing under start_tsr."""
+        m, dt = self.spec.m, self.spec.dt
+        _, _, binit, bfinal, c_ii, c_if, c_ff = self._row_consts()
+        B = bfinal * finals[:, None, :]
+        Ev = finals.new_zeros((finals.shape[0], m, finals.shape[1]))
+        Ev[:, m - 1] = 0.5 / dt * finals
+        if self.spec.start_tsr:
+            return B, c_ff * _numpy_sum(finals * finals), Ev
+        B = B + binit * inits[:, None, :]
+        ff, ii, if_ = _numpy_sum(torch.stack(
+            (finals * finals, inits * inits, inits * finals)))
+        Ev[:, 0] = -0.5 / dt * inits
+        return B, c_ff * ff + c_ii * ii + c_if * if_, Ev
 
     # -- trajectory rows (JAX solver.py:213-223) ------------------------------
 

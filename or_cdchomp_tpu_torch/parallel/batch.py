@@ -52,6 +52,21 @@ def pad_problems(probs: ChompProblem, multiple: int):
         for k, v in probs.leaves().items()}), P_
 
 
+# a batch's own leaves, made for each row; the template's are not kept
+# (nor its own hmc_seed)
+_ROW_LEAVES = frozenset(("traj", "B", "trC", "Evels", "AG", "resample_iter",
+                         "leapfrog_first", "iteration", "hmc_seed"))
+
+
+def _endpoints(x, device):
+    """(P, n) endpoints (an array, a list or a tensor) as float64 on
+    ``device``: one copy where they are on the host (an array is copied
+    first, so a read-only one is never shared with a tensor)."""
+    if not isinstance(x, torch.Tensor):
+        x = np.array(x, dtype=np.float64)
+    return to_device(x, dtype=torch.float64, device=device)
+
+
 @command("batch.build")
 def problem_batch_from_grid(problem: ChompProblem, starts, goals, engine,
                             metric_ops=None, seeds=None):
@@ -73,38 +88,42 @@ def problem_batch_from_grid(problem: ChompProblem, starts, goals, engine,
     engine's draw source as one, as before; the JAX keys' numbers are
     not reproduced either way.
 
-    Spans (utils/profiling.py): ``batch.build``, whose id the batch's
-    ``batch.solve`` shares, and inside it ``build.rows`` (the lines and
-    affine terms in numpy), ``build.expand`` (the template's leaves
-    broadcast on the device) and ``build.copy`` (the rows' host→device
-    copies).
-    """
-    with phase("build.rows"):
-        starts = np.asarray(starts, dtype=np.float64)
-        goals = np.asarray(goals, dtype=np.float64)
-        P_, n = starts.shape
-        npts = engine.spec.n_points
-        a = np.linspace(0.0, 1.0, npts)[None, :, None]
-        trajs = (1 - a) * starts[:, None, :] + a * goals[:, None, :]
-        B, trC, Ev = engine.build_affine_batch(trajs[:, 0], trajs[:, -1], n)
+    Only the endpoints cross from the host: the rows (the lines, the
+    affine terms) are built in float64 on the engine's device
+    (:meth:`ChompEngine.straight_lines`, :meth:`ChompEngine.
+    build_affine_rows`), bit-equal to the numpy expressions
+    (:meth:`ChompEngine.build_affine_batch`), then cast to its dtype.
 
+    Spans (utils/profiling.py): ``batch.build``, whose id the batch's
+    ``batch.solve`` shares, and inside it ``build.rows`` (the endpoints'
+    copies, the lines and affine terms in float64 on the device),
+    ``build.expand`` (the template's leaves that stay, broadcast on the
+    device) and ``build.copy`` (the rows cast into the batch's leaves,
+    the seeds' copy).  Counter ``build.rows_on_card``: P for a batch
+    whose rows were built on a card.
+    """
     dev, dtype = engine.device, engine.dtype
+    with phase("build.rows"):
+        starts, goals = (_endpoints(x, dev) for x in (starts, goals))
+        P_, n = starts.shape
+        trajs = engine.straight_lines(starts, goals)
+        B, trC, Ev = engine.build_affine_rows(trajs[:, 0], trajs[:, -1])
+        if dev.type == "cuda":
+            profiling.count("build.rows_on_card", P_)
+
     with phase("build.expand"):
         tmpl = problem.to(dev, dtype)
         batched = {k: v.expand((P_,) + tuple(v.shape)).contiguous()
-                   for k, v in tmpl.leaves().items()}
-
-    def t(x):
-        return to_device(x, dtype=dtype, device=dev)
+                   for k, v in tmpl.leaves().items() if k not in _ROW_LEAVES}
 
     with phase("build.copy"):
-        batched.update(traj=t(trajs), B=t(B), trC=t(trC), Evels=t(Ev))
+        batched.update(traj=trajs.to(dtype), B=B.to(dtype),
+                       trC=trC.to(dtype), Evels=Ev.to(dtype))
     batched.update(
         AG=torch.zeros((P_, engine.spec.m, n), dtype=dtype, device=dev),
         resample_iter=torch.zeros(P_, dtype=torch.int32, device=dev),
         leapfrog_first=torch.ones(P_, dtype=torch.bool, device=dev),
         iteration=torch.zeros(P_, dtype=torch.int32, device=dev))
-    batched.pop("hmc_seed", None)      # a template's own seed is not kept
     if seeds is not None:
         seeds = np.asarray(seeds, dtype=np.int64).reshape(-1)
         if seeds.shape != (P_,):

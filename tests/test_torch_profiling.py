@@ -316,6 +316,9 @@ def test_spans_nest_and_a_request_shares_an_id(mod):
     assert top[0].rid == top[1].rid != top[2].rid == top[3].rid
     assert [s.name for s in rec.children(top[0])] == [
         "build.rows", "build.expand", "build.copy"]
+    # P rows a batch built on a card; none from a CPU engine
+    assert rec.counters["build.rows_on_card"] == (
+        2 * 3 if run.engine.device.type == "cuda" else 0)
     kids = [s.name for s in rec.children(top[1])]
     assert kids[0] == "solve.scatter" and kids[-2:] == ["solve.final_costs",
                                                         "solve.gather"]
