@@ -531,9 +531,9 @@ def xml_sphere_error(torch, pt, model, device, dtype, n=64):
     xs = []
     for mdl in (model, ref):
         fk = CompiledFK(mdl, **opts)
-        xs.append(torch.stack(fk.fk_soa(
+        xs.append(fk.fk_soa(
             qT, tuple(base[:, i] for i in range(3)),
-            tuple(base[:, i] for i in range(3, 7))).x))
+            tuple(base[:, i] for i in range(3, 7))).x)
     return float((xs[0].double() - xs[1].double()).abs().max())
 
 
@@ -1275,8 +1275,7 @@ def fk_check(torch, name, fk, traj, base):
     got = fk.fk_soa(*args)
     want = fk.fk_soa_plain(*args)
     rtol = F64_KERNEL_RTOL if fk.dtype == torch.float64 else KERNEL_RTOL
-    return max(compare(torch, f"{name} {f}", torch.stack(g), torch.stack(w),
-                       rtol=rtol)
+    return max(compare(torch, f"{name} {f}", g, w, rtol=rtol)
                for f, g, w in zip(("x", "anch_pos", "anch_q", "axis_w",
                                    "red_pos", "red_q"), got, want))
 
@@ -3492,9 +3491,8 @@ def libcd_phase(torch, pt, card, dev, engine, probs, eng2, probs2):
     w = torch.randn(tuple(x.shape), generator=gen, device=dev)
     g = fk.apply_sphere_jacT(anchors, x, w)               # (B, m, D)
     g_soa = fk.apply_sphere_jacT_soa(
-        tuple(c[lo:lo + m] for c in fk_out.anch_pos),
-        tuple(c[lo:lo + m] for c in fk_out.axis_w), tuple(x_mov),
-        tuple(w.permute(3, 1, 2, 0))).permute(2, 0, 1)
+        fk_out.anch_pos[:, lo:lo + m], fk_out.axis_w[:, lo:lo + m], x_mov,
+        w.permute(3, 1, 2, 0)).permute(2, 0, 1)
     scale = float(g_soa.abs().max())
     dg = float((g - g_soa).abs().max()) / scale
     dj = float((torch.einsum("bmsci,bmsc->bmi", jac, w) - g).abs().max()) \

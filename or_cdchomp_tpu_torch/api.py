@@ -33,7 +33,6 @@ from typing import Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from or_cdchomp_tpu_torch.chomp import metric as metric_mod
 from or_cdchomp_tpu_torch.chomp.constraints import TSRConstraintSet
 from or_cdchomp_tpu_torch.chomp.problem import (ChompProblem, ChompSpec,
                                                 as_batch, first)
@@ -319,7 +318,8 @@ class Run:
     """One CHOMP run (struct run, orcdchomp_mod.cpp:886-966): a single
     problem (unbatched leaves) on its engine, with its own HMC draw
     source ``draw``.  ``fk`` is the float64 FK over every sphere on the
-    module's device that the trajectory collision check runs."""
+    module's device that the trajectory collision check runs, kept in
+    the module's engine cache beside ``engine``."""
 
     engine: ChompEngine
     problem: ChompProblem
@@ -423,8 +423,9 @@ class CHOMPModule:
         self.sdfs: List[SdfEntry] = []
         self.runs: Dict[str, Run] = {}
         self._next_run = 0
-        # engine cache: evicted when the field registry changes, and
-        # LRU-bounded; insertion order is LRU order
+        # engine cache, an (engine, float64 check FK) entry a key:
+        # evicted when the field registry changes, and LRU-bounded;
+        # insertion order is LRU order
         self._engine_cache = {}
         self._fields_version = 0
         # the last trajectory check's sizes: samples per problem, spheres,
@@ -760,13 +761,8 @@ class CHOMPModule:
             for i in range(n_points):
                 traj[i, :7] = np_pose.normalize(traj[i, :7])
 
-        # chomp.c:239-428; under start_tsr the start point is free.  The
-        # semiseparable metric for long default-metric trajectories (JAX
-        # api.py:733-737) builds no m×m operator
-        use_sep = (metric_mod.sep_eligible(D, start_tsr is None)
-                   and m >= metric_mod.SEP_MIN_M)
-        ops = None if use_sep else metric_mod.build_metric(
-            m, spec.dt, D=D, has_init0=start_tsr is None)
+        # chomp.c:239-428; under start_tsr the start point is free (the
+        # engine chooses and builds the metric)
         init0 = None if start_tsr is not None else traj[0]
         # joint limits (orcdchomp_mod.cpp:2638-2660); the base is free
         lo = np.asarray(r.model.dof_limits_lower, dtype=np.float64)
@@ -812,26 +808,29 @@ class CHOMPModule:
                 raise ValueError("con_tsr type must be start, end, or all")
         cons = TSRConstraintSet.build(entries)
 
-        # the engine, shared by creates of the same static structure
-        # (api.py:792-809); the model is keyed by identity (grab and
-        # release make a new one), the fields by their registry version,
-        # the hook by identity (the cached engine holds it, so its id is
-        # not reused while the entry lives)
+        # the engine and the float64 FK of the trajectory check, shared
+        # by creates of the same static structure (api.py:792-809); the
+        # model is keyed by identity (grab and release make a new one),
+        # the fields by their registry version, the hook by identity (the
+        # cached engine holds it, so its id is not reused while the entry
+        # lives)
         key = (spec, id(r.model), self._fields_version, cons,
                None if start_cost is None else id(start_cost))
-        engine = self._engine_cache.pop(key, None)
-        profiling.count("engine_cache.hit" if engine is not None
+        entry = self._engine_cache.pop(key, None)
+        profiling.count("engine_cache.hit" if entry is not None
                         else "engine_cache.miss")
-        if engine is None:
+        if entry is None:
             with phase("module.engine_build"):
-                engine = ChompEngine(
+                entry = (ChompEngine(
                     spec, r.model,
                     pad_stack_grids([s.grid for s in self.sdfs],
                                     self.device, self.dtype),
-                    dtype=self.dtype, device=self.device, metric_ops=ops,
-                    seed=seed, cons=cons, extra_cost=start_cost,
-                    metric_mode="sep" if use_sep else "dense")
-        self._engine_cache[key] = engine   # at the back: most recent
+                    dtype=self.dtype, device=self.device, seed=seed,
+                    cons=cons, extra_cost=start_cost),
+                    CompiledFK(r.model, dtype=torch.float64,
+                               device=self.device))
+        self._engine_cache[key] = entry    # at the back: most recent
+        engine, check_fk = entry
         self._evict_engines()
         B, trC, Evels = engine.build_affine(init0, traj[-1], n)
 
@@ -873,7 +872,7 @@ class CHOMPModule:
         self._next_run += 1
         self.runs[handle] = Run(
             engine=engine, problem=problem, spec=spec, robot=r,
-            fk=CompiledFK(r.model, dtype=torch.float64, device=self.device),
+            fk=check_fk,
             n_points=n_points, draw=HmcDraw(seed, self.device),
             dat_filename=dat_filename, no_report_cost=bool(no_report_cost),
             trace_id=profiling.current_request())
@@ -1098,8 +1097,7 @@ class CHOMPModule:
                     bp[..., 3:], dim=-1, keepdim=True)], dim=-1)
                 bpos = tuple(bp[..., i].T for i in range(3))
                 bq = tuple(bp[..., i].T for i in range(3, 7))
-            x = torch.stack(rn.fk.fk_soa(qT, bpos, bq).x)       # (3,T_s,S,nb)
-            x = x.permute(3, 1, 2, 0)                           # (nb,T_s,S,3)
+            x = rn.fk.fk_soa(qT, bpos, bq).x.permute(3, 1, 2, 0)  # nb,T_s,S,3
             flags = [torch.any(scene_distance(sc, pose_apply(inv, x)) < rad,
                                dim=(1, 2))
                      for sc, inv in zip(scenes, invs)]

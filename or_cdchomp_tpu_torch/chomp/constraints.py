@@ -223,9 +223,8 @@ def eval_tsr_all_soa(spec, fk, probs, T_full, cons: TSRConstraintSet,
     slot = fk._red_slot[ee]
 
     # end-effector pose at the constraint points, (B, C, 3) and (B, C, 4)
-    red = torch.stack((*fk_out.red_pos, *fk_out.red_q))  # (7, n_points, R, B)
-    pose = _pick(red, 1, rows)[:, :, slot].permute(2, 1, 0)
-    pos, q = pose[..., :3], pose[..., 3:]
+    pos, q = (_pick(t, 1, rows)[:, :, slot].permute(2, 1, 0)
+              for t in (fk_out.red_pos, fk_out.red_q))
     if fk.ee_offset is not None:           # off(ee) ∘ ee_origin, folded
         pos, q = _compose(mats, pos, q, *fk.ee_offset)
     twe, t0w = probs.tsr_Twe_inv, probs.tsr_T0w_inv           # (B, C, 7)
@@ -240,9 +239,8 @@ def eval_tsr_all_soa(spec, fk, probs, T_full, cons: TSRConstraintSet,
     # spatial Jacobian of the ee link about the world origin, (B, C, 6, n)
     arm = None
     if fk.n_dof:
-        axes = _pick(torch.stack((*fk_out.axis_w, *fk_out.anch_pos), dim=-1),
-                     0, rows)                                   # (C, D, B, 6)
-        aw, ow = axes[..., :3], axes[..., 3:]
+        aw, ow = (_pick(t, 1, rows).permute(1, 2, 3, 0)         # (C, D, B, 3)
+                  for t in (fk_out.axis_w, fk_out.anch_pos))
         lin = torch.linalg.cross(aw, -ow, dim=-1)               # a × (0 − o)
         zero = torch.zeros_like(aw)
         rev = fk._jt_rev.view(-1, 1, 1)                         # (D, 1, 1)

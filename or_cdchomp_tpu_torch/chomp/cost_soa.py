@@ -85,7 +85,7 @@ def sphere_kinematics(spec, fk, probs):
             fk_out = fk.fk_soa(Tt, tuple(base[:, i] for i in range(3)),
                                tuple(base[:, i] for i in range(3, 7)))
     with phase("pre_velsaccs"):
-        X = torch.stack(fk_out.x)                       # (3, n_points, S, B)
+        X = fk_out.x                                    # (3, n_points, S, B)
         vel = (X[:, 2:] - X[:, :-2]) / (2.0 * dt)
         acc = (X[:, :-2] - 2.0 * X[:, 1:-1] + X[:, 2:]) / (dt * dt)
         if spec.start_tsr:
@@ -133,10 +133,8 @@ def total_cost_grad_batched(spec, fk, fields, pairs, radii_act, probs,
     with phase("jtmap"):
         w = w_obs + w_self
         lo, m = mov_lo(spec), spec.m
-        anch_mov = tuple(c[lo:lo + m] for c in fk_out.anch_pos)
-        axw_mov = tuple(c[lo:lo + m] for c in fk_out.axis_w)
-        G = fk.apply_sphere_jacT_soa(anch_mov, axw_mov, tuple(x_mov),
-                                     tuple(w))
+        G = fk.apply_sphere_jacT_soa(fk_out.anch_pos[:, lo:lo + m],
+                                     fk_out.axis_w[:, lo:lo + m], x_mov, w)
         G = G.permute(2, 0, 1)                          # (B, m, n_arm)
         if spec.floating_base:
             G = torch.cat([_base_jacT(fk, probs, lo, m, x_mov, w), G],

@@ -304,15 +304,18 @@ class RobotModel:
 
 
 class FkSoA(NamedTuple):
-    """Structure-of-arrays FK outputs (see CompiledFK.fk_soa): component
-    tuples, batch axis last."""
+    """Structure-of-arrays FK outputs (see CompiledFK.fk_soa): each one
+    (c, n_points, ·, B) tensor, components leading and the batch last,
+    as the FK kernel writes it and K1, K2 and the Jᵀ map read it.
+    Iterating a field yields its c components, so ops/soa.py's operators
+    take a field as a vec3 or quat."""
 
-    x: tuple          # vec3 (n_points, S, B) sphere world centres
-    anch_pos: tuple   # vec3 (n_points, D, B) joint frames, pre-motion
-    anch_q: tuple     # quat (n_points, D, B)
-    axis_w: tuple     # vec3 (n_points, D, B) world joint axes
-    red_pos: tuple    # vec3 (n_points, n_red, B) reduced link poses
-    red_q: tuple      # quat (n_points, n_red, B)
+    x: torch.Tensor          # (3, n_points, S, B) sphere world centres
+    anch_pos: torch.Tensor   # (3, n_points, D, B) joint frames, pre-motion
+    anch_q: torch.Tensor     # (4, n_points, D, B)
+    axis_w: torch.Tensor     # (3, n_points, D, B) world joint axes
+    red_pos: torch.Tensor    # (3, n_points, n_red, B) reduced link poses
+    red_q: torch.Tensor      # (4, n_points, n_red, B)
 
 
 def _reduced_chain(model, origin64, subset):
@@ -658,15 +661,15 @@ class CompiledFK:
         base_pos / base_q: vec3 / quat component tuples broadcastable to
         (n_points, B) — (B,) for a fixed per-problem base.
 
-        Returns an FkSoA whose component tuples are each (n_points, ·, B):
-        x sphere world centres (·=S); anch_pos / anch_q joint frames
-        pre-motion (·=D); axis_w world joint axes (·=D); red_pos / red_q
-        reduced-chain link poses (·=n_red).
+        Returns an FkSoA whose fields are each one contiguous (c,
+        n_points, ·, B) tensor: x sphere world centres (·=S); anch_pos /
+        anch_q joint frames pre-motion (·=D); axis_w world joint axes
+        (·=D); red_pos / red_q reduced-chain link poses (·=n_red).
 
         A CPU tensor runs the plain version :meth:`fk_soa_plain`; a CUDA
         tensor launches the FK kernel once (ops/fk.py: its inputs of the
-        FK's dtype, any strides; each output's components the slices of
-        one contiguous (c, n_points, ·, B) tensor) or raises.
+        FK's dtype, any strides; the six fields views of its one output
+        buffer) or raises.
         """
         if qT.device.type == "cpu":
             return self.fk_soa_plain(qT, base_pos, base_q)
@@ -707,22 +710,21 @@ class CompiledFK:
         full = (n_points, B)
         dtype = qT.dtype
 
-        def stack_mid(items, nc):
+        def stack_mid(items, nc):       # (nc, n_points, len(items), B)
             if not items:  # n_dof == 0: no joints, empty middle axis
-                return tuple(torch.zeros((n_points, 0, B), dtype=dtype,
-                                         device=qT.device) for _ in range(nc))
-            return tuple(
-                torch.stack([torch.broadcast_to(it[ci], full) for it in items],
-                            dim=1)
-                for ci in range(nc))
+                return torch.zeros((nc, n_points, 0, B), dtype=dtype,
+                                   device=qT.device)
+            return torch.stack([torch.stack(
+                [torch.broadcast_to(it[ci], full) for it in items], dim=1)
+                for ci in range(nc)])
 
         red_pos = stack_mid([r[0] for r in red], 3)
         red_q = stack_mid([r[1] for r in red], 4)
         # sphere world centres from the reduced poses (offsets pre-folded):
         # every sphere at once, gathered by its reduced-chain slot
-        rp = tuple(cc.index_select(1, self._sphere_slot) for cc in red_pos)
-        rq = tuple(cc.index_select(1, self._sphere_slot) for cc in red_q)
-        x = soa.add(soa.qrot(rq, self._sphere_folded), rp)
+        rp = red_pos.index_select(2, self._sphere_slot)
+        rq = red_q.index_select(2, self._sphere_slot)
+        x = torch.stack(soa.add(soa.qrot(rq, self._sphere_folded), rp))
         return FkSoA(
             x=x,
             anch_pos=stack_mid([a[0] for a in anch], 3),
@@ -736,7 +738,8 @@ class CompiledFK:
         (robot.py:675-721): w·(a×(x−o)) = a·(x×w) − a·(o×Σw).
 
         anchors_pos / axis_w: vec3 of (m, D, B); x / w: vec3 of
-        (m, S, B).  Returns (m, D, B).
+        (m, S, B), each a (3, m, ·, B) tensor or a tuple of its
+        components.  Returns (m, D, B).
         """
         xw = soa.cross(x, w)
         comp = torch.stack((*xw, *w))                       # (6, m, S, B)

@@ -84,13 +84,12 @@ def outputs_per_point(n_dof, n_spheres):
 
 
 def _outputs(flat, P, S, D, R, B):
-    """The six (c, P, K, B) outputs laid end to end in ``flat``, each as
-    a tuple of its components: x, anch_pos, anch_q, axis_w, red_pos,
-    red_q."""
+    """The six (c, P, K, B) outputs laid end to end in ``flat``, each a
+    view of it: x, anch_pos, anch_q, axis_w, red_pos, red_q."""
     out, at = [], 0
     for c, K in ((3, S), (3, D), (4, D), (3, D), (3, R), (4, R)):
         n = c * P * K * B
-        out.append(tuple(flat[at:at + n].view(c, P, K, B)))
+        out.append(flat[at:at + n].view(c, P, K, B))
         at += n
     return out
 
@@ -156,8 +155,8 @@ def fk_soa(table, n_dof, n_spheres, qT, base_pos, base_q):
     dtype and card, each broadcastable to (n_points, B) (a fixed base is
     (B,) or (), a floating one (n_points, B)), any strides.  Returns
     the six outputs x (·=S), anch_pos, anch_q, axis_w (·=D), red_pos,
-    red_q (·=n_red), each a tuple of the (n_points, ·, B) components of
-    one contiguous (c, n_points, ·, B) tensor.  Raises ValueError on
+    red_q (·=n_red), each a contiguous (c, n_points, ·, B) view of one
+    output buffer, in that order.  Raises ValueError on
     another dtype, shape or device, or a table past TABLE_BYTES_MAX."""
     dt = kernels.check_dtype(qT.dtype, "fk_soa")
     if table.dtype != dt:

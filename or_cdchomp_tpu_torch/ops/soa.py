@@ -1,23 +1,18 @@
-# Copied from or_cdchomp_tpu/ops/soa.py: the operators work unchanged on torch tensors.
 """Structure-of-arrays quaternion/vector primitives for the batched
 cost path.
 
-Why this exists: on TPU the minor-most two array dimensions are tiled
-onto the VPU's (8 sublanes × 128 lanes) registers.  The AoS layout the
-per-problem cost path uses — tensors like (B, m, S, 3) or (B, m, 7)
-with a 3/4/7-wide component axis minor — wastes ≥94% of every vector
-register, which is exactly what the compiled-cycle phase report showed
-for the self-collision / FK / Jᵀ phases (≈60% of the step).  The
-batch-native step instead carries each x/y/z (or quaternion) component
-as its *own* array shaped (..., B) with the problem batch minor — every
-elementwise op and every reduction (all over non-batch axes) then runs
-at full lane utilization.
-
-A vec3 is a tuple (x, y, z); a quat is (x, y, z, w); each element an
-array, mutually broadcastable.  Formulas mirror ops/quat.py (Hamilton
-conventions of kin.c:116-271); ``qrot`` uses the two-cross sandwich
-v' = v + w·t + q×t, t = 2(q×v) — identical to the pure quadratic form
-for unit quaternions (kin.c:389-420).
+The step carries every x/y/z (or quaternion) component as its own slice
+of a (c, ..., B) tensor with the problem batch last: the layout the FK
+kernel writes (csrc/fk.cu) and K1, K2 and the Jᵀ map read, so a warp's
+threads load consecutive problems.  These operators take one such
+vec3 or quat as anything whose iteration yields its components: a
+(c, ...) tensor (iterated along its first axis, each component a view)
+or a tuple of tensors, mutually broadcastable, and return a tuple.
+Formulas mirror ops/quat.py (Hamilton conventions of kin.c:116-271);
+``qrot`` uses the two-cross sandwich v' = v + w·t + q×t, t = 2(q×v) —
+identical to the pure quadratic form for unit quaternions
+(kin.c:389-420).  The operators are the JAX package's
+(or_cdchomp_tpu/ops/soa.py), unchanged.
 """
 
 from __future__ import annotations

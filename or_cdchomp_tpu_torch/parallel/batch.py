@@ -99,8 +99,7 @@ def problem_batch_from_grid(problem: ChompProblem, starts, goals, engine,
     copies, the lines and affine terms in float64 on the device),
     ``build.expand`` (the template's leaves that stay, broadcast on the
     device) and ``build.copy`` (the rows cast into the batch's leaves,
-    the seeds' copy).  Counter ``build.rows_on_card``: P for a batch
-    whose rows were built on a card.
+    the seeds' copy).
     """
     dev, dtype = engine.device, engine.dtype
     with phase("build.rows"):
@@ -108,8 +107,6 @@ def problem_batch_from_grid(problem: ChompProblem, starts, goals, engine,
         P_, n = starts.shape
         trajs = engine.straight_lines(starts, goals)
         B, trC, Ev = engine.build_affine_rows(trajs[:, 0], trajs[:, -1])
-        if dev.type == "cuda":
-            profiling.count("build.rows_on_card", P_)
 
     with phase("build.expand"):
         tmpl = problem.to(dev, dtype)
@@ -284,10 +281,6 @@ class BatchSolver:
         step); several parts step in turn, one step each per round, from
         this thread.  A replay is one asynchronous launch, so the cards run
         side by side."""
-        if len(parts) == 1 and parts[0][0] is self.engine:
-            eng, rows, lo, hi = parts[0]
-            rows, costs = eng.iterate_batched(rows, n_iter)
-            return [(eng, rows, lo, hi)], [costs]
         costs = [rows.traj.new_empty((hi - lo, n_iter, 3))
                  for _, rows, lo, hi in parts]
         if n_iter == 0:

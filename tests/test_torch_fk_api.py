@@ -139,13 +139,12 @@ def test_sphere_positions_red_matches_fk_soa(case):
     base = torch.as_tensor(np.concatenate([pos, q], axis=1))[:, None]
     red, anchors = t.red_poses(torch.as_tensor(qT.transpose(2, 0, 1)), base)
     x = t.sphere_positions_red(red)                     # (B, n_points, S, 3)
-    close(x.permute(3, 1, 2, 0), torch.stack(out.x))
-    close(anchors[..., :3].permute(3, 1, 2, 0), torch.stack(out.anch_pos))
+    close(x.permute(3, 1, 2, 0), out.x)
+    close(anchors[..., :3].permute(3, 1, 2, 0), out.anch_pos)
     w = torch.as_tensor(RNG.normal(size=tuple(x.shape)))
     g = t.apply_sphere_jacT(anchors, x, w)              # (B, n_points, D)
-    axis_w = torch.stack(out.axis_w)
-    g_soa = t.apply_sphere_jacT_soa(out.anch_pos, tuple(axis_w),
-                                    out.x, tuple(w.permute(3, 1, 2, 0)))
+    g_soa = t.apply_sphere_jacT_soa(out.anch_pos, out.axis_w, out.x,
+                                    w.permute(3, 1, 2, 0))
     close(g.permute(1, 2, 0), g_soa)
 
 

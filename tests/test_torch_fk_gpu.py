@@ -64,6 +64,23 @@ def test_fk_kernel_robots(cuda, dtype, robot, base):
     _check(fk, inputs(fk, 33, 37, base, dtype, cuda, seed=2))
 
 
+@pytest.mark.parametrize("robot", ["wam7", "no_dof"])
+def test_fk_kernel_fields_share_one_buffer(cuda, robot):
+    """The six FkSoA fields are the kernel's one output buffer, unsplit:
+    (c, n_points, ·, B) views of a single storage, laid end to end in the
+    order x, anch_pos, anch_q, axis_w, red_pos, red_q."""
+    fk = make_fk(robot, torch.float32, cuda)
+    out = fk.fk_soa(*inputs(fk, 9, 40, "fixed", torch.float32, cuda))
+    assert len({t.untyped_storage().data_ptr() for t in out}) == 1
+    at = 0     # in elements: an empty field (no DOF) has no data pointer
+    for t, c in zip(out, (3, 3, 4, 3, 3, 4)):
+        assert isinstance(t, torch.Tensor) and t.is_contiguous()
+        assert t.shape[0] == c and t.shape[1] == 9 and t.shape[3] == 40
+        assert t.storage_offset() == at
+        at += t.numel()
+    assert at * 4 == out.x.untyped_storage().nbytes()
+
+
 def test_fk_kernel_matches_table_walk(cuda):
     """The kernel and its plain version over the same table words."""
     fk = make_fk("urdf_prismatic", torch.float64, cuda)

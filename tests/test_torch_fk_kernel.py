@@ -60,6 +60,24 @@ def test_cpu_fk_soa_is_the_plain_version():
     assert fk_kernel.FK_LAUNCHES == n0
 
 
+@pytest.mark.parametrize("robot, base", [("wam7", "floating"),
+                                         ("no_dof", "fixed")])
+def test_fields_are_batch_last_tensors(robot, base):
+    """Each FkSoA field of the plain version is one contiguous (c,
+    n_points, ·, B) tensor, components leading, as the kernel writes it;
+    iterating it yields its components."""
+    fk = make_fk(robot, F64, "cpu")
+    out = fk.fk_soa(*inputs(fk, 6, 5, base, F64, "cpu"))
+    S, D, R = len(fk.sphere_subset), fk.n_dof, fk.n_red
+    shapes = dict(x=(3, S), anch_pos=(3, D), anch_q=(4, D), axis_w=(3, D),
+                  red_pos=(3, R), red_q=(4, R))
+    for f, (c, K) in shapes.items():
+        t = getattr(out, f)
+        assert isinstance(t, torch.Tensor), f
+        assert tuple(t.shape) == (c, 6, K, 5) and t.is_contiguous(), f
+        assert [tuple(p.shape) for p in t] == [(6, K, 5)] * c, f
+
+
 @pytest.mark.parametrize("robot", sorted(ROBOTS))
 def test_table_layout(robot):
     """The words of the table: per chain entry its fields, per slot the

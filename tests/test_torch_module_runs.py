@@ -19,6 +19,8 @@ import torch
 import or_cdchomp_tpu as oc
 
 import or_cdchomp_tpu_torch as pt
+from or_cdchomp_tpu_torch.chomp import metric as tmetric
+from or_cdchomp_tpu_torch.models.robot import CompiledFK
 from or_cdchomp_tpu_torch.parallel.batch import (BatchSolver,
                                                  problem_batch_from_grid)
 from torch_parity import (GOAL, START, JaxKeyDraw, close, config1_module,
@@ -226,6 +228,42 @@ def test_clear_engine_cache():
     assert mod._engine_cache
     mod.clear_engine_cache()
     assert not mod._engine_cache
+
+
+def test_create_takes_static_parts_from_the_engine_cache(monkeypatch):
+    """A second create for the same robot takes the metric and the
+    trajectory check's float64 FK from the engine cache: it builds no
+    metric and no CompiledFK, and its run shares the first run's check
+    FK.  A grab makes a new model, so the next create builds both anew:
+    the metric, the engine's FK and the check FK."""
+    mod = _small_module()
+    h1 = mod.create(**dict(KW, n_points=7))
+    built = []
+    build_metric, fk_init = tmetric.build_metric, CompiledFK.__init__
+
+    def counted_metric(*a, **kw):
+        built.append("metric")
+        return build_metric(*a, **kw)
+
+    def counted_fk(self, *a, **kw):
+        built.append("fk")
+        fk_init(self, *a, **kw)
+
+    monkeypatch.setattr(tmetric, "build_metric", counted_metric)
+    monkeypatch.setattr(CompiledFK, "__init__", counted_fk)
+    h2 = mod.create(**dict(KW, n_points=7))
+    assert built == []
+    r1, r2 = mod.runs[h1], mod.runs[h2]
+    assert r2.engine is r1.engine and r2.fk is r1.fk
+    assert r2.fk.dtype == torch.float64 and r2.fk.model is r2.robot.model
+
+    robot = mod.robots["wam"]
+    robot.grab(mod.bodies["mug"], robot.model.link_names[-1])
+    r3 = mod.runs[mod.create(**dict(KW, n_points=7))]
+    assert sorted(built) == ["fk", "fk", "metric"]
+    assert r3.engine is not r1.engine and r3.fk is not r1.fk
+    assert r3.fk.model is robot.model
+    assert len(r3.fk.sphere_subset) == len(r1.fk.sphere_subset) + 1
 
 
 def test_batch_from_grid_takes_jax_signature(mods):
