@@ -1,8 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
 Builds the CUDA kernels from or_cdchomp_tpu_torch/csrc (K1 obstacle, K2
-self-collision, the seeded HMC draw, the joint-limit repair, the FK of the
-step), holds each
+self-collision, the seeded HMC draw, the joint-limit repair, the FK and
+the Jᵀ map of the step), holds each
 against its plain PyTorch version at the shapes of the paths below, and
 drives all five of BASELINE's configurations through CHOMPModule and
 BatchSolver, each with the kernel launch counts set to 0 just before it
@@ -36,7 +36,11 @@ iterate(100) (none), and time both in turns with their device idle
 shares (graph_check).  The FK kernel is held against the plain fk_soa
 and timed with its inputs cold, beside its byte bound, at configs 1 and
 5's shapes (101 points, B = 256 and 10,240) and at the float64
-trajectory check's of a B = 1 gettraj.  The limits kernel is held
+trajectory check's of a B = 1 gettraj.  The Jᵀ map kernel is held
+against its plain version and the step's plain phase on config 1's and
+config 5's own step inputs and timed with them cold, beside its byte
+bound (``--jtmap`` adds config 4, the tray and float64).  The limits
+kernel is held
 against its plain
 version at config 1's shape with rows pushed out of their limits, in
 float32 and float64, and at m = 999 (the semiseparable metric).
@@ -136,6 +140,7 @@ Any failed phase exits non-zero.
                                       # (NCCL, one per card, on 4 cards)
     python3 chip_smoke.py --cards 4   # one process over 4 cards
     python3 chip_smoke.py --fk        # the build and the FK kernel alone
+    python3 chip_smoke.py --jtmap     # the build and the Jᵀ map kernel alone
 
 ``--cards N`` (a machine of N >= 2 cards): every kernel launched on the
 last card with cuda:0 current against its plain version; then
@@ -1352,12 +1357,116 @@ def fk_phase(torch, pt, card, mod, run, probs):
     return entries
 
 
+def jtmap_inputs(torch, engine, probs):
+    """The Jᵀ map's inputs on a batch's own step: (anchors, axes, x_mov,
+    w_obs, w_self) as total_cost_grad_batched hands them over (the
+    anchors and axes views of the FK's outputs), and the FK's whole
+    anchor and axis outputs they are views of."""
+    from or_cdchomp_tpu_torch.chomp import cost_soa
+
+    spec = engine.spec
+    fk_out, x_mov, vel, acc = cost_soa.sphere_kinematics(spec, engine.fk,
+                                                         probs)
+    _, w_obs = cost_soa._obstacle_soa(engine.fields, engine.radii_act,
+                                      probs, x_mov, vel, acc)
+    _, w_self = cost_soa._selfcol_soa((*engine.pairs, engine.pair_layout),
+                                      probs, x_mov, vel)
+    torch.cuda.synchronize()
+    return x_mov, w_obs, w_self, fk_out.anch_pos, fk_out.axis_w
+
+
+def jtmap_views(spec, x_mov, w_obs, w_self, anch, axes):
+    """jtmap's (anchors, axes, x, w_obs, w_self) from the whole FK
+    outputs: the moving points' views, as the step takes them."""
+    from or_cdchomp_tpu_torch.chomp.cost_soa import mov_lo
+
+    lo, m = mov_lo(spec), spec.m
+    return (anch[:, lo:lo + m], axes[:, lo:lo + m], x_mov, w_obs, w_self)
+
+
+def jtmap_entry(torch, name, engine, probs, card):
+    """The Jᵀ map kernel (csrc/jtmap.cu) on a batch's own step inputs:
+    against its plain version reading the same table (jtmap_table_ref)
+    and against the step's plain phase (cost_soa._jacT_plain, the
+    parent's code), one launch a call; both timed with the inputs cold
+    (each call a copy from cold_ring); its entry, beside its byte bound."""
+    from or_cdchomp_tpu_torch.chomp import cost_soa
+    from or_cdchomp_tpu_torch.ops import jtmap
+
+    spec, fk = engine.spec, engine.fk
+    f64 = fk.dtype == torch.float64
+    rtol = F64_KERNEL_RTOL if f64 else KERNEL_RTOL
+    totals = spec.floating_base
+    whole = jtmap_inputs(torch, engine, probs)
+    args = jtmap_views(spec, *whole)
+    jtmap.JT_LAUNCHES = 0
+    G, tot = jtmap.jtmap(fk.jt_table, fk.n_dof, *args, totals=totals)
+    torch.cuda.synchronize()
+    check(jtmap.JT_LAUNCHES == 1,
+          f"{name}: {jtmap.JT_LAUNCHES} launches for one call")
+    G_ref, tot_ref = jtmap.jtmap_table_ref(fk.jt_table, fk.n_dof, *args,
+                                           totals=totals)
+    G_pl, tot_pl = cost_soa._jacT_plain(fk, *args, totals)
+    err_ref = compare(torch, f"{name} G vs table walk", G, G_ref, rtol=rtol)
+    err = compare(torch, f"{name} G vs plain phase", G, G_pl, rtol=rtol)
+    if totals:
+        err_ref = max(err_ref, compare(torch, f"{name} totals vs table walk",
+                                       tot, tot_ref, rtol=rtol))
+        err = max(err, compare(torch, f"{name} totals vs plain phase", tot,
+                               tot_pl, rtol=rtol))
+    same = torch.equal(G, G_ref) and (not totals or torch.equal(tot,
+                                                                 tot_ref))
+    del G, tot, G_ref, tot_ref, G_pl, tot_pl
+    cold = cold_ring(whole)
+    t = timings(torch,
+                lambda: jtmap.jtmap(fk.jt_table, fk.n_dof,
+                                    *jtmap_views(spec, *cold()),
+                                    totals=totals),
+                lambda: cost_soa._jacT_plain(
+                    fk, *jtmap_views(spec, *cold()), totals), 5)
+    del cold
+    _, m, S, B = args[2].shape
+    D = fk.n_dof
+    # the plain phase is ~34 aten passes; no one PyTorch call computes it
+    entry = kernel_entry(
+        name, "or_cdchomp_tpu_torch/csrc/jtmap.cu",
+        "none (or_cdchomp_tpu/models/robot.py apply_sphere_jacT_soa is "
+        "plain jnp)", err, t,
+        jtmap.traffic_bytes(m, S, D, B, args[2].element_size(), totals),
+        jtmap.flops(fk.jt_table, D, m, B, totals),
+        FP64_FLOPS_PER_S if f64 else FP32_FLOPS_PER_S)
+    print(f"{name} ({fk.dtype}, m={m}, B={B}, D={D}, S={S}, totals "
+          f"{totals}): max_abs_err {err} vs the plain phase (rtol {rtol}), "
+          f"{err_ref} vs the table walk (bit-equal {same}); inputs cold, "
+          f"per call {t[0]:.4f} ms vs plain {t[1]:.4f} ms; device "
+          f"{entry['ms']} ms vs plain {entry['plain_ms']} ms, bound "
+          f"{entry['bound_ms']} ms ({entry['bound_by']}, {entry['bytes']} "
+          f"B), share {entry['bound_share']:.4f} on {card}")
+    return entry
+
+
+def jtmap_phase(torch, pt, card, run, probs):
+    """The Jᵀ map kernel at the main path's shapes: config 1's B = 256
+    and config 5's B = 10,240 (99 moving points, 15 active spheres,
+    float32); returns their entries.  Config 4's floating base, the
+    tray's 125 active spheres and float64 are jtmap_main's."""
+    from or_cdchomp_tpu_torch.parallel.batch import problem_batch_from_grid
+
+    engine = run.engine
+    entries = [jtmap_entry(torch, "jtmap", engine, probs, card)]
+    starts5, goals5 = bench_endpoints(BATCH_POD)
+    probs5 = problem_batch_from_grid(run.problem, starts5, goals5, engine)
+    entries.append(jtmap_entry(torch, "jtmap_b10240", engine, probs5, card))
+    return entries
+
+
 def counts_zero(sdf_lookup, selfcol, draw=None):
-    from or_cdchomp_tpu_torch.ops import fk, limits
+    from or_cdchomp_tpu_torch.ops import fk, jtmap, limits
 
     sdf_lookup.LAUNCHES = 0
     selfcol.LAUNCHES = 0
     fk.FK_LAUNCHES = 0
+    jtmap.JT_LAUNCHES = 0
     limits.LAUNCHES = 0
     if draw is not None:
         draw.LAUNCHES = 0
@@ -4221,6 +4330,55 @@ def fk_main():
     return 0
 
 
+def jtmap_main():
+    """``chip_smoke.py --jtmap``: the build (with ptxas's report) and the
+    Jᵀ map kernel alone: jtmap_phase, then config 4's floating base (its
+    totals written), the tray's 125 active spheres (config 1 holding the
+    grab phase's tray) and config 1 in float64, each at B = 256."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(card)
+    import or_cdchomp_tpu_torch as pt
+    from or_cdchomp_tpu_torch.ops import kernels
+    from or_cdchomp_tpu_torch.parallel.batch import problem_batch_from_grid
+
+    build_kernels(kernels)
+    dev = torch.device("cuda")
+
+    def batch(run, ends):
+        return problem_batch_from_grid(run.problem, *ends, run.engine)
+
+    mod, run = bench_module(pt, torch.float32, dev)
+    entries = jtmap_phase(torch, pt, card, run,
+                          batch(run, bench_endpoints(BATCH)))
+    CACHE_DIR.mkdir(parents=True, exist_ok=True)
+    run4 = config4_run(pt, torch.float32, dev)
+    entries.append(jtmap_entry(torch, "jtmap_config4", run4.engine,
+                               batch(run4, run_endpoints(run4, BATCH)),
+                               card))
+    grab_tray(pt, mod)
+    run_t = mod.runs[mod.create(**run_kw())]
+    check(run_t.engine.n_spheres_active == 125,
+          f"tray: {run_t.engine.n_spheres_active} active spheres")
+    entries.append(jtmap_entry(torch, "jtmap_tray", run_t.engine,
+                               batch(run_t, bench_endpoints(BATCH)), card))
+    _, run64 = bench_module(pt, torch.float64, dev)
+    entries.append(jtmap_entry(torch, "jtmap_f64", run64.engine,
+                               batch(run64, bench_endpoints(BATCH)), card))
+    print(json.dumps({"kernels": entries}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def split_main(nranks):
     """``chip_smoke.py --split N``: split_solve alone over N ranks, one per
     card where the machine has N cards (NCCL), else sharing them (gloo)."""
@@ -4383,6 +4541,8 @@ def main():
 
     # the FK kernel at configs 1 and 5's shapes and the float64 check's
     entries_fk = fk_phase(torch, pt, card, mod1, run, probs)
+    # the Jᵀ map kernel at configs 1 and 5's shapes
+    entries_fk += jtmap_phase(torch, pt, card, run, probs)
 
     # -- the main path --------------------------------------------------------
     counts_zero(sdf_lookup, selfcol)
@@ -4396,6 +4556,13 @@ def main():
           f"(first call, the step's capture included), launches {launches}")
     check_launches(counts(sdf_lookup, selfcol), N_ITER, "config 1",
                    steps=N_ITER)
+    from or_cdchomp_tpu_torch.ops import jtmap
+
+    check(jtmap.JT_LAUNCHES == N_ITER, f"config 1: the Jᵀ map kernel "
+          f"launched {jtmap.JT_LAUNCHES} times, expected {N_ITER}")
+    for r in entries_fk:
+        if r["name"] == "jtmap":
+            r["launches"] = jtmap.JT_LAUNCHES
     for r in results + entries_fk[:1]:
         r["launches"] = launches[r["name"]]
     check(tuple(costs.shape) == (N_ITER, BATCH, 3), f"costs {costs.shape}")
@@ -4710,6 +4877,8 @@ if __name__ == "__main__":
             sys.exit(script_child(sys.argv[2]))
         if sys.argv[1:2] == ["--fk"]:
             sys.exit(fk_main())
+        if sys.argv[1:2] == ["--jtmap"]:
+            sys.exit(jtmap_main())
         sys.exit(main())
     except PhaseFailed as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)

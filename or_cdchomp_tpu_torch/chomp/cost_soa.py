@@ -7,7 +7,8 @@ batch at once: every x/y/z component is its own slice of a (3, ...)
 tensor and the problem batch is the last axis, which is the layout the
 two kernels read with coalesced loads.  The obstacle phase runs kernel
 K1 (ops/sdf_lookup.py), the self-collision phase kernel K2
-(ops/selfcol.py).  A floating base takes its pose from the first 7
+(ops/selfcol.py), and on a card the Jᵀ map one kernel launch
+(ops/jtmap.py).  A floating base takes its pose from the first 7
 columns of each trajectory point and adds the base's Jᵀ block to the
 gradient.
 """
@@ -16,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from or_cdchomp_tpu_torch.ops.jtmap import jtmap
 from or_cdchomp_tpu_torch.ops.sdf_lookup import obstacle
 from or_cdchomp_tpu_torch.ops.selfcol import selfcol_pairs
 from or_cdchomp_tpu_torch.utils.profiling import phase
@@ -97,15 +99,39 @@ def sphere_kinematics(spec, fk, probs):
     return fk_out, x_mov, vel, acc
 
 
-def _base_jacT(fk, probs, lo, m, x_mov, w):
+def _base_jacT(fk, probs, lo, m, sums):
     """The floating base's block of G (orcdchomp_mod.cpp:1050-1086,
     cost_soa.py:699-743): damp·pose_jac(base)ᵀ·[Σ_s x×w; Σ_s w] per
     moving point (points lo .. lo + m − 1), with pose_jac stacked as
-    (B, m, 6, 7).  x_mov, w (3, m, S, B).  Returns (B, m, 7)."""
-    xw = torch.linalg.cross(x_mov, w, dim=0)
-    s = torch.cat([xw, w]).sum(dim=2).permute(2, 1, 0)      # (B, m, 6)
+    (B, m, 6, 7).  sums: those totals, (6, m, B).  Returns (B, m, 7)."""
+    s = sums.permute(2, 1, 0)                               # (B, m, 6)
     Jsp = fk.mats.pose_jac(probs.traj[:, lo:lo + m, :7])
     return _BASE_JAC_DAMP * torch.matmul(s[..., None, :], Jsp)[..., 0, :]
+
+
+def _jacT_plain(fk, anchors_pos, axis_w, x_mov, w_obs, w_self, totals):
+    """Plain version of the Jᵀ map kernel (ops/jtmap.py ``jtmap``'s
+    arguments and result): ``CompiledFK.apply_sphere_jacT_soa`` on
+    w_obs + w_self, and the totals [Σ_s x×w; Σ_s w] where asked for."""
+    w = w_obs + w_self
+    G = fk.apply_sphere_jacT_soa(anchors_pos, axis_w, x_mov, w)
+    if not totals:
+        return G, None
+    xw = torch.linalg.cross(x_mov, w, dim=0)
+    return G, torch.cat([xw, w]).sum(dim=2)
+
+
+def _jacT(spec, fk, fk_out, x_mov, w_obs, w_self):
+    """The Jᵀ map of the moving points' two workspace gradients: (G
+    (m, n_arm, B), the floating base's totals (6, m, B) or None).  On a
+    CUDA tensor one launch of the kernel (ops/jtmap.py), which reads the
+    anchors and axes as views; on the CPU its plain version."""
+    lo, m = mov_lo(spec), spec.m
+    args = (fk_out.anch_pos[:, lo:lo + m], fk_out.axis_w[:, lo:lo + m],
+            x_mov, w_obs, w_self)
+    if x_mov.device.type == "cpu":
+        return _jacT_plain(fk, *args, spec.floating_base)
+    return jtmap(fk.jt_table, fk.n_dof, *args, totals=spec.floating_base)
 
 
 def total_cost_grad_batched(spec, fk, fields, pairs, radii_act, probs,
@@ -118,7 +144,8 @@ def total_cost_grad_batched(spec, fk, fields, pairs, radii_act, probs,
     ``want_grad=False`` (the cost report) skips the Jᵀ map and returns
     G None; the kernels run either way.  Phases as in JAX
     (cost_soa.py:649-690): ``callback_pre`` (``fk``, ``pre_velsaccs``),
-    ``obstacle`` (K1's launch), ``selfcol`` (K2's), ``jtmap``.
+    ``obstacle`` (K1's launch), ``selfcol`` (K2's), ``jtmap`` (on a card
+    the Jᵀ map kernel's launch).
     """
     with phase("callback_pre"):
         fk_out, x_mov, vel, acc = sphere_kinematics(spec, fk, probs)
@@ -131,13 +158,9 @@ def total_cost_grad_batched(spec, fk, fields, pairs, radii_act, probs,
         return (c_obs + c_self) / spec.m, None, fk_out
 
     with phase("jtmap"):
-        w = w_obs + w_self
-        lo, m = mov_lo(spec), spec.m
-        G = fk.apply_sphere_jacT_soa(fk_out.anch_pos[:, lo:lo + m],
-                                     fk_out.axis_w[:, lo:lo + m], x_mov, w)
+        G, sums = _jacT(spec, fk, fk_out, x_mov, w_obs, w_self)
         G = G.permute(2, 0, 1)                          # (B, m, n_arm)
         if spec.floating_base:
-            G = torch.cat([_base_jacT(fk, probs, lo, m, x_mov, w), G],
-                          dim=-1)
+            G = torch.cat([_base_jacT(fk, probs, mov_lo(spec), spec.m,
+                                      sums), G], dim=-1)
     return (c_obs + c_self) / spec.m, G / spec.m, fk_out
-

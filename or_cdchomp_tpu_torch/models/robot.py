@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from or_cdchomp_tpu_torch.ops import fk as fk_kernel
+from or_cdchomp_tpu_torch.ops import jtmap as jt_kernel
 from or_cdchomp_tpu_torch.ops import quat as qt
 from or_cdchomp_tpu_torch.ops import soa
 from or_cdchomp_tpu_torch.ops.spatial import SpatialMats
@@ -495,6 +496,11 @@ class CompiledFK:
             self._sphere_dof_mask_np[None, :, :, None], dtype=dt, device=dev)
         self._jt_rev = to_device(
             (self._jtype_per_dof_np == REVOLUTE)[None, :, None], device=dev)
+        # the chain's structure as the Jᵀ map kernel reads it
+        self.jt_table = to_device(
+            jt_kernel.pack_table(self._jt_suffix, self._sphere_dof_mask_np,
+                                 self._jtype_per_dof_np),
+            dtype=torch.int32, device=dev)
         # the TSR chain's constants: stacked small-matrix tables, the
         # end effector's offset (position, quaternion) and its DOF mask
         self.mats = SpatialMats(dev, dt)

@@ -35,7 +35,7 @@ _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "build"
 _SOURCES = ("obstacle.cu", "selfcol.cu", "draw.cu", "limits.cu",
-            "capture.cu", "fk.cu")
+            "capture.cu", "fk.cu", "jtmap.cu")
 # -fmad=false: the obstacle kernel must round every product and sum the
 # way the plain PyTorch version does, or a query sitting on a cell
 # centre picks the other one-sided neighbour (csrc/obstacle.cu).  The
@@ -76,6 +76,9 @@ _SIGNATURES = {
     # q, q strides (3), base pointers (7), base strides (14), table,
     # words, E, S, D, n_points, B, out, stream
     "cdx_fk_soa": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
+    # input pointers (5), their strides (20), table, words, D, m, B, G,
+    # totals (or null), stream
+    "cdx_jtmap": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     # stream, kinds (or null), cap, count (out)
     "cdx_capture_nodes": (_P, _P, ctypes.c_longlong, _P),
 }
@@ -84,7 +87,8 @@ _SIGNATURES = {
 _SIGNATURES.update({f"{name}_f64": _SIGNATURES[name] for name in (
     "cdx_sdf_cell_lookup", "cdx_obstacle", "cdx_obstacle_launch_info",
     "cdx_obstacle_smem_bytes", "cdx_selfcol", "cdx_selfcol_layout",
-    "cdx_selfcol_launch_info", "cdx_limit_repair", "cdx_fk_soa")})
+    "cdx_selfcol_launch_info", "cdx_limit_repair", "cdx_fk_soa",
+    "cdx_jtmap")})
 
 # the kernels' scalar types: the suffix of each one's entry points
 _SUFFIX = {"float32": "", "float64": "_f64"}

@@ -99,9 +99,11 @@ def test_node_map_counts_the_events_of_a_replay(cuda):
         run.engine.iterate_batched(probs, reps)
         _settle(cuda)
     m = run.engine.stepper(probs).node_map
-    # the whole step: its FK one kernel node (csrc/fk.cu) among ~75
-    assert m is not None and m.nodes > 50
+    # the whole step: its FK (csrc/fk.cu) and its Jᵀ map (csrc/jtmap.cu)
+    # one kernel node each among ~41
+    assert m is not None and m.nodes > 30
     assert m.per_node().count("fk") == 1
+    assert m.per_node().count("jtmap") == 1
     # a CUDA-only profile records: each replay's span, tagged by the map
     assert profiling.recorded() is rec and rec.node_maps == {m.key: m}
     assert [s.tag for s in rec.named("step.replay")] == [m] * reps
